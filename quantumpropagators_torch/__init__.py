@@ -1,0 +1,119 @@
+"""quantumpropagators_torch — the PyTorch/CUDA port of
+:mod:`quantumpropagators`.
+
+Same public names and semantics as the JAX package, on torch tensors:
+controls and pulse shapes, the operator / generator algebra, lattice
+operators, Chebyshev propagation (stepwise through ``propagate`` and
+whole-grid through ``propagate(..., fused=True)``), storage and the
+``check=True`` contract checks.  The TPU Pallas kernels of the
+Chebyshev hot loop are hand-written CUDA kernels for Hopper
+(``csrc/cheby_flip.cu``), built with ``nvcc`` at first use; on CPU
+tensors their plain PyTorch versions run instead.
+
+This package imports ``torch`` and never ``jax``.  Objects built with
+the JAX package are carried over with :func:`interop.from_jax`.
+"""
+
+from .models.controls import (
+    ParameterizedFunction,
+    ParameterPartition,
+    discretize,
+    discretize_on_midpoints,
+    evaluate,
+    get_controls,
+    get_parameters,
+    get_tlist_midpoints,
+    substitute,
+    t_mid,
+)
+from .models.generators import (
+    Generator,
+    Operator,
+    ScaledOperator,
+    coeff_table,
+    hamiltonian,
+    liouvillian,
+)
+from .models.shapes import blackman, box, flattop
+from .models.lattice import (
+    GroupedSiteSum,
+    SiteOperatorSum,
+    transverse_field_ising,
+    transverse_field_ising_2d,
+)
+from .ops.operators import (
+    CSROperator,
+    DiagonalOperator,
+    apply,
+    csr_from_dense,
+    csr_from_scipy,
+    op_dot,
+    to_dense,
+)
+from .ops.specrange import specrange
+from .utils.iddict import IdDict
+from .interop import from_jax, to_numpy
+
+__version__ = "0.1.0"
+
+# Propagator layer (imported late to avoid cycles)
+from .propagators import init_prop, prop_step, reinit_prop, set_state, set_t  # noqa: E402
+from .propagate import propagate, propagate_sequence, Propagation  # noqa: E402
+from .storage import init_storage, map_observables, write_to_storage, get_from_storage  # noqa: E402
+
+__all__ = [
+    # controls
+    "discretize",
+    "discretize_on_midpoints",
+    "get_tlist_midpoints",
+    "t_mid",
+    "evaluate",
+    "get_controls",
+    "get_parameters",
+    "substitute",
+    "ParameterizedFunction",
+    "ParameterPartition",
+    "IdDict",
+    # shapes
+    "flattop",
+    "box",
+    "blackman",
+    # lattice models
+    "SiteOperatorSum",
+    "GroupedSiteSum",
+    "transverse_field_ising",
+    "transverse_field_ising_2d",
+    # generators
+    "Generator",
+    "Operator",
+    "ScaledOperator",
+    "hamiltonian",
+    "liouvillian",
+    "coeff_table",
+    # operators
+    "CSROperator",
+    "DiagonalOperator",
+    "apply",
+    "op_dot",
+    "to_dense",
+    "csr_from_dense",
+    "csr_from_scipy",
+    # methods
+    "specrange",
+    # propagation
+    "init_prop",
+    "prop_step",
+    "reinit_prop",
+    "set_state",
+    "set_t",
+    "propagate",
+    "propagate_sequence",
+    "Propagation",
+    "init_storage",
+    "map_observables",
+    "write_to_storage",
+    "get_from_storage",
+    # interop
+    "from_jax",
+    "to_numpy",
+]

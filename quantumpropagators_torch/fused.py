@@ -1,0 +1,309 @@
+"""Whole-grid propagation on the device: PyTorch port of
+:mod:`quantumpropagators.fused`.
+
+The generic :func:`~quantumpropagators_torch.propagate` entry point steps the
+time grid through a propagator object.  :func:`cheby_propagate_fused`
+instead runs the whole grid as one loop over a per-interval coefficient
+table, with observables evaluated after every step (the device-side
+realization of the reference's ``propagate`` + ``Storage`` pipeline,
+``src/propagate.jl:322-337``).
+
+``kernel`` selects the step:
+
+- ``"xla"``: the generic operator algebra (:func:`.ops.cheby.cheby_apply`
+  in plain PyTorch) — the name is the JAX package's;
+- ``"pallas"``: the hand-written flip kernel in the state's precision
+  (complex64 → ``float``, complex128 → ``double``); needs
+  diagonal-plus-site-flip structure;
+- ``"dd"``: the reference-accuracy tier, complex128 with the flip
+  kernel and an f32 tail;
+- ``"auto"``: the flip kernel when the structure matches and the state
+  is on a CUDA device, else ``"xla"``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .models.generators import Generator, Operator, coeff_table, coeff_table_np
+from .ops.cheby import ChebyWorkspace, cheby_apply
+from .ops.fused_cheby import flip_cheby_step, flip_structure, make_flip_plan
+from .ops.operators import as_tensor
+
+__all__ = ["cheby_propagate_fused", "make_fused_cheby_propagator"]
+
+
+def _scan(step, state, n_steps, observable_fn, store_states):
+    """Run ``state = step(k, state)`` for ``k < n_steps``; returns the
+    final state and the stacked per-step outputs (or ``None``)."""
+    outputs = []
+    for k in range(n_steps):
+        state = step(k, state)
+        if observable_fn is not None:
+            outputs.append(torch.as_tensor(observable_fn(state)))
+        elif store_states:
+            outputs.append(state.clone())
+    return state, (torch.stack(outputs) if outputs else None)
+
+
+def _fused_scan(ops, coeffs_table, psi0, cheby_coeffs, delta, e_min, dt,
+                forward, observable_fn, store_states, apply_fn):
+    """The generic path behind ``kernel="xla"``: one
+    :func:`cheby_apply` per row of the coefficient table."""
+
+    def step(k, psi):
+        return cheby_apply(
+            Operator(ops, coeffs_table[k]), psi, cheby_coeffs, delta, e_min,
+            dt, forward=forward, apply_fn=apply_fn,
+        )
+
+    return _scan(step, psi0, coeffs_table.shape[0], observable_fn,
+                 store_states)
+
+
+def _fused_scan_flip(plan, diag, diag_col, flip_col, coeffs_table, psi0,
+                     cheby_coeffs, delta, e_min, dt, forward, observable_fn,
+                     store_states):
+    """``kernel="pallas"``: the flip kernel in the state's precision,
+    with the diagonal and/or flip amplitude read from the coefficient
+    table per interval."""
+    rdtype = psi0.dtype.to_real()
+    beta = float(delta) / 2.0 + float(e_min)
+    gs = torch.as_tensor(plan.gs, dtype=rdtype, device=psi0.device)
+    diag = diag.to(rdtype)
+    static_dmb = (diag - beta).contiguous() if diag_col is None else None
+
+    def step(k, psi):
+        row = coeffs_table[k]
+        dmb = static_dmb if diag_col is None \
+            else (row[diag_col] * diag - beta).contiguous()
+        G = gs if flip_col is None else gs * row[flip_col]
+        return flip_cheby_step(psi, dmb, G, cheby_coeffs, delta, e_min, dt,
+                               forward=forward)
+
+    return _scan(step, psi0.reshape(-1).contiguous(), coeffs_table.shape[0],
+                 observable_fn, store_states)
+
+
+def _dd_path(fsm, generator, ops, psi0, tlist, workspace, backward,
+             observable_fn, store_states, f32_tail="auto"):
+    """``kernel="dd"``: the complex128 loop for every
+    diagonal-plus-site-flip generator, single or multi amplitude.
+
+    Per interval ``k`` it folds, on the host in float64 and on the
+    device, ``dmb(t_k) = Σ_static diag − β + Σ_l c_l(t_k)·diag_l`` and
+    the per-bit flip table ``G_j(t_k) = Σ_l c_l(t_k)·g_{l,j}``, and runs
+    :func:`~.ops.fused_cheby_dd.cheby_step_fused_dd` with ``G`` as its
+    per-bit ``flip_scale`` (the JAX package's ``_fused_scan_pallas_dd``
+    and ``_fused_scan_pallas_dd_multi`` in one)."""
+    from .ops.fused_cheby_dd import cheby_step_fused_dd, f32_tail_orders
+
+    L, diag_terms, flip_terms = fsm
+    device = psi0.device
+    n_steps = len(tlist) - 1
+    n_ops = len(ops)
+    if isinstance(generator, Operator):
+        cst = np.asarray(torch.as_tensor(generator.coeffs).cpu(),
+                         dtype=np.float64)
+        offc = n_ops - len(cst)
+
+        def series(pos):
+            v = 1.0 if pos < offc else float(cst[pos - offc])
+            return np.full(n_steps, v, dtype=np.float64)
+
+        static_pos = set(range(n_ops))
+    else:
+        # full-precision host table: the controls must not pass through
+        # a lower-precision tensor on their way to the complex128 step
+        table64 = np.asarray(coeff_table_np(generator, tlist),
+                             dtype=np.float64)
+        if backward:
+            table64 = table64[::-1]
+        off = n_ops - table64.shape[1]
+
+        def series(pos):
+            if pos < off:
+                return np.ones(n_steps, dtype=np.float64)
+            return table64[:, pos - off]
+
+        static_pos = set(range(off))
+
+    beta = float(workspace.delta) / 2.0 + float(workspace.e_min)
+    dt = workspace.dt if not backward else -workspace.dt
+
+    dmb_static = torch.full((2 ** L,), -beta, dtype=torch.float64,
+                            device=device)
+    dyn_diags, dyn_cols = [], []
+    for pos, diag64 in diag_terms:
+        if pos in static_pos:
+            dmb_static = dmb_static + float(series(pos)[0]) * diag64.to(device)
+        else:
+            dyn_diags.append(diag64.to(device))
+            dyn_cols.append(series(pos))
+
+    Gbits = np.zeros((n_steps, L), dtype=np.float64)
+    for pos, gs_bits in flip_terms:
+        Gbits = Gbits + np.outer(series(pos), gs_bits)
+    Gbits = torch.as_tensor(Gbits, device=device)
+
+    plan = make_flip_plan(L, 1.0)
+    c64 = np.asarray(workspace.coeffs, dtype=np.float64)
+    dd_tail = f32_tail_orders(c64) if f32_tail == "auto" else int(f32_tail)
+
+    def step(k, psi):
+        dmb = dmb_static
+        for diag64, col in zip(dyn_diags, dyn_cols):
+            dmb = dmb + float(col[k]) * diag64
+        return cheby_step_fused_dd(
+            plan, dmb, psi, c64, workspace.delta, workspace.e_min, dt,
+            forward=not backward, flip_scale=Gbits[k], f32_tail=dd_tail,
+        )
+
+    psi = psi0.reshape(-1).to(torch.complex128).contiguous()
+    return _scan(step, psi, n_steps, observable_fn, store_states)
+
+
+def cheby_propagate_fused(
+    psi0,
+    generator,
+    tlist,
+    *,
+    workspace: Optional[ChebyWorkspace] = None,
+    coeffs_table=None,
+    observable_fn: Optional[Callable] = None,
+    store_states: bool = False,
+    backward: bool = False,
+    apply_fn=None,
+    kernel: str = "auto",
+    f32_tail="auto",
+    **cheby_kwargs,
+):
+    """Propagate ``psi0`` over all of ``tlist``.
+
+    ``observable_fn(psi)`` is evaluated after every step; with
+    ``store_states=True`` the full trajectory ``(nt-1, N)`` is returned
+    instead.  Returns ``(psi_final, outputs)`` where ``outputs`` is
+    stacked over steps (or ``None``).
+
+    ``workspace`` defaults to a :class:`ChebyPropagator`-style workspace
+    from spectral-range estimation; pass one to skip that.
+
+    ``kernel`` is ``"auto"``, ``"xla"``, ``"pallas"`` or ``"dd"`` (see
+    the module docstring).  ``f32_tail`` (``kernel="dd"`` only): the
+    last orders of each step in complex64; ``"auto"`` picks the largest
+    count whose error bound stays under 3e-14 per step
+    (:func:`~.ops.fused_cheby_dd.f32_tail_orders`), ``0`` disables it.
+    """
+    tlist = np.asarray(tlist, dtype=np.float64)
+    psi0 = as_tensor(psi0)
+    if isinstance(generator, tuple):
+        from .models.generators import hamiltonian
+
+        generator = hamiltonian(*generator, check=False)
+    if workspace is None:
+        from .propagators.cheby import ChebyPropagator
+
+        prop = ChebyPropagator(psi0, generator, tlist, **cheby_kwargs)
+        workspace = prop.wrk
+    if coeffs_table is None:
+        coeffs_table = coeff_table(generator, tlist)
+    if backward:
+        coeffs_table = torch.as_tensor(coeffs_table).flip(0)
+    if isinstance(generator, Generator):
+        ops = generator.ops
+    elif isinstance(generator, Operator):
+        ops = generator.ops
+        coeffs_table = torch.as_tensor(generator.coeffs)[None, :].expand(
+            len(tlist) - 1, len(generator.coeffs))
+    else:
+        ops = [generator]
+        coeffs_table = torch.zeros((len(tlist) - 1, 0))
+    # keep the loop dtype-stable: tables in the state's real dtype (an
+    # f64 control table must not promote a complex64 state)
+    rdtype = psi0.dtype.to_real()
+    coeffs_table = torch.as_tensor(coeffs_table)
+    if coeffs_table.is_complex():
+        coeffs_table = coeffs_table.real
+    coeffs_table = coeffs_table.to(dtype=rdtype, device=psi0.device)
+    cheby_coeff_arr = np.asarray(workspace.coeffs, dtype=np.float64)
+    dt = workspace.dt if not backward else -workspace.dt
+    if kernel not in ("auto", "xla", "pallas", "dd"):
+        raise ValueError(f"unknown kernel={kernel!r}")
+    if kernel == "dd":
+        from .ops.fused_cheby import flip_structure_multi
+
+        fsm = flip_structure_multi(list(ops))
+        if fsm is None:
+            raise NotImplementedError(
+                "kernel='dd' without diagonal-plus-site-flip structure "
+                "needs the banded dd kernel (fused._static_dd_path over "
+                "ops/bsr_dd_pallas.py), which is not ported yet: "
+                "ROADMAP B3, the port's slice 2"
+            )
+        return _dd_path(
+            fsm, generator, ops, psi0, tlist, workspace, backward,
+            observable_fn, store_states, f32_tail=f32_tail,
+        )
+    if kernel in ("auto", "pallas") and apply_fn is None:
+        fs = flip_structure(list(ops))
+        if fs is not None and (kernel == "pallas" or psi0.is_cuda):
+            plan, diag, diag_pos, flip_pos = fs
+            off = len(ops) - int(coeffs_table.shape[1])
+            diag_col = diag_pos - off if diag_pos >= off else None
+            flip_col = flip_pos - off if flip_pos >= off else None
+            psi_final, outputs = _fused_scan_flip(
+                plan, diag, diag_col, flip_col, coeffs_table, psi0,
+                cheby_coeff_arr, workspace.delta, workspace.e_min, dt,
+                not backward, observable_fn, store_states,
+            )
+            return psi_final.reshape(psi0.shape), outputs
+        if kernel == "pallas":
+            raise ValueError(
+                "kernel='pallas' requires diagonal-plus-site-flip "
+                "structure (one DiagonalOperator + one X-type "
+                "SiteOperatorSum term)"
+            )
+    return _fused_scan(
+        list(ops), coeffs_table, psi0, cheby_coeff_arr, workspace.delta,
+        workspace.e_min, dt, not backward, observable_fn, store_states,
+        apply_fn,
+    )
+
+
+def make_fused_cheby_propagator(
+    psi0,
+    generator,
+    tlist,
+    *,
+    observable_fn: Optional[Callable] = None,
+    store_states: bool = False,
+    **cheby_kwargs,
+):
+    """Build a reusable propagation function for optimal control:
+    ``fn(psi0, coeffs_table) -> (psi_final, outputs)`` over the generic
+    path, with the workspace fixed once."""
+    tlist = np.asarray(tlist, dtype=np.float64)
+    if isinstance(generator, tuple):
+        from .models.generators import hamiltonian
+
+        generator = hamiltonian(*generator, check=False)
+    from .propagators.cheby import ChebyPropagator
+
+    prop = ChebyPropagator(psi0, generator, tlist, **cheby_kwargs)
+    ws = prop.wrk
+    if isinstance(generator, (Generator, Operator)):
+        ops = list(generator.ops)
+    else:
+        ops = [generator]
+
+    def fn(psi0, coeffs_table):
+        return _fused_scan(
+            ops, torch.as_tensor(coeffs_table), as_tensor(psi0),
+            np.asarray(ws.coeffs), ws.delta, ws.e_min, ws.dt, True,
+            observable_fn, store_states, None,
+        )
+
+    return fn

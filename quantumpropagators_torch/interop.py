@@ -1,0 +1,78 @@
+"""Carrying objects between the JAX package and the port.
+
+:func:`from_jax` turns the JAX package's states, dense arrays, operators
+and generators into the port's, through numpy; :func:`to_numpy` is the
+way back for tensors.  Nothing here imports jax: objects are recognized
+by class name and attributes (``.diag``, ``.site_mats``, ``.L``,
+``.active``, ``.ops``, ``.coeffs``, ``.amplitudes``), so the same code
+also accepts the port's own objects.  Control callables and amplitude
+objects pass through unchanged.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.generators import Generator, Operator, ScaledOperator
+from .models.lattice import GroupedSiteSum, SiteOperatorSum
+from .ops.operators import CSROperator, DiagonalOperator, host_np
+
+__all__ = ["from_jax", "to_numpy"]
+
+
+def _tensor(x, device):
+    return torch.as_tensor(np.array(host_np(x)), device=device)
+
+
+def from_jax(obj, device=None):
+    """The port's counterpart of ``obj`` (a JAX array, a numpy array, an
+    operator, an :class:`Operator`/:class:`Generator`, or a tuple/list
+    of these), with its tensors on ``device`` (default CPU)."""
+    name = type(obj).__name__
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(from_jax(o, device) for o in obj)
+    if name == "DiagonalOperator":
+        return DiagonalOperator(_tensor(obj.diag, device))
+    if name == "SiteOperatorSum":
+        return SiteOperatorSum(_tensor(obj.site_mats, device), L=int(obj.L),
+                               active=tuple(obj.active),
+                               group_bits=int(obj.group_bits))
+    if name == "GroupedSiteSum":
+        return GroupedSiteSum(
+            group_mats=tuple(_tensor(A, device) for A in obj.group_mats),
+            dims=tuple(int(d) for d in obj.dims),
+        )
+    if name == "CSROperator":
+        return CSROperator(
+            data=_tensor(obj.data, device),
+            col=_tensor(obj.col, device).to(torch.int64),
+            row=_tensor(obj.row, device).to(torch.int64),
+            indptr=_tensor(obj.indptr, device).to(torch.int64),
+            shape=tuple(int(n) for n in obj.shape),
+        )
+    if name == "Generator":
+        return Generator([from_jax(op, device) for op in obj.ops],
+                         list(obj.amplitudes))
+    if name == "Operator":
+        return Operator([from_jax(op, device) for op in obj.ops],
+                        np.array(host_np(obj.coeffs)))
+    if name == "ScaledOperator":
+        return ScaledOperator(obj.coeff, from_jax(obj.operator, device))
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device) if device is not None else obj
+    if isinstance(obj, (int, float, complex, np.number)) or callable(obj):
+        return obj
+    if hasattr(obj, "__array__"):
+        return _tensor(obj, device)
+    raise TypeError(f"from_jax: no counterpart for {type(obj)}")
+
+
+def to_numpy(obj):
+    """Host numpy copy of a tensor (any device), recursively through
+    tuples and lists; other objects pass through."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_numpy(o) for o in obj)
+    return obj

@@ -1,0 +1,183 @@
+"""Reference-accuracy fused Chebyshev step: PyTorch port of
+:mod:`quantumpropagators.ops.fused_cheby_dd`.
+
+The JAX package emulates float64 on f32-only TPUs with double-float
+(hi/lo f32) planes.  The H100 has native FP64, and a complex128 element
+is the same 16 bytes as the four dd planes, so this tier is plain
+complex128: the state is a complex128 tensor, ``dmb``/``coeffs`` are
+float64, and every polynomial order is one launch of the ``double``
+instance of :mod:`.cheby_flip`.  The names (``cheby_step_fused_dd``,
+``f32_tail``, ``fast=``) stay so that the JAX package's callers have a
+counterpart.
+
+The mixed-precision tail is kept: the last :func:`f32_tail_orders`
+orders run in complex64 (the ``float`` kernel instance) on copies of
+``v0``/``v1``, their Φ contribution is accumulated separately and added
+in complex128 at the end — the JAX package's
+``_tail_component_kernel`` scheme.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cheby_flip import cheby_flip_first, cheby_flip_iter
+from .fused_cheby import FlipPlan, make_flip_plan
+
+__all__ = [
+    "cheby_step_fused_dd", "make_flip_plan", "dd_tile_rows",
+    "f32_tail_orders",
+]
+
+# the JAX package's TPU variants of the dd kernel; all compute the same
+# operator and map to the one CUDA kernel here
+_VARIANTS = ("lomxu", "twosum", "sigma", "rows", "tlane", "xcross", "mxq")
+
+
+def f32_tail_orders(coeffs, per_step_budget: float = 3e-14,
+                    eps32: float = 3e-7) -> int:
+    """Number of TAIL polynomial orders safe to run in pure f32.
+
+    The f32 iteration perturbs ``v_k`` by ~``eps32`` relative per
+    order.  A perturbation injected at order ``k`` propagates through
+    the three-term recurrence with second-kind-Chebyshev sensitivity —
+    it reaches order ``j ≥ k`` with norm up to ``U_{j-k} ≤ j-k+1`` —
+    so its Φ weight is ``W(k) = Σ_{j≥k}|a_j|·(j-k+1)``, NOT the plain
+    tail sum.  The tail as a whole therefore contributes up to
+    ``eps32·(W(k0) + Σ_{k≥k0} W(k))``: one ``W(k0)`` for the one-time
+    f32 merge of the carry planes at the entry order ``k0``, plus one
+    ``W(k)`` per f32 iteration.  Returns the largest ``m = n - k0``
+    such that that bound stays under ``per_step_budget`` — the dd
+    kernels handle orders below ``k0``, the f32 tail kernel the rest.
+    (The Bessel tail decays superexponentially, so the quadratic
+    weights move ``k0`` by at most an order or two vs the plain sum.)
+    Mirrors the truncation logic of the reference's coefficient loop
+    (``src/cheby.jl:22-48``) one precision tier down."""
+    a = np.abs(np.asarray(coeffs, dtype=np.float64))
+    n = len(a)
+    j = np.arange(n, dtype=np.float64)
+
+    def bound(k0: int) -> float:
+        # W(k) = Σ_{j≥k} |a_j|·(j-k+1);  Σ_{k0≤k} W(k) telescopes to
+        # Σ_{j≥k0} |a_j|·(j-k0+1)(j-k0+2)/2.  Merge term adds W(k0).
+        d = j[k0:] - k0 + 1.0
+        aj = a[k0:]
+        return float((aj * (d + d * (d + 1.0) / 2.0)).sum())
+
+    k0 = n
+    while k0 > 2 and bound(k0 - 1) * eps32 < per_step_budget:
+        k0 -= 1
+    return n - k0
+
+
+def dd_tile_rows(L: int, budget_bytes: int = 100 * 2 ** 20) -> int:
+    """Tile height of the JAX package's TPU plan, kept for API parity:
+    the CUDA kernels do not tile, so this only feeds
+    :func:`make_flip_plan`."""
+    return min(1024, 1 << (L - 7))
+
+
+def _flip_coeffs(plan: FlipPlan, flip_scale, extra_gs, device):
+    """Per-bit float64 flip coefficients ``g_j·flip_scale_j`` for the L
+    local bits and the extra (remote) bits."""
+    base = torch.as_tensor(list(plan.gs) + [float(g) for g in extra_gs],
+                           dtype=torch.float64, device=device)
+    if flip_scale is None:
+        return base
+    fs = torch.as_tensor(flip_scale, dtype=torch.float64, device=device)
+    if fs.ndim > 0 and tuple(fs.shape) != tuple(base.shape):
+        raise ValueError(
+            f"per-bit flip_scale must have shape ({base.shape[0]},) = "
+            f"(local bits + extra bits), got {tuple(fs.shape)}"
+        )
+    return base * fs
+
+
+def cheby_step_fused_dd(
+    plan: FlipPlan,
+    dmb,
+    state,
+    coeffs,
+    delta,
+    e_min,
+    dt,
+    *,
+    forward: bool = True,
+    flip_scale=None,
+    f32_tail: int = 0,
+    extra_nb_fn=None,
+    extra_nb_hi_fn=None,
+    extra_gs: tuple = (),
+    fast="lomxu",
+):
+    """One reference-accuracy Chebyshev step ``exp(-i H dt)·state``,
+    ``H = diag + Σ_j g_j·flip_scale_j·X_j``.
+
+    ``state`` is a flat complex128 ``2^L`` tensor (not modified);
+    ``dmb`` the float64 ``diag − β`` (β = Δ/2 + E_min); ``coeffs`` the
+    float64 Chebyshev coefficients.  ``flip_scale`` is ``None``, a
+    scalar, or a per-bit vector of length ``L + len(extra_gs)``.
+
+    ``extra_nb_fn(v) -> [v_r, ...]`` (optional) delivers, for each extra
+    bit ``r`` held outside this state (e.g. on another device), the
+    state with that bit flipped; it enters with coefficient
+    ``extra_gs[r]·flip_scale[L+r]``.  ``extra_nb_hi_fn`` is its complex64
+    companion for the f32 tail; without it the tail is disabled so that
+    accuracy never silently degrades.
+
+    ``f32_tail`` runs the last orders in complex64 (see
+    :func:`f32_tail_orders`), capped at ``len(coeffs) − 3``.  ``fast``
+    accepts the JAX package's variant names; all map to the one kernel.
+    """
+    if fast not in (True, False, None) and fast not in _VARIANTS:
+        raise ValueError(f"unknown dd variant fast={fast!r}")
+    c64 = np.asarray(coeffs, dtype=np.float64)
+    n_orders = len(c64)
+    f32_tail = int(f32_tail)
+    if extra_nb_fn is not None and extra_nb_hi_fn is None:
+        f32_tail = 0
+    f32_tail = max(0, min(f32_tail, n_orders - 3))
+
+    device = state.device
+    G_all = _flip_coeffs(plan, flip_scale, extra_gs, device)
+    G = G_all[: plan.L].contiguous()
+    G_extra = G_all[plan.L:]
+    beta = float(delta) / 2.0 + float(e_min)
+    s = (-1.0 if forward else 1.0) * 2.0 / float(delta)
+    dmb = dmb.reshape(-1).to(torch.float64).contiguous()
+
+    def extra_w(v, fn, g):
+        if fn is None:
+            return None
+        w = None
+        for gr, nb in zip(g, fn(v)):
+            term = gr * nb.reshape(-1)
+            w = term if w is None else w + term
+        return w
+
+    k_dd_end = n_orders - f32_tail  # complex128 handles orders [0, k_dd_end)
+    v0 = state.reshape(-1)
+    v1, phi = cheby_flip_first(v0, dmb, G, s, c64[0], c64[1],
+                               extra_w(v0, extra_nb_fn, G_extra))
+    for k in range(2, k_dd_end):
+        v2 = cheby_flip_iter(v0, v1, phi, dmb, G, 2.0 * s, c64[k],
+                             extra_w(v1, extra_nb_fn, G_extra),
+                             out=torch.empty_like(v1) if k == 2 else None)
+        v0, v1 = v1, v2
+
+    if f32_tail:
+        t0 = v0.to(torch.complex64)
+        t1 = v1.to(torch.complex64)
+        pht = torch.zeros_like(t0)
+        dmb32 = dmb.to(torch.float32)
+        G32 = G.to(torch.float32)
+        G_extra32 = G_extra.to(torch.float32)
+        for k in range(k_dd_end, n_orders):
+            t2 = cheby_flip_iter(t0, t1, pht, dmb32, G32, 2.0 * s, c64[k],
+                                 extra_w(t1, extra_nb_hi_fn, G_extra32))
+            t0, t1 = t1, t2
+        phi = phi + pht.to(torch.complex128)
+
+    out = complex(np.exp(-1j * beta * float(dt))) * phi
+    return out.reshape(state.shape)

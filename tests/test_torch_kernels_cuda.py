@@ -1,0 +1,83 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions,
+and the fused path on the card against the same path on the CPU.
+Needs an NVIDIA GPU with nvcc (``-m cuda``); skips without one."""
+
+import numpy as np
+import pytest
+import torch
+
+import quantumpropagators_torch as qt
+from quantumpropagators_torch.fused import cheby_propagate_fused
+from quantumpropagators_torch.ops import cheby_flip as cf
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _inputs(L, cdtype, device, seed=3):
+    rdtype = torch.float32 if cdtype == torch.complex64 else torch.float64
+    rng = np.random.default_rng(seed)
+
+    def vec():
+        v = rng.standard_normal(2 ** L) + 1j * rng.standard_normal(2 ** L)
+        return torch.as_tensor(v / np.linalg.norm(v)).to(device, cdtype)
+
+    dmb = torch.as_tensor(rng.standard_normal(2 ** L) - 2.5).to(device, rdtype)
+    G = torch.as_tensor(rng.uniform(0.5, 1.5, L)).to(device, rdtype)
+    return vec(), vec(), vec(), dmb, G
+
+
+@pytest.mark.parametrize("cdtype, tol", [(torch.complex64, 1e-6),
+                                         (torch.complex128, 1e-14)])
+@pytest.mark.parametrize("with_w", [False, True])
+def test_kernels_match_plain(cuda, cdtype, tol, with_w):
+    v0, v1, phi, dmb, G = _inputs(12, cdtype, cuda)
+    w = v1.flip(0).contiguous() if with_w else None
+    cf.reset_launches()
+    got = cf.cheby_flip_first(v0, dmb, G, -0.07, 0.8, -0.4, w)
+    want = cf.cheby_flip_first_plain(v0, dmb, G, -0.07, 0.8, -0.4, w)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) < tol
+    k0, kphi = v0.clone(), phi.clone()
+    p0, pphi = v0.clone(), phi.clone()
+    cf.cheby_flip_iter(k0, v1, kphi, dmb, G, -0.14, 0.3, w)
+    cf.cheby_flip_iter_plain(p0, v1, pphi, dmb, G, -0.14, 0.3, w)
+    torch.cuda.synchronize()
+    assert float((k0 - p0).abs().max()) < tol
+    assert float((kphi - pphi).abs().max()) < tol
+    ctype = "float" if cdtype == torch.complex64 else "double"
+    assert cf.LAUNCHES[f"cheby_flip_first<{ctype}>"] == 1
+    assert cf.LAUNCHES[f"cheby_flip_iter<{ctype}>"] == 1
+
+
+def test_fused_path_on_card_matches_cpu(cuda):
+    L = 11
+    tlist = np.linspace(0.0, 0.5, 11)
+    rng = np.random.default_rng(4)
+    psi = rng.standard_normal(2 ** L) + 1j * rng.standard_normal(2 ** L)
+    psi = torch.as_tensor(psi / np.linalg.norm(psi))
+    bound = (L - 1) + 0.3 * L + 1.2 * L
+    kw = dict(specrange_method="manual", E_min=-bound - 0.4, E_max=bound)
+    out = {}
+    for device in ("cpu", cuda):
+        Hd, Hx = qt.transverse_field_ising(L, g=1.2, h=0.3, device=device,
+                                           dtype=torch.complex128)
+        gen = qt.hamiltonian(Hd, (Hx, lambda t: 0.9 + 0.3 * np.sin(t)))
+        for kernel in ("dd", "pallas"):
+            p0 = psi.to(device)
+            if kernel == "pallas":
+                p0 = p0.to(torch.complex64)
+            cf.reset_launches()
+            res, _ = cheby_propagate_fused(p0, gen, tlist, kernel=kernel, **kw)
+            launched = sum(cf.LAUNCHES.values())
+            assert launched == 0 if device == "cpu" else launched > 0
+            out[str(device), kernel] = res.cpu()
+    assert float((out["cuda:0", "dd"] - out["cpu", "dd"]).abs().max()) < 1e-12
+    assert float((out["cuda:0", "pallas"]
+                  - out["cpu", "pallas"]).abs().max()) < 1e-5
