@@ -1,22 +1,30 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``quantumpropagators_torch/csrc``
 with ``nvcc``, holds each kernel instantiation against its plain PyTorch
-version, then runs Chebyshev propagation of the driven transverse-field
-Ising chain at L = 24 (2^24 states) through
-``propagate(..., fused=True)`` in the reference-accuracy tier
-(``kernel="dd"``, complex128) and the f32 tier (``kernel="pallas"``,
-complex64), checks the results, and times every kernel beside its plain
-version.  One line per phase; the second-to-last line is the kernels'
-JSON record, the last line ``{"ok": true, "device": ...}``.  Any failed
-check raises, and the script exits nonzero without printing a result.
-It refuses to run without a CUDA device.
+version, then runs Chebyshev propagation through
+``propagate(..., fused=True)`` on two paths:
+
+- phases 2-6: the driven transverse-field Ising chain at L = 24 (2^24
+  states) in the reference-accuracy tier (``kernel="dd"``, complex128)
+  and the f32 tier (``kernel="pallas"``, complex64), on the flip kernels;
+- phase 7: the static block-banded chain of ``bench.py --config banded20``
+  at 2^20 states (8192 coupled 128-level units) in the reference tier
+  (``kernel="dd"``), on the banded SpMV kernel.
+
+It checks the results, and times every kernel beside its plain version,
+its bound and (where one exists) the one PyTorch call that computes the
+same function.  One line per phase; the second-to-last line is the
+kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
+Any failed check raises, and the script exits nonzero without printing
+a result.  It refuses to run without a CUDA device.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -26,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 SEED = 20240611
 L_MAIN = 24          # 2^24 states: the BASELINE north-star size
 L_CHECK = 20         # kernel-vs-plain and round-trip size
@@ -33,6 +42,15 @@ N_STEPS = 20
 DT = 0.05
 J, G_FIELD, H_FIELD = 1.0, 1.2, 0.3
 SOURCE = "quantumpropagators_torch/csrc/cheby_flip.cu"
+BANDED_SOURCE = "quantumpropagators_torch/csrc/banded_spmv.cu"
+BANDED = "banded_spmv<double>"
+BANDED_REPLACES = "quantumpropagators/ops/bsr_dd_pallas.py:267"
+N_BANDED = 2 ** 20   # bench.py --config banded20: 2^20 amplitudes
+B_BANDED = 128       # 128-level units, dense blocks
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and FP64 / FP32 FLOP/s
+# outside the tensor cores
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"double": 34e12, "float": 67e12}
 # file:line of the pl.pallas_call each instantiation replaces
 REPLACES = {
     "cheby_flip_first<float>": "quantumpropagators/ops/fused_cheby.py:440",
@@ -57,6 +75,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def bound(n_bytes, flops, ctype):
+    """Least time (ms) the card could take to move ``n_bytes`` and do
+    ``flops`` operations of type ``ctype``; returns (ms, what bounds it)."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[ctype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def random_state(L, dtype, device, seed):
@@ -310,10 +336,209 @@ def time_kernels(device, card):
             kernel, plain = cf.cheby_flip_iter, cf.cheby_flip_iter_plain
         ms = time_ms(run(kernel), 20)
         plain_ms = time_ms(run(plain), 3)
-        times[name] = (ms, plain_ms)
+        # each input read once and each output written once: first reads
+        # v0, dmb, G and writes v1, Φ; iter reads v0, v1, Φ, dmb, G and
+        # writes v2, Φ.  Operations per element: 4 per flip and for the
+        # diagonal, 12 for the recurrence and the Φ update.
+        vec = v0.numel() * v0.element_size()
+        ins = dmb.numel() * dmb.element_size() + G.numel() * G.element_size()
+        n_bytes = ins + (3 * vec if name.startswith("cheby_flip_first")
+                         else 5 * vec)
+        bound_ms, bound_by = bound(n_bytes, (4 * L_MAIN + 16) * v0.numel(),
+                                   ctype)
+        times[name] = (ms, plain_ms, bound_ms, bound_by)
         log(f"phase 6 time {name} L={L_MAIN}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms [{card}]")
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {100 * bound_ms / ms:.1f} % of it reached) [{card}]")
     return times
+
+
+def banded20_operator(device):
+    """The banded20 chain of ``bench.py:775-822`` as a port
+    :class:`BSROperator` on the card, from a seeded generator: R = 8192
+    coupled 128-level units with dense symmetric on-site blocks D_r and
+    dense hopping blocks U_r between units r and r + 1 (block (r+1, r)
+    is U_r^T), scale 1/sqrt(3·128), block offsets (-1, 0, 1).  In the
+    blocked-ELL layout the first and last block rows hold two blocks
+    and one all-zero padding block pointing at block-column 0."""
+    from quantumpropagators_torch.ops.operators import BSROperator
+
+    b, R = B_BANDED, N_BANDED // B_BANDED
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 40)
+    scale = 1.0 / np.sqrt(3 * b)
+    kw = dict(generator=g, device=device, dtype=torch.float64)
+    D = torch.randn((R, b, b), **kw)
+    D = 0.5 * (D + D.transpose(1, 2)) * scale
+    U = torch.randn((R - 1, b, b), **kw) * scale
+    blocks = torch.zeros((R, 3, b, b), dtype=torch.float64, device=device)
+    cols = torch.zeros((R, 3), dtype=torch.int64, device=device)
+    r = torch.arange(R, device=device)
+    blocks[1:, 0], cols[1:, 0] = U.transpose(1, 2), r[1:] - 1
+    blocks[1:, 1], cols[1:, 1] = D[1:], r[1:]
+    blocks[1:-1, 2], cols[1:-1, 2] = U[1:], r[1:-1] + 1
+    blocks[0, 0], blocks[0, 1], cols[0, 1] = D[0], U[0], 1
+    return BSROperator(blocks=blocks, cols=cols, shape=(N_BANDED, N_BANDED),
+                       block_size=b)
+
+
+def banded_phase(device, card):
+    """Phase 7: the banded20 chain at 2^20 through
+    ``propagate(..., fused=True, kernel="dd")`` on the banded SpMV
+    kernel.  Returns the kernel's entry of the kernels line (without
+    name, route, source and replaces)."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.fused import cheby_propagate_fused
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.ops.bsr_dd import banded_dd_from_bsr
+    from quantumpropagators_torch.ops.cheby import ChebyWorkspace
+    from quantumpropagators_torch.ops.operators import DiagonalOperator
+    from quantumpropagators_torch.propagators.cheby import ChebyPropagator
+
+    b, R, L = B_BANDED, N_BANDED // B_BANDED, N_BANDED.bit_length() - 1
+    t0 = time.perf_counter()
+    op = banded20_operator(device)
+    psi0 = random_state(L, torch.complex128, device, SEED + 50)
+    # the default specrange (Arnoldi), its start vector seeded; dt from
+    # the envelope so that Δ·dt/2 = 3, about 19 orders per step
+    # (bench.py:826-829)
+    env = ChebyPropagator(psi0, op, [0.0, 1.0], coeffs_pad_to=1,
+                          rng=np.random.default_rng(SEED + 60)).wrk
+    dt = 6.0 / env.delta
+    wrk = ChebyWorkspace.create(env.delta, env.e_min, dt)
+    orders = len(wrk.coeffs)
+    beta = env.delta / 2.0 + env.e_min
+    torch.cuda.synchronize()
+    log(f"phase 7 banded20 workspace 2^{L} (R={R}, b={b}): "
+        f"E_min={env.e_min:.6f} delta={env.delta:.6f} beta={beta:.3e} "
+        f"dt={dt:.6f} orders/step={orders} "
+        f"(operator + specrange {time.perf_counter() - t0:.2f} s)")
+    if not abs(beta) > 1e-9 * env.delta:
+        raise AssertionError("the envelope must be generic (beta != 0)")
+
+    # -- kernel vs plain, at the main path's b = 128 and at b = 8 ---------
+    banded = banded_dd_from_bsr(op)
+    if banded.offsets != (-1, 0, 1):
+        raise AssertionError(f"banded20 offsets {banded.offsets}")
+    planes, offsets = banded.planes, banded.offsets
+    x = random_state(L, torch.complex128, device, SEED + 70)
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 80)
+    planes8 = torch.randn((3, 8, N_BANDED // 8, 8), generator=g,
+                          device=device, dtype=torch.float64) / np.sqrt(24)
+    max_err = 0.0
+    for bb, pl in ((b, planes), (8, planes8)):
+        got = bs.banded_spmv(pl, offsets, x)
+        want = bs.banded_spmv_plain(pl, offsets, x)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        log(f"phase 7 kernel-vs-plain {BANDED} b={bb} 2^{L}: max|d|={err:.3e} "
+            f"rel={rel:.3e} (rel <= 1e-13) {'ok' if rel <= 1e-13 else 'FAIL'}")
+        if not rel <= 1e-13:
+            raise AssertionError(f"{BANDED} disagrees with its plain version")
+        max_err = max(max_err, err)
+    del planes8, got, want
+
+    # -- the main path: 20 steps with observables -------------------------
+    tlist = np.linspace(0.0, N_STEPS * dt, N_STEPS + 1)
+    unit = DiagonalOperator((torch.arange(N_BANDED, device=device) // b)
+                            .to(torch.float64) / R)
+    obs = (unit, lambda psi: torch.linalg.vector_norm(psi))
+    plain_calls = []
+    plain = bs.banded_spmv_plain
+
+    def counted_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return plain(*args, **kwargs)
+
+    bs.banded_spmv_plain = counted_plain
+    bs.reset_launches()
+    try:
+        data = qt.propagate(psi0, op, tlist, method="cheby", fused=True,
+                            kernel="dd", workspace=wrk, observables=obs,
+                            storage=True)
+        torch.cuda.synchronize()
+    finally:
+        bs.banded_spmv_plain = plain
+    launches = bs.LAUNCHES[BANDED]
+    if launches != N_STEPS * (orders - 1) or plain_calls:
+        raise AssertionError(
+            f"banded path: {launches} launches (expected "
+            f"{N_STEPS * (orders - 1)}), {len(plain_calls)} plain calls")
+    if data.shape != (2, N_STEPS + 1) or not np.all(np.isfinite(data)):
+        raise AssertionError(f"bad observable storage {data.shape}")
+    norm_err = float(np.abs(np.abs(data[1]) - 1.0).max())
+    if not norm_err <= 1e-12:
+        raise AssertionError(f"norm not kept: {norm_err}")
+    pos = data[0]
+    if np.abs(pos.imag).max() > 1e-12 or not np.all((pos.real >= 0)
+                                                    & (pos.real < 1)):
+        raise AssertionError("<unit>/R not a real number in [0, 1)")
+    log(f"phase 7 dd banded20 {N_STEPS} steps: max|norm-1|={norm_err:.2e} "
+        f"(<= 1e-12), <unit>/R(T)={pos[-1].real:.12f}, launches={launches} "
+        f"= {N_STEPS} x ({orders} - 1), plain calls 0 ok")
+
+    # timed run: the same path without observables
+    t0 = time.perf_counter()
+    psi_T = qt.propagate(psi0, op, tlist, method="cheby", fused=True,
+                         kernel="dd", workspace=wrk)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    steps_s = N_STEPS / t_run
+    nnz_stored = planes.numel()
+    gnnz = steps_s * 2 * (orders - 1) * nnz_stored / 1e9
+
+    # the plain generic path (kernel="xla", BSROperator.apply), 5 steps
+    short = tlist[:6]
+    p_dd, _ = cheby_propagate_fused(psi0, op, short, workspace=wrk,
+                                    kernel="dd")
+    p_xla, _ = cheby_propagate_fused(psi0, op, short, workspace=wrk,
+                                     kernel="xla")
+    torch.cuda.synchronize()
+    err_xla = float((p_dd - p_xla).abs().max())
+    if not err_xla <= 1e-10:
+        raise AssertionError(f"banded dd vs xla after 5 steps: {err_xla}")
+    log(f"phase 7 dd vs plain generic path (xla) after 5 steps: "
+        f"max|d|={err_xla:.3e} (<= 1e-10) ok")
+    back = qt.propagate(psi_T, op, tlist, method="cheby", fused=True,
+                        kernel="dd", workspace=wrk, backward=True)
+    torch.cuda.synchronize()
+    err_rt = float((back - psi0).abs().max())
+    if not err_rt <= 1e-12:
+        raise AssertionError(f"banded backward round trip: {err_rt}")
+    log(f"phase 7 dd backward round trip 2^{L}: max|d|={err_rt:.3e} "
+        f"(<= 1e-12) ok")
+    del data, p_dd, p_xla, back, psi_T
+
+    # -- times: kernel, plain version, one-call library equivalent -------
+    ms = time_ms(lambda: bs.banded_spmv(planes, offsets, x), 20)
+    plain_ms = time_ms(lambda: bs.banded_spmv_plain(planes, offsets, x), 3)
+    # torch.einsum over the planes and a window view of the zero-padded
+    # state: windows[k, r] = x block row r + offsets[k] (offsets -1, 0, 1)
+    xp = torch.zeros((R + 2, b, 2), dtype=torch.float64, device=device)
+    xp[1:R + 1] = torch.view_as_real(x).reshape(R, b, 2)
+    windows = xp.as_strided((3, R, b, 2), (2 * b, 2 * b, 2, 1))
+
+    def library():
+        return torch.einsum("kiro,krix->rox", planes, windows)
+
+    lib_err = float((torch.view_as_complex(library().contiguous()).reshape(-1)
+                     - bs.banded_spmv_plain(planes, offsets, x)).abs().max())
+    library_ms = time_ms(library, 3)
+    y_bytes = x.numel() * x.element_size()
+    bound_ms, bound_by = bound(planes.numel() * planes.element_size()
+                               + 2 * y_bytes, 4 * planes.numel(), "double")
+    log(f"phase 7 time {BANDED} b={b} 2^{L}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (einsum, max|d| vs plain "
+        f"{lib_err:.1e}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, {100 * bound_ms / ms:.1f} % of it reached) [{card}]")
+    log(f"phase 7 main path dd banded20 2^{L}: {steps_s:.3f} steps/s, "
+        f"{gnnz:.3f} Gnnz/s (2 x {orders - 1} matvecs/step x "
+        f"{nnz_stored} stored nnz) [{card}]")
+    return {"launches": launches, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def main() -> int:
@@ -341,9 +566,13 @@ def main() -> int:
         log(f"phase 6 main path {tier} L={L_MAIN}: {steps_s:.3f} steps/s, "
             f"{gnnz:.3f} Gnnz/s ({matvecs} matvecs/step, nnz=(L+1)*2^L) "
             f"[{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()  # the 2^24 buffers go before the banded phase
+    banded = banded_phase(device, card)
 
     kernels = []
     for name in REPLACES:
+        ms, plain_ms, bound_ms, bound_by = times[name]
         entry = {
             "name": name,
             "route": "cuda",
@@ -351,12 +580,18 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": launches["dd"][name] + launches["pallas"][name],
             "max_abs_err": errs[name],
-            "ms": times[name][0],
-            "plain_ms": times[name][1],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call sums site flips
         }
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
         kernels.append(entry)
+    kernels.append({"name": BANDED, "route": "cuda", "source": BANDED_SOURCE,
+                    "replaces": BANDED_REPLACES, **banded})
+    log(f"total {time.perf_counter() - T_START:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,14 @@ operators, Chebyshev propagation (stepwise through ``propagate`` and
 whole-grid through ``propagate(..., fused=True)``), storage and the
 ``check=True`` contract checks.  The TPU Pallas kernels of the
 Chebyshev hot loop are hand-written CUDA kernels for Hopper
-(``csrc/cheby_flip.cu``), built with ``nvcc`` at first use; on CPU
-tensors their plain PyTorch versions run instead.
+(``csrc/cheby_flip.cu`` for diagonal-plus-site-flip generators,
+``csrc/banded_spmv.cu`` for block-banded operators), built with
+``nvcc`` at first use; on CPU tensors their plain PyTorch versions run
+instead.
+
+Tensors are built on the package's default device, ``cuda``, unless
+the caller names one; ``set_default_device("cpu")`` makes the CPU the
+default.
 
 This package imports ``torch`` and never ``jax``.  Objects built with
 the JAX package are carried over with :func:`interop.from_jax`.
@@ -42,12 +48,21 @@ from .models.lattice import (
     transverse_field_ising_2d,
 )
 from .ops.operators import (
+    BSROperator,
     CSROperator,
+    DIAOperator,
     DiagonalOperator,
+    StackedCSROperator,
     apply,
+    bsr_from_dense,
+    bsr_from_scipy,
+    choose_block_size,
     csr_from_dense,
     csr_from_scipy,
+    default_device,
+    dia_from_scipy,
     op_dot,
+    set_default_device,
     to_dense,
 )
 from .ops.specrange import specrange
@@ -92,7 +107,14 @@ __all__ = [
     "coeff_table",
     # operators
     "CSROperator",
+    "DIAOperator",
+    "dia_from_scipy",
+    "BSROperator",
+    "bsr_from_scipy",
+    "bsr_from_dense",
+    "choose_block_size",
     "DiagonalOperator",
+    "StackedCSROperator",
     "apply",
     "op_dot",
     "to_dense",
@@ -113,6 +135,9 @@ __all__ = [
     "map_observables",
     "write_to_storage",
     "get_from_storage",
+    # devices
+    "default_device",
+    "set_default_device",
     # interop
     "from_jax",
     "to_numpy",

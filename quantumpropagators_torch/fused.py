@@ -15,14 +15,16 @@ realization of the reference's ``propagate`` + ``Storage`` pipeline,
 - ``"pallas"``: the hand-written flip kernel in the state's precision
   (complex64 → ``float``, complex128 → ``double``); needs
   diagonal-plus-site-flip structure;
-- ``"dd"``: the reference-accuracy tier, complex128 with the flip
-  kernel and an f32 tail;
+- ``"dd"``: the reference-accuracy tier in complex128: the flip kernel
+  with an f32 tail for diagonal-plus-site-flip generators, the banded
+  SpMV kernel for static block-banded operators;
 - ``"auto"``: the flip kernel when the structure matches and the state
   is on a CUDA device, else ``"xla"``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -31,7 +33,13 @@ import torch
 from .models.generators import Generator, Operator, coeff_table, coeff_table_np
 from .ops.cheby import ChebyWorkspace, cheby_apply
 from .ops.fused_cheby import flip_cheby_step, flip_structure, make_flip_plan
-from .ops.operators import as_tensor
+from .ops.operators import (
+    BSROperator,
+    as_tensor,
+    bsr_from_scipy,
+    host_np,
+    to_scipy_sparse,
+)
 
 __all__ = ["cheby_propagate_fused", "make_fused_cheby_propagator"]
 
@@ -166,6 +174,109 @@ def _dd_path(fsm, generator, ops, psi0, tlist, workspace, backward,
     return _scan(step, psi, n_steps, observable_fn, store_states)
 
 
+_REAL_ONLY = ("kernel='dd' supports real operator entries; propagate "
+              "complex generators via the Liouvillian embedding")
+
+
+def _real_matrix(generator):
+    """The static generator folded into a host float64 scipy CSR
+    matrix; raises for complex entries."""
+    import scipy.sparse as sp
+
+    if isinstance(generator, Operator):
+        mats = [to_scipy_sparse(o) for o in generator.ops]
+        c = np.asarray(host_np(generator.coeffs))
+        off = len(mats) - len(c)
+        A = sum(mats[:off], sp.csr_matrix(mats[0].shape))
+        for i, ci in enumerate(c):
+            A = A + complex(ci) * mats[off + i]
+    else:
+        A = to_scipy_sparse(generator)
+    A = sp.csr_matrix(A)
+    if np.iscomplexobj(A.data) and np.abs(A.data.imag).max() > 0:
+        raise ValueError(_REAL_ONLY)
+    return sp.csr_matrix(A.real.astype(np.float64))
+
+
+def _static_dd_path(generator, psi0, tlist, workspace, backward,
+                    observable_fn, store_states):
+    """``kernel="dd"`` for static operators without diagonal-plus-flip
+    structure, in complex128.
+
+    A block-banded operator goes through the banded SpMV kernel
+    (:mod:`.ops.banded_spmv`) at block size 128 on the card, 8 on the
+    CPU (the JAX package's choice; small blocks keep the CPU tests
+    cheap).  A :class:`BSROperator` of that block size is turned into
+    band planes on its own device (:func:`.ops.bsr_dd.banded_dd_from_bsr`);
+    every other operator is folded through a host scipy matrix.  Other
+    sparsity falls back to :meth:`BSROperator.apply` in plain PyTorch.
+    Real operator entries only."""
+    from .ops.bsr_dd import (
+        banded_dd_from_bsr,
+        banded_dd_from_scipy,
+        cheby_apply_dd_banded,
+    )
+
+    if isinstance(generator, Generator):
+        raise ValueError(
+            "kernel='dd' with a time-dependent generator requires "
+            "diagonal-plus-site-flip structure (DiagonalOperator / "
+            "X-type SiteOperatorSum terms); for static generators any "
+            "real banded/BSR operator is supported"
+        )
+    device = psi0.device
+    on_card = device.type == "cuda"
+    block = 128 if on_card else 8
+    n_logical = int(psi0.shape[-1])
+    n_steps = len(tlist) - 1
+    dt = workspace.dt if not backward else -workspace.dt
+    c64 = np.asarray(workspace.coeffs, dtype=np.float64)
+
+    banded = A = None
+    if isinstance(generator, BSROperator) and generator.block_size == block:
+        try:  # complex entries or too many bands: decided below
+            banded = banded_dd_from_bsr(generator)
+        except ValueError:
+            pass
+    else:
+        A = _real_matrix(generator)
+        try:
+            banded = banded_dd_from_scipy(A, block=block, device=device)
+        except ValueError:
+            pass
+
+    if banded is not None:
+        banded = dataclasses.replace(banded, planes=banded.planes.to(device))
+        psi = torch.zeros(banded.shape[0], dtype=torch.complex128,
+                          device=device)
+        psi[:n_logical] = psi0.reshape(-1)
+
+        def step(k, psi):
+            return cheby_apply_dd_banded(banded, psi, c64, workspace.delta,
+                                         workspace.e_min, dt)
+
+        # observables and stored states see the unpadded state
+        obs = observable_fn
+        if obs is None and store_states:
+            obs = torch.clone
+        psi, outputs = _scan(
+            step, psi, n_steps,
+            None if obs is None else (lambda s: obs(s[:n_logical])), False,
+        )
+        return psi[:n_logical], outputs
+
+    if A is None:
+        A = _real_matrix(generator)  # raises for complex entries
+    op = bsr_from_scipy(A, block_size=None if on_card else 8, device=device)
+
+    def step(k, psi):
+        return cheby_apply(op, psi, c64, workspace.delta, workspace.e_min, dt,
+                           forward=not backward)
+
+    psi = psi0.reshape(-1).to(torch.complex128)
+    return _scan(step, psi, n_steps, observable_fn, store_states)
+
+
 def cheby_propagate_fused(
     psi0,
     generator,
@@ -237,12 +348,13 @@ def cheby_propagate_fused(
 
         fsm = flip_structure_multi(list(ops))
         if fsm is None:
-            raise NotImplementedError(
-                "kernel='dd' without diagonal-plus-site-flip structure "
-                "needs the banded dd kernel (fused._static_dd_path over "
-                "ops/bsr_dd_pallas.py), which is not ported yet: "
-                "ROADMAP B3, the port's slice 2"
+            # static operators without flip structure: the banded SpMV
+            # kernel, or the blocked-ELL product for other sparsity
+            psi_final, outputs = _static_dd_path(
+                generator, psi0, tlist, workspace, backward, observable_fn,
+                store_states,
             )
+            return psi_final.reshape(psi0.shape), outputs
         return _dd_path(
             fsm, generator, ops, psi0, tlist, workspace, backward,
             observable_fn, store_states, f32_tail=f32_tail,

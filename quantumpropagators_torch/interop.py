@@ -16,22 +16,65 @@ import torch
 
 from .models.generators import Generator, Operator, ScaledOperator
 from .models.lattice import GroupedSiteSum, SiteOperatorSum
-from .ops.operators import CSROperator, DiagonalOperator, host_np
+from .ops.bsr_dd import BandedDD
+from .ops.operators import (
+    BSROperator,
+    CSROperator,
+    DiagonalOperator,
+    DIAOperator,
+    StackedCSROperator,
+    host_np,
+    resolve_device,
+)
 
 __all__ = ["from_jax", "to_numpy"]
 
 
 def _tensor(x, device):
-    return torch.as_tensor(np.array(host_np(x)), device=device)
+    return torch.as_tensor(np.array(host_np(x)), device=resolve_device(device))
+
+
+def _index(x, device):
+    return _tensor(x, device).to(torch.int64)
 
 
 def from_jax(obj, device=None):
     """The port's counterpart of ``obj`` (a JAX array, a numpy array, an
     operator, an :class:`Operator`/:class:`Generator`, or a tuple/list
-    of these), with its tensors on ``device`` (default CPU)."""
+    of these), with its tensors on ``device`` (default: the package's
+    :func:`~.ops.operators.default_device`)."""
     name = type(obj).__name__
     if isinstance(obj, (tuple, list)):
         return type(obj)(from_jax(o, device) for o in obj)
+    if name in ("CSROperator", "StackedCSROperator"):
+        cls = CSROperator if name == "CSROperator" else StackedCSROperator
+        return cls(
+            data=_tensor(obj.data, device),
+            col=_index(obj.col, device),
+            row=_index(obj.row, device),
+            indptr=_index(obj.indptr, device),
+            shape=tuple(int(n) for n in obj.shape),
+        )
+    if name == "DIAOperator":
+        return DIAOperator(data=_tensor(obj.data, device),
+                           offsets=tuple(int(o) for o in obj.offsets),
+                           shape=tuple(int(n) for n in obj.shape))
+    if name == "BSROperator":
+        return BSROperator(blocks=_tensor(obj.blocks, device),
+                           cols=_index(obj.cols, device),
+                           shape=tuple(int(n) for n in obj.shape),
+                           block_size=int(obj.block_size))
+    if name == "BandedDD":
+        # one float64 plane tensor in place of the hi/lo float32 pair
+        planes = getattr(obj, "planes", None)
+        if planes is None:
+            planes = (np.asarray(host_np(obj.planes_hi), np.float64)
+                      + np.asarray(host_np(obj.planes_lo), np.float64))
+        return BandedDD(planes=_tensor(planes, device),
+                        offsets=tuple(int(o) for o in obj.offsets),
+                        R=int(obj.R), b=int(obj.b),
+                        shape=tuple(int(n) for n in obj.shape),
+                        logical_nnz=int(obj.logical_nnz))
     if name == "DiagonalOperator":
         return DiagonalOperator(_tensor(obj.diag, device))
     if name == "SiteOperatorSum":
@@ -43,14 +86,6 @@ def from_jax(obj, device=None):
             group_mats=tuple(_tensor(A, device) for A in obj.group_mats),
             dims=tuple(int(d) for d in obj.dims),
         )
-    if name == "CSROperator":
-        return CSROperator(
-            data=_tensor(obj.data, device),
-            col=_tensor(obj.col, device).to(torch.int64),
-            row=_tensor(obj.row, device).to(torch.int64),
-            indptr=_tensor(obj.indptr, device).to(torch.int64),
-            shape=tuple(int(n) for n in obj.shape),
-        )
     if name == "Generator":
         return Generator([from_jax(op, device) for op in obj.ops],
                          list(obj.amplitudes))
@@ -60,7 +95,7 @@ def from_jax(obj, device=None):
     if name == "ScaledOperator":
         return ScaledOperator(obj.coeff, from_jax(obj.operator, device))
     if isinstance(obj, torch.Tensor):
-        return obj.to(device) if device is not None else obj
+        return obj.to(resolve_device(device))
     if isinstance(obj, (int, float, complex, np.number)) or callable(obj):
         return obj
     if hasattr(obj, "__array__"):

@@ -19,7 +19,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.operators import DiagonalOperator, as_tensor, host_np
+from ..ops.operators import DiagonalOperator, as_tensor, host_np, resolve_device
 
 __all__ = [
     "SiteOperatorSum",
@@ -211,6 +211,7 @@ def zz_chain_diagonal(L: int, J=1.0, *, periodic: bool = False,
 def z_chain_diagonal(L: int, h=1.0, *, dtype=torch.float32, device=None):
     """Diagonal of ``Σᵢ hᵢ σᶻᵢ`` as a length-2^L vector."""
     h = np.broadcast_to(np.asarray(h, dtype=np.float64), (L,))
+    device = resolve_device(device)
     diag = torch.zeros(2 ** L, dtype=dtype, device=device)
     for i in range(L):
         diag += float(h[i]) * _spin(L, i, dtype, device)
@@ -222,6 +223,7 @@ def zz_bonds_diagonal(L: int, bonds, J=1.0, *, dtype=torch.float32,
     """Diagonal of ``Σ_b J_b σᶻ_{i_b} σᶻ_{j_b}`` for an arbitrary bond
     list, built bond by bond (O(2^L) peak memory)."""
     J = np.broadcast_to(np.asarray(J, dtype=np.float64), (len(bonds),))
+    device = resolve_device(device)
     diag = torch.zeros(2 ** L, dtype=dtype, device=device)
     for (i, j), Jb in zip(bonds, J):
         diag += float(Jb) * _spin(L, i, dtype, device) * _spin(L, j, dtype,
@@ -272,6 +274,7 @@ def lattice2d_bonds(Lx: int, Ly: int, periodic: bool = False):
 
 
 def _tfim_terms(L, bonds, J, g, h, dtype, device):
+    device = resolve_device(device)
     rdtype = dtype.to_real()
     diag = zz_bonds_diagonal(L, bonds, J, dtype=rdtype, device=device)
     if h != 0.0:

@@ -1,12 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into a plain-C shared library and loaded with ``ctypes``.
-The build happens at first use, into ``_build/`` beside the package,
-keyed on a hash of the source, so a changed source is rebuilt and an
-unchanged one is loaded as it is.  Nothing here runs at import time: a
-machine without ``nvcc`` or a GPU imports the package and runs the
-kernels' plain PyTorch versions on CPU tensors.
+Every source under ``csrc/`` is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into an object, all of them at once, and the objects are
+linked into one plain-C shared library loaded with ``ctypes``.  The
+build happens at first use, into ``_build/`` beside the package, keyed
+on a hash of all sources and flags, so a changed source is rebuilt and
+an unchanged library is loaded as it is.  Nothing here runs at import
+time: a machine without ``nvcc`` or a GPU imports the package and runs
+the kernels' plain PyTorch versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,12 +21,14 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "cheby_flip.cu"
+SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -36,6 +39,9 @@ _SIGNATURES = {
     # v0, v2, v1, phi, dmb, G, w, L, n, s2, ak, stream
     "cheby_flip_iter_f32": [_P] * 7 + [_I, _L] + [ctypes.c_float] * 2 + [_P],
     "cheby_flip_iter_f64": [_P] * 7 + [_I, _L] + [ctypes.c_double] * 2 + [_P],
+    # planes, x, y, offsets, n_bands, R, b, halo, stream
+    "banded_spmv_f64": [_P] * 3 + [ctypes.POINTER(ctypes.c_int), _I, _L, _I,
+                                   _I, _P],
 }
 
 _lib = None
@@ -52,35 +58,65 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"cheby_flip_{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernel library unless a build of this exact source
-    exists; returns its path.  Records the compile time and the ptxas
+    """Compile the kernel library unless a build of these exact sources
+    exists; returns its path.  Records the wall time and the ptxas
     report in :data:`build_info`."""
     so = library_path()
     if so.exists():
         build_info.setdefault("seconds", 0.0)
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        reports = []
+        for src, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) on {src}:\n{err}")
+            reports.append(err)
+        tmp = Path(tmpdir) / so.name
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
         )
-    os.replace(tmp, so)  # atomic: concurrent builds never see half a file
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, so)  # atomic: concurrent builds never see half a file
     build_info["seconds"] = time.perf_counter() - t0
-    build_info["ptxas"] = proc.stderr
+    build_info["ptxas"] = "".join(reports)
     return so
+
+
+def launch(fn_name: str, args, device) -> None:
+    """Call the library's ``fn_name(*args, stream)`` on ``device``'s
+    current stream; raises if the launch returned a CUDA error."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
 
 
 def load():

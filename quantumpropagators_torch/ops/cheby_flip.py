@@ -112,12 +112,7 @@ def cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w=None, out=None):
 
 
 def _launch(fn_name, ctype, args, device):
-    lib = _cuda.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+    _cuda.launch(fn_name, args, device)
     LAUNCHES[ctype] += 1
 
 

@@ -12,10 +12,18 @@ Operator types:
 - 2D ``torch.Tensor`` / ``numpy`` arrays (dense)
 - :class:`DiagonalOperator` — elementwise multiply
 - :class:`CSROperator` — gather + ``index_add`` SpMV (sorted rows)
+- :class:`StackedCSROperator` — several terms sharing one sparsity
+  pattern, contracted into one SpMV
+- :class:`DIAOperator` — row-aligned diagonals, shifted multiplies
+- :class:`BSROperator` — dense ``(b, b)`` blocks in blocked-ELL layout
 - :class:`~..models.generators.Operator` — lazy sum Σ cₗ Ĥₗ
 
 States are tensors with the Hilbert dimension on the *last* axis;
 leading axes are batch dimensions.
+
+Tensors built from host data go to the package's default device
+(:func:`default_device`, initially ``cuda``) unless the caller names
+one; :func:`set_default_device` changes it (``"cpu"`` for CPU use).
 """
 
 from __future__ import annotations
@@ -30,6 +38,13 @@ import torch
 __all__ = [
     "DiagonalOperator",
     "CSROperator",
+    "StackedCSROperator",
+    "DIAOperator",
+    "dia_from_scipy",
+    "BSROperator",
+    "bsr_from_scipy",
+    "bsr_from_dense",
+    "choose_block_size",
     "apply",
     "op_dot",
     "to_dense",
@@ -44,18 +59,47 @@ __all__ = [
     "as_tensor",
     "host_np",
     "vdot",
+    "default_device",
+    "set_default_device",
+    "resolve_device",
 ]
+
+_DEFAULT_DEVICE = torch.device("cuda")
+
+
+def default_device() -> torch.device:
+    """The device that builders use when the caller names none."""
+    return _DEFAULT_DEVICE
+
+
+def set_default_device(device) -> None:
+    """Set the device that builders use when the caller names none."""
+    global _DEFAULT_DEVICE
+    _DEFAULT_DEVICE = torch.device(device)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the package default when it is ``None``.  Raises
+    when the result is a CUDA device and none is present: there is no
+    silent CPU fallback."""
+    device = _DEFAULT_DEVICE if device is None else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' or call "
+            "quantumpropagators_torch.set_default_device('cpu')"
+        )
+    return device
 
 
 def as_tensor(x, *, device=None, dtype=None) -> torch.Tensor:
     """``x`` (tensor, numpy array, or anything array-like) as a torch
-    tensor; numpy input is copied, tensors are moved/cast only when
-    asked."""
+    tensor; tensors are moved/cast only when asked, other input is
+    copied to ``device`` (default: :func:`default_device`)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device if device is not None else x.device,
                     dtype=dtype if dtype is not None else x.dtype)
     arr = np.array(x)
-    return torch.as_tensor(arr, dtype=dtype, device=device)
+    return torch.as_tensor(arr, dtype=dtype, device=resolve_device(device))
 
 
 def host_np(x) -> np.ndarray:
@@ -132,6 +176,242 @@ class CSROperator:
         )
 
 
+@dataclass(frozen=True)
+class StackedCSROperator:
+    """``n_terms`` sparse operators sharing one sparsity pattern.
+
+    ``data`` has shape ``(n_terms, nnz)``.  Applying with a coefficient
+    vector contracts the coefficients into a single data vector first,
+    so the whole sum costs ONE SpMV per matvec.
+    """
+
+    data: Any  # (n_terms, nnz)
+    col: Any
+    row: Any
+    indptr: Any
+    shape: tuple = ()
+
+    @property
+    def n_terms(self):
+        return self.data.shape[0]
+
+    def combine(self, coeffs):
+        """Contract term coefficients: returns a :class:`CSROperator`."""
+        coeffs = torch.as_tensor(coeffs, device=self.data.device)
+        coeffs, data = _promote(coeffs, self.data)
+        merged = torch.tensordot(coeffs, data, dims=([0], [0]))
+        return CSROperator(merged, self.col, self.row, self.indptr, self.shape)
+
+    def _ones(self):
+        return torch.ones((self.n_terms,), dtype=self.data.dtype,
+                          device=self.data.device)
+
+    def apply(self, psi, coeffs=None):
+        return self.combine(self._ones() if coeffs is None else coeffs).apply(psi)
+
+    def to_dense(self, coeffs=None):
+        return self.combine(self._ones() if coeffs is None else coeffs).to_dense()
+
+
+@dataclass(frozen=True)
+class DIAOperator:
+    """Sparse operator in DIAgonal storage: ``data[k, i]`` multiplies
+    ``psi[i + offsets[k]]`` into row ``i`` (row-aligned; out-of-range
+    tail entries must be zero, as :func:`dia_from_scipy` makes them).
+    The matvec is a sum of shifted elementwise products."""
+
+    data: Any  # (n_diags, N)
+    offsets: tuple = ()  # static ints
+    shape: tuple = ()
+
+    def apply(self, psi):
+        out = None
+        for k, off in enumerate(self.offsets):
+            row = self.data[k]
+            pad = psi.new_zeros(psi.shape[:-1] + (abs(off),))
+            if off >= 0:  # row i reads psi[i + off]: shift left, zero tail
+                shifted = torch.cat([psi[..., off:], pad], dim=-1)
+            else:
+                shifted = torch.cat([pad, psi[..., :off]], dim=-1)
+            row, shifted = _promote(row, shifted)
+            term = row * shifted
+            out = term if out is None else out + term
+        if out is None:
+            out = torch.zeros_like(psi)
+        return out
+
+    def to_dense(self):
+        N = self.shape[0]
+        data = host_np(self.data)
+        A = np.zeros(self.shape, dtype=np.complex128)
+        for k, off in enumerate(self.offsets):
+            for i in range(max(0, -off), min(N, N - off)):
+                A[i, i + off] = data[k, i]
+        return torch.as_tensor(A, device=self.data.device)
+
+
+def dia_from_scipy(A, dtype=None, device=None) -> DIAOperator:
+    """Build a :class:`DIAOperator` from any scipy sparse matrix (for
+    banded matrices: the number of stored diagonals should be small)."""
+    import scipy.sparse as sp
+
+    D = sp.dia_matrix(A)
+    N = D.shape[0]
+    offsets = tuple(int(o) for o in D.offsets)
+    # scipy dia data is column-aligned: data[k, j] is A[j - off, j].
+    # Re-align to rows: row_data[k, i] = A[i, i + off] = scipy[k, i + off]
+    data = np.zeros((len(offsets), N), dtype=np.asarray(D.data).dtype)
+    for k, off in enumerate(offsets):
+        col_aligned = D.data[k]
+        if off >= 0:
+            data[k, : N - off] = col_aligned[off:N]
+        else:
+            data[k, -off:] = col_aligned[: N + off]
+    if dtype is None and data.dtype.kind == "c":
+        data = data.astype(np.complex128)
+    return DIAOperator(data=as_tensor(data, dtype=dtype, device=device),
+                       offsets=offsets, shape=tuple(D.shape))
+
+
+@dataclass(frozen=True)
+class BSROperator:
+    """Block-sparse operator: dense ``(b, b)`` blocks in a padded
+    blocked-ELL layout.
+
+    ``blocks[r, j]`` is the dense block in block-row ``r`` at
+    block-column ``cols[r, j]``; rows are padded to the maximum
+    block-degree ``k`` with all-zero blocks pointing at block-column 0.
+    ``shape`` is the logical ``(N, N)``; ``R·b`` may exceed ``N`` by the
+    zero padding :func:`bsr_from_scipy` adds.  ``apply`` gathers ``k``
+    contiguous length-``b`` slices of the state per block-row and
+    contracts them with the blocks in one batched product.
+    """
+
+    blocks: Any  # (R, k, b, b)
+    cols: Any  # (R, k) int64 block-column ids
+    shape: tuple = ()  # (N, N) logical shape (pre-padding)
+    block_size: int = 0  # static b
+
+    @property
+    def nnzb(self):
+        return self.blocks.shape[0] * self.blocks.shape[1]
+
+    @property
+    def nnz(self):
+        # dense-block entry count (the unit the Gnnz/s metric uses)
+        return self.nnzb * self.block_size * self.block_size
+
+    def apply(self, psi):
+        b = self.block_size
+        R = self.blocks.shape[0]
+        N = self.shape[0]
+        lead = psi.shape[:-1]
+        v = psi.reshape(-1, N)
+        if R * b != N:
+            v = torch.cat([v, v.new_zeros((v.shape[0], R * b - N))], dim=-1)
+        xg = v.reshape(-1, R, b)[:, self.cols]  # (n, R, k, b) block gathers
+        # y[n, r, o] = Σ_{j, i} blocks[r, j, o, i] · xg[n, r, j, i]
+        if xg.is_complex() and not self.blocks.is_complex():
+            # real blocks: contract re and im together, never promoting
+            # the (large) blocks to complex
+            rdtype = torch.promote_types(xg.dtype.to_real(), self.blocks.dtype)
+            xr = torch.view_as_real(xg.to(rdtype.to_complex()))
+            y = torch.einsum("rjoi,nrjix->nrox", self.blocks.to(rdtype), xr)
+            y = torch.view_as_complex(y.contiguous())
+        else:
+            blocks, xg = _promote(self.blocks, xg)
+            y = torch.einsum("rjoi,nrji->nro", blocks, xg)
+        return y.reshape(lead + (R * b,))[..., :N]
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        R, k, b, _ = self.blocks.shape
+        blocks = host_np(self.blocks).reshape(R * k, b, b)
+        cols = host_np(self.cols).reshape(-1)
+        rows = np.repeat(np.arange(R, dtype=np.int64), k)
+        keep = np.abs(blocks).max(axis=(1, 2)) > 0
+        A = sp.bsr_matrix(
+            (blocks[keep], cols[keep], np.concatenate([[0], np.cumsum(
+                np.bincount(rows[keep], minlength=R))]).astype(np.int64)),
+            shape=(R * b, R * b),
+        ).tocsr()
+        return A[: self.shape[0], : self.shape[1]].tocsr()
+
+    def to_dense(self):
+        return torch.as_tensor(self.to_scipy().toarray(),
+                               device=self.blocks.device)
+
+
+def choose_block_size(N: int, max_b: int = 64) -> int:
+    """Largest power-of-two divisor of ``N`` up to ``max_b``."""
+    b = 1
+    while b * 2 <= max_b and N % (b * 2) == 0:
+        b *= 2
+    return b
+
+
+def bsr_from_scipy(A, block_size: int = None, dtype=None,
+                   device=None) -> BSROperator:
+    """Build a :class:`BSROperator` from any scipy sparse matrix.
+
+    The matrix is zero-padded up to a multiple of ``block_size`` when
+    needed; block-rows are padded to the maximum block-degree with zero
+    blocks (blocked-ELL).
+    """
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    N, M = A.shape
+    if N != M:
+        raise ValueError("BSROperator requires a square matrix")
+    if block_size is None:
+        block_size = choose_block_size(N)
+    b = int(block_size)
+    n_pad = -(-N // b) * b
+    if n_pad != N:
+        A = sp.bmat(
+            [[A, sp.csr_matrix((N, n_pad - N))],
+             [sp.csr_matrix((n_pad - N, N)), sp.csr_matrix((n_pad - N, n_pad - N))]],
+            format="csr",
+        )
+    B = A.tobsr(blocksize=(b, b))
+    B.sort_indices()
+    R = n_pad // b
+    degrees = np.diff(B.indptr)
+    k = max(1, int(degrees.max()))
+    blocks = np.zeros((R, k, b, b), dtype=np.asarray(B.data).dtype)
+    cols = np.zeros((R, k), dtype=np.int64)
+    for r in range(R):
+        lo, hi = B.indptr[r], B.indptr[r + 1]
+        d = hi - lo
+        blocks[r, :d] = B.data[lo:hi]
+        cols[r, :d] = B.indices[lo:hi]
+    if dtype is None and blocks.dtype.kind == "c":
+        blocks = blocks.astype(np.complex128)
+    return BSROperator(
+        blocks=as_tensor(blocks, dtype=dtype, device=device),
+        cols=as_tensor(cols, device=device),
+        shape=(N, M),
+        block_size=b,
+    )
+
+
+def bsr_from_dense(A, block_size: int = None, tol: float = 0.0,
+                   device=None) -> BSROperator:
+    """Build a :class:`BSROperator` from a dense matrix, dropping entries
+    with ``|a_ij| <= tol``."""
+    import scipy.sparse as sp
+
+    if device is None and isinstance(A, torch.Tensor):
+        device = A.device
+    A = host_np(A)
+    if tol > 0:
+        A = np.where(np.abs(A) > tol, A, 0)
+    return bsr_from_scipy(sp.csr_matrix(A), block_size=block_size,
+                          device=device)
+
+
 # --------------------------------------------------------------------------
 # Generic functional interface
 # --------------------------------------------------------------------------
@@ -186,7 +466,7 @@ def op_device(op) -> torch.device:
         return op.device
     if isinstance(op, np.ndarray):
         return torch.device("cpu")
-    for name in ("diag", "data", "site_mats"):
+    for name in ("diag", "data", "site_mats", "blocks", "planes"):
         t = getattr(op, name, None)
         if isinstance(t, torch.Tensor):
             return t.device
@@ -209,10 +489,26 @@ def to_scipy_sparse(op):
 
     if sp.issparse(op):
         return sp.csr_matrix(op)
-    if isinstance(op, CSROperator):
+    if isinstance(op, (CSROperator, BSROperator)):
         return op.to_scipy()
     if isinstance(op, DiagonalOperator):
         return sp.diags(host_np(op.diag)).tocsr()
+    if isinstance(op, DIAOperator):
+        N = op.shape[0]
+        data = host_np(op.data)
+        # row-aligned data[k, i] sits at (i, i + off); sp.diags takes the
+        # diagonal's own entries, which start at row max(0, -off)
+        mats = []
+        for k, off in enumerate(op.offsets):
+            d = data[k]
+            diag = d[: N - off] if off >= 0 else d[-off:]
+            mats.append(sp.diags(diag, off, shape=op.shape))
+        return sum(mats[1:], mats[0].tocsr()) if mats else sp.csr_matrix(op.shape)
+    if isinstance(op, StackedCSROperator):
+        return sp.csr_matrix(
+            (host_np(op.data).sum(axis=0), host_np(op.col), host_np(op.indptr)),
+            shape=op.shape,
+        )
     if _is_dense(op):
         return sp.csr_matrix(host_np(op))
     # ScaledOperator / other lazy operators
@@ -266,6 +562,10 @@ def add_operators(a, b):
         return x + y.to(x.device)
     if isinstance(a, DiagonalOperator) and isinstance(b, DiagonalOperator):
         return DiagonalOperator(a.diag + b.diag)
+    if isinstance(a, BSROperator) or isinstance(b, BSROperator):
+        bs = a.block_size if isinstance(a, BSROperator) else b.block_size
+        return bsr_from_scipy(to_scipy_sparse(a) + to_scipy_sparse(b),
+                              block_size=bs, device=op_device(a))
     if isinstance(a, CSROperator) or isinstance(b, CSROperator):
         return csr_from_scipy(to_scipy_sparse(a) + to_scipy_sparse(b),
                               device=op_device(a))
@@ -279,6 +579,8 @@ def scale_operator(alpha, op):
         return alpha * as_tensor(op)
     if isinstance(op, DiagonalOperator):
         return DiagonalOperator(alpha * op.diag)
-    if isinstance(op, CSROperator):
+    if isinstance(op, (CSROperator, DIAOperator)):
         return dataclasses.replace(op, data=alpha * op.data)
+    if isinstance(op, BSROperator):
+        return dataclasses.replace(op, blocks=alpha * op.blocks)
     return alpha * to_dense(op)

@@ -13,6 +13,10 @@ from quantumpropagators.ops import specrange as jspec
 from quantumpropagators.utils.fixtures import random_matrix, random_state_vector
 from quantumpropagators_torch.ops import cheby as tcheby
 from quantumpropagators_torch.ops import specrange as tspec
+from quantumpropagators_torch import set_default_device
+
+# the package builds on the card by default; these tests run on the CPU
+set_default_device("cpu")
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ tests run them.  Every envelope is generic (β = Δ/2 + E_min ≠ 0)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg
 import torch
 
 import quantumpropagators as qp
@@ -36,6 +37,10 @@ from quantumpropagators_torch.ops.fused_cheby_dd import (
     dd_tile_rows,
     f32_tail_orders,
 )
+from quantumpropagators_torch import set_default_device
+
+# the package builds on the card by default; these tests run on the CPU
+set_default_device("cpu")
 
 J, G, H = 1.0, 1.2, 0.3
 
@@ -292,8 +297,14 @@ def test_dd_without_flip_structure_raises():
     Hm = torch.as_tensor(A + A.T)
     psi0 = torch.as_tensor(rng.standard_normal(16) + 0j)
     tlist = np.linspace(0, 1, 5)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        cheby_propagate_fused(psi0, Hm, tlist, kernel="dd")
+    # a static operator without flip structure takes the banded route;
+    # a time-dependent one still needs flip structure
+    out, _ = cheby_propagate_fused(psi0, Hm, tlist, kernel="dd")
+    U = scipy.linalg.expm(-1j * (tlist[-1] - tlist[0]) * (A + A.T))
+    assert np.abs(out.numpy() - U @ psi0.numpy()).max() < 1e-11
+    gen = qt.hamiltonian(Hm, (Hm, lambda t: np.sin(t)))
+    with pytest.raises(ValueError, match="diagonal-plus-site-flip"):
+        cheby_propagate_fused(psi0, gen, tlist, kernel="dd")
     with pytest.raises(ValueError, match="site-flip"):
         cheby_propagate_fused(psi0, Hm, tlist, kernel="pallas")
     with pytest.raises(ValueError, match="unknown kernel"):

@@ -12,6 +12,10 @@ import quantumpropagators as qp
 from quantumpropagators.fused import cheby_propagate_fused as jax_fused
 from quantumpropagators_torch.fused import cheby_propagate_fused
 from quantumpropagators_torch.interop import from_jax
+from quantumpropagators_torch import set_default_device
+
+# the package builds on the card by default; these tests run on the CPU
+set_default_device("cpu")
 
 J, H = 1.0, 0.3
 L = 10

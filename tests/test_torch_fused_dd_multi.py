@@ -14,6 +14,10 @@ from quantumpropagators.models.lattice import SiteOperatorSum
 from quantumpropagators.ops.operators import DiagonalOperator
 from quantumpropagators_torch.fused import cheby_propagate_fused
 from quantumpropagators_torch.interop import from_jax
+from quantumpropagators_torch import set_default_device
+
+# the package builds on the card by default; these tests run on the CPU
+set_default_device("cpu")
 
 J, H = 1.0, 0.3
 L = 10

@@ -20,7 +20,10 @@ def test_import_does_not_load_jax():
         "import sys, quantumpropagators_torch, "
         "quantumpropagators_torch.fused, "
         "quantumpropagators_torch.ops.fused_cheby_dd, "
-        "quantumpropagators_torch.ops.cheby_flip; "
+        "quantumpropagators_torch.ops.cheby_flip, "
+        "quantumpropagators_torch.ops.banded_spmv, "
+        "quantumpropagators_torch.ops.bsr_dd, "
+        "quantumpropagators_torch.utils.fixtures; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'triton' not in sys.modules, 'triton imported'"
     )
@@ -47,7 +50,9 @@ def test_kernel_module_imports_without_toolchain(tmp_path):
 def test_build_is_keyed_on_source_hash():
     path = _cuda.library_path()
     assert path.parent == _cuda.BUILD_DIR
-    assert path.name.startswith("cheby_flip_") and path.suffix == ".so"
+    assert path.name.startswith("kernels_") and path.suffix == ".so"
+    assert {src.name for src in _cuda.SOURCES} >= {"cheby_flip.cu",
+                                                   "banded_spmv.cu"}
     assert path == _cuda.library_path()
 
 

@@ -81,3 +81,50 @@ def test_fused_path_on_card_matches_cpu(cuda):
     assert float((out["cuda:0", "dd"] - out["cpu", "dd"]).abs().max()) < 1e-12
     assert float((out["cuda:0", "pallas"]
                   - out["cpu", "pallas"]).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("b, R, halo", [(128, 64, None), (8, 96, None),
+                                        (8, 96, 4), (48, 20, 2)])
+def test_banded_spmv_matches_plain(cuda, b, R, halo):
+    from quantumpropagators_torch.ops import banded_spmv as bs
+
+    rng = np.random.default_rng(b + R)
+    offsets = (-2, -1, 0, 1, 2)
+    planes = torch.as_tensor(rng.standard_normal((len(offsets), b, R, b)))
+    rows = R if halo is None else R + 2 * halo
+    x = rng.standard_normal(rows * b) + 1j * rng.standard_normal(rows * b)
+    planes, x = planes.to(cuda), torch.as_tensor(x).to(cuda)
+    bs.reset_launches()
+    got = bs.banded_spmv(planes, offsets, x, halo)
+    want = bs.banded_spmv_plain(planes, offsets, x, halo)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES["banded_spmv<double>"] == 1
+    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
+
+
+def test_static_dd_path_on_card_matches_cpu(cuda):
+    import scipy.sparse as sp
+
+    from quantumpropagators_torch.ops import banded_spmv as bs
+
+    rng = np.random.default_rng(9)
+    b, R = 128, 12
+    N = b * R - 5  # padded inside the banded route
+    A = sp.diags([rng.standard_normal(N - d) for d in (0, 1, 130)],
+                 [0, 1, 130]).tocsr()
+    A = (A + A.T).tocsr()
+    psi = rng.standard_normal(N) + 1j * rng.standard_normal(N)
+    psi = torch.as_tensor(psi / np.linalg.norm(psi))
+    tlist = np.linspace(0.0, 0.3, 4)
+    bound = float(abs(A).sum(axis=1).max())
+    kw = dict(specrange_method="manual", E_min=-1.1 * bound, E_max=bound,
+              kernel="dd")
+    out = {}
+    for device in ("cpu", cuda):
+        op = qt.bsr_from_scipy(A, block_size=128, device=device)
+        bs.reset_launches()
+        res, _ = cheby_propagate_fused(psi.to(device), op, tlist, **kw)
+        launched = bs.LAUNCHES["banded_spmv<double>"]
+        assert launched == 0 if device == "cpu" else launched > 0
+        out[str(device)] = res.cpu()
+    assert float((out["cuda:0"] - out["cpu"]).abs().max()) < 1e-12

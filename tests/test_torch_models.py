@@ -12,6 +12,10 @@ import quantumpropagators_torch as qt
 from quantumpropagators.models.generators import coeff_table_np as jax_table
 from quantumpropagators_torch.interop import from_jax
 from quantumpropagators_torch.models.generators import coeff_table_np
+from quantumpropagators_torch import set_default_device
+
+# the package builds on the card by default; these tests run on the CPU
+set_default_device("cpu")
 
 TLIST = np.linspace(0, 10, 21)
 

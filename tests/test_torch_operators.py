@@ -13,6 +13,10 @@ from quantumpropagators.models import lattice as jlat
 from quantumpropagators_torch.interop import from_jax, to_numpy
 from quantumpropagators_torch.models import lattice as tlat
 from quantumpropagators_torch.ops import operators as tops
+from quantumpropagators_torch import set_default_device
+
+# the package builds on the card by default; these tests run on the CPU
+set_default_device("cpu")
 
 TOL = 1e-12
 

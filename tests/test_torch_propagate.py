@@ -14,6 +14,10 @@ import quantumpropagators_torch as qt
 from quantumpropagators.utils.fixtures import random_matrix, random_state_vector
 from quantumpropagators_torch import interfaces
 from quantumpropagators_torch.interop import from_jax
+from quantumpropagators_torch import set_default_device
+
+# the package builds on the card by default; these tests run on the CPU
+set_default_device("cpu")
 
 SX = np.array([[0, 1], [1, 0]], dtype=complex)
 SZ = np.array([[1, 0], [0, -1]], dtype=complex)
