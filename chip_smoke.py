@@ -16,7 +16,9 @@ version, then runs Chebyshev propagation through
 
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
-same function.  One line per phase; the second-to-last line is the
+same function.  The flip iteration is two kernels on the card (the high
+pass ``cheby_flip_high`` for the top bits, then ``cheby_flip_iter``);
+phase 6 times the order as the whole wrapper call and each pass alone.  One line per phase; the second-to-last line is the
 kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits nonzero without printing
 a result.  It refuses to run without a CUDA device.
@@ -55,12 +57,15 @@ PEAK_FLOPS = {"double": 34e12, "float": 67e12}
 REPLACES = {
     "cheby_flip_first<float>": "quantumpropagators/ops/fused_cheby.py:440",
     "cheby_flip_iter<float>": "quantumpropagators/ops/fused_cheby.py:474",
+    "cheby_flip_high<float>": "quantumpropagators/ops/fused_cheby.py:474",
     "cheby_flip_first<double>": "quantumpropagators/ops/fused_cheby_dd.py:1063",
     "cheby_flip_iter<double>": "quantumpropagators/ops/fused_cheby_dd.py:1022",
+    "cheby_flip_high<double>": "quantumpropagators/ops/fused_cheby_dd.py:1022",
 }
 ALSO_REPLACES = {
-    # the dd path's f32 tail runs on the float iteration
+    # the dd path's f32 tail runs on the float iteration and its high pass
     "cheby_flip_iter<float>": "quantumpropagators/ops/fused_cheby_dd.py:1165",
+    "cheby_flip_high<float>": "quantumpropagators/ops/fused_cheby_dd.py:1165",
 }
 
 
@@ -118,8 +123,9 @@ def kernel_inputs(L, ctype, device, seed):
 
 
 def run_instantiation(name, inputs, plain: bool):
-    """One launch of ``name`` (kernel or plain version) on copies of
-    ``inputs``; returns the output tensors."""
+    """One call of ``name``'s wrapper (kernel or plain version) on copies
+    of ``inputs``; returns the output tensors.  The iteration's wrapper
+    runs both passes where its split has a high pass."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     v0, v1, phi, dmb, G, s = inputs
@@ -127,19 +133,42 @@ def run_instantiation(name, inputs, plain: bool):
     if kind == "cheby_flip_first":
         fn = cf.cheby_flip_first_plain if plain else cf.cheby_flip_first
         return fn(v0, dmb, G, s, 0.81, -0.45)
+    if kind == "cheby_flip_high":
+        fn = cf.cheby_flip_high_plain if plain else cf.cheby_flip_high
+        return (fn(v1, G, cf.flip_split(G.numel(), v1.dtype)[1], v0),)
     fn = cf.cheby_flip_iter_plain if plain else cf.cheby_flip_iter
     v0c, phic = v0.clone(), phi.clone()
     fn(v0c, v1, phic, dmb, G, 2.0 * s, 0.13)
     return v0c, phic
 
 
+def check_sizes(name):
+    """The sizes at which phase 2 holds ``name`` against its plain
+    version: the iteration around its tile and split (1, 2, 4, T-1, T,
+    T+1, the smallest L with a high pass, 16, 20), the high pass where
+    it runs, and every kernel at L_CHECK and L_MAIN."""
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    kind, ctype = name[:-1].split("<")
+    cdtype = torch.complex64 if ctype == "float" else torch.complex128
+    T = cf.flip_split(cf.MAX_BITS, cdtype)[0]
+    first_high = min(L for L in range(1, cf.MAX_BITS + 1)
+                     if cf.flip_split(L, cdtype)[1])
+    sizes = {L_CHECK, L_MAIN}
+    if kind != "cheby_flip_first":
+        sizes |= {1, 2, 4, T - 1, T, T + 1, first_high, 16}
+    if kind == "cheby_flip_high":
+        sizes = {L for L in sizes if cf.flip_split(L, cdtype)[1]}
+    return sorted(sizes)
+
+
 def compare_kernels(device):
-    """Phase 2: every instantiation against its plain version at L_CHECK
-    and at the main path's size L_MAIN; returns ``{name: max_abs_err}``
-    over both sizes."""
+    """Phase 2: every instantiation against its plain version at the
+    sizes of :func:`check_sizes`; returns ``{name: max_abs_err}`` over
+    all of them."""
     errs = {}
-    for L in (L_CHECK, L_MAIN):
-        for name in REPLACES:
+    for name in REPLACES:
+        for L in check_sizes(name):
             ctype = name.split("<")[1][:-1]
             inputs = kernel_inputs(L, ctype, device, SEED)
             got = run_instantiation(name, inputs, plain=False)
@@ -153,12 +182,16 @@ def compare_kernels(device):
             else:
                 ok = err <= 1e-5 * scale
                 tol = "max|d| <= 1e-5 * max|ref|"
-            log(f"phase 2 kernel-vs-plain {name} L={L}: max|d|={err:.3e} "
-                f"max|ref|={scale:.3e} ({tol}) {'ok' if ok else 'FAIL'}")
+            if L in (L_CHECK, L_MAIN) or not ok:
+                log(f"phase 2 kernel-vs-plain {name} L={L}: "
+                    f"max|d|={err:.3e} max|ref|={scale:.3e} ({tol}) "
+                    f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain version")
             errs[name] = max(err, errs.get(name, 0.0))
             del inputs, got, want
+        log(f"phase 2 kernel-vs-plain {name}: ok at L = {check_sizes(name)}, "
+            f"max|d| = {errs[name]:.3e}")
     return errs
 
 
@@ -215,9 +248,10 @@ def main_path(device, card):
                         storage=True)
     torch.cuda.synchronize()
     launches["dd"] = dict(cf.LAUNCHES)
-    if not (launches["dd"]["cheby_flip_first<double>"] > 0
-            and launches["dd"]["cheby_flip_iter<double>"] > 0
-            and launches["dd"]["cheby_flip_iter<float>"] > 0):
+    if not all(launches["dd"][k] > 0 for k in (
+            "cheby_flip_first<double>", "cheby_flip_iter<double>",
+            "cheby_flip_high<double>", "cheby_flip_iter<float>",
+            "cheby_flip_high<float>")):
         raise AssertionError(f"dd path did not launch the kernels: "
                              f"{launches['dd']}")
     # timed run: the same path without observables, after the one above
@@ -261,8 +295,9 @@ def main_path(device, card):
     torch.cuda.synchronize()
     t_32 = time.perf_counter() - t0
     launches["pallas"] = dict(cf.LAUNCHES)
-    if not (launches["pallas"]["cheby_flip_first<float>"] > 0
-            and launches["pallas"]["cheby_flip_iter<float>"] > 0):
+    if not all(launches["pallas"][k] > 0 for k in (
+            "cheby_flip_first<float>", "cheby_flip_iter<float>",
+            "cheby_flip_high<float>")):
         raise AssertionError(f"f32 path did not launch the kernels: "
                              f"{launches['pallas']}")
     if psi_32.dtype != torch.complex64:
@@ -317,39 +352,61 @@ def time_ms(fn, reps):
 def time_kernels(device, card):
     """Phase 6: each instantiation and its plain version at L_MAIN.  The
     iteration runs in place (v0 := v2, Φ += a·v2) on the same buffers
-    every repetition, as it does inside a step."""
+    every repetition, as it does inside a step; its time is the whole
+    wrapper call (high pass and iteration pass), held against the
+    order's bound, and each pass is also timed alone."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     times = {}
     for name in REPLACES:
-        ctype = name.split("<")[1][:-1]
+        kind, ctype = name[:-1].split("<")
         v0, v1, phi, dmb, G, s = kernel_inputs(L_MAIN, ctype, device, SEED)
-        if name.startswith("cheby_flip_first"):
+        h = cf.flip_split(L_MAIN, v0.dtype)[1]
+        vec = v0.numel() * v0.element_size()
+        g_bytes = G.numel() * G.element_size()
+        ins = dmb.numel() * dmb.element_size() + g_bytes
+        # each input read once and each output written once: first reads
+        # v0, dmb, G and writes v1, Φ; iter reads v0, v1, Φ, dmb, G and
+        # writes v2, Φ; the high pass reads v1, G and writes w_hi.
+        # Operations per element: 4 per flip and for the diagonal, 12 for
+        # the recurrence and the Φ update.
+        if kind == "cheby_flip_first":
             def run(fn):
                 return lambda: fn(v0, dmb, G, s, 0.81, -0.45)
 
             kernel, plain = cf.cheby_flip_first, cf.cheby_flip_first_plain
+            n_bytes, flops = ins + 3 * vec, (4 * L_MAIN + 16) * v0.numel()
+        elif kind == "cheby_flip_high":
+            def run(fn):
+                return lambda: fn(v1, G, h)
+
+            kernel, plain = cf.cheby_flip_high, cf.cheby_flip_high_plain
+            n_bytes, flops = g_bytes + 2 * vec, 4 * h * v0.numel()
         else:
             def run(fn):
                 return lambda: fn(v0, v1, phi, dmb, G, 2.0 * s, 0.13)
 
             kernel, plain = cf.cheby_flip_iter, cf.cheby_flip_iter_plain
+            n_bytes, flops = ins + 5 * vec, (4 * L_MAIN + 16) * v0.numel()
         ms = time_ms(run(kernel), 20)
         plain_ms = time_ms(run(plain), 3)
-        # each input read once and each output written once: first reads
-        # v0, dmb, G and writes v1, Φ; iter reads v0, v1, Φ, dmb, G and
-        # writes v2, Φ.  Operations per element: 4 per flip and for the
-        # diagonal, 12 for the recurrence and the Φ update.
-        vec = v0.numel() * v0.element_size()
-        ins = dmb.numel() * dmb.element_size() + G.numel() * G.element_size()
-        n_bytes = ins + (3 * vec if name.startswith("cheby_flip_first")
-                         else 5 * vec)
-        bound_ms, bound_by = bound(n_bytes, (4 * L_MAIN + 16) * v0.numel(),
-                                   ctype)
+        bound_ms, bound_by = bound(n_bytes, flops, ctype)
         times[name] = (ms, plain_ms, bound_ms, bound_by)
-        log(f"phase 6 time {name} L={L_MAIN}: kernel {ms:.4f} ms, "
+        what = {"cheby_flip_iter": f"order (high pass h={h} + iteration "
+                                   f"pass)",
+                "cheby_flip_high": f"high pass alone (h={h})"}.get(kind,
+                                                                  "kernel")
+        log(f"phase 6 time {name} L={L_MAIN}: {what} {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}, {100 * bound_ms / ms:.1f} % of it reached) [{card}]")
+        if kind == "cheby_flip_iter":
+            w_hi = cf.cheby_flip_high(v1, G, h)
+            it_ms = time_ms(lambda: cf.cheby_flip_iter_low(
+                v0, v1, phi, dmb, G, 2.0 * s, 0.13, L_MAIN - h, w_hi), 20)
+            log(f"phase 6 time {name} L={L_MAIN}: iteration pass alone "
+                f"(bits < {L_MAIN - h}, w_hi read) {it_ms:.4f} ms [{card}]")
+            del w_hi
+        del v0, v1, phi, dmb
     return times
 
 

@@ -33,15 +33,38 @@
 // hi/lo f32 planes; on Hopper every flip is an index XOR and f64 is
 // native, so both tiers are one template.
 //
-// Bound: memory.  Per element and order the iteration reads v1, v0, Phi
-// and dmb and writes v2 and Phi: 5.5 vectors, 88 bytes for double and 44
-// for float.  The L neighbour reads v1[i ^ 2^j] hit L1/L2 for the low
-// bits (the partner lies in the same or a nearby line); bits whose
-// partner lies further away than the cache holds cost a further read of
-// v1 from device memory each.  This first version is one thread per
-// element reading every neighbour from global memory.  Serving bits 0-4
-// by warp shuffles and the middle bits from shared memory, so that only
-// the top bits leave the SM, is work for later.
+// Bound: memory.  Per element and order the iteration must read v1, v0,
+// Phi and dmb and write v2 and Phi: 5.5 vectors, 88 bytes for double and
+// 44 for float.  cheby_flip_first is one thread per element reading every
+// neighbour v1[i ^ 2^j] from global memory.
+//
+// The iteration is two passes, because no single sweep over the state
+// keeps every flip partner in cache: partners of bit j lie 2^j elements
+// apart, and a sweep that streams ~100 bytes per element through the 50 MB
+// L2 has lost the partners of bits above ~18, so each such bit re-reads
+// v1 from device memory.  On an H100 a one-thread-per-element order at
+// 2^24 stays flat while bits 0-17 are read and then rises ~0.1 ms per bit
+// in double (tools/flip_reach.py); a block of 2^T elements can hold the
+// partners of at most T bits, whatever its shape.
+//
+//   cheby_flip_high<T>: w_hi = sum_{j >= L-h} G_j v1[i ^ 2^j] (+ w).  A
+//     block holds a strided cube: one run of 2^line_bits contiguous
+//     elements (256 bytes) for each of the 2^h values of the top h bits,
+//     staged in shared memory with cp.async, so every top-bit partner is
+//     read from there.  One streaming pass: read v1 (and w), write w_hi.
+//   cheby_flip_iter<T>: the order over bits j < L-h, with w_hi as its w.
+//     A block owns a contiguous tile of 2^tile_bits elements of v1 (16
+//     KB), staged in shared memory with cp.async; flips of bits below
+//     tile_bits read the tile, bits tile_bits .. L-h-1 read whole partner
+//     tiles from global memory (L2), kLoadBatch loads in flight at once.
+//     For L <= tile_bits the tile is the whole vector.
+//
+// The caller picks h, tile_bits and line_bits from L and the type
+// (ops/cheby_flip.py:flip_split); h = 0 skips the high pass.  At L = 24
+// the passes move 32 + 104 bytes per element (double) instead of the ~184
+// of a sweep that re-reads v1 for its top bits.  Tiles of 16 KB beat 32
+// and 64 KB: more blocks stay resident to hide the middle bits' L2
+// latency.  Arithmetic is plain FMAs, 5-20x below the bytes' time.
 
 #include <cuda_runtime.h>
 
@@ -116,41 +139,185 @@ __global__ void cheby_flip_first(const typename Complex<T>::type* __restrict__ v
   }
 }
 
+// 16-byte and 8-byte asynchronous copies from global to shared memory
+// (sm_80+), completed by cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <typename V>
+__device__ __forceinline__ void cp_async_elem(V* dst, const V* src) {
+  if constexpr (sizeof(V) == 16) {
+    cp_async16(dst, src);
+  } else {
+    cp_async8(dst, src);
+  }
+}
+
+// Block sizes and the number of global flip loads issued together; the
+// macros let tools/flip_reach.py build variants for tuning.
+#ifndef FLIP_ITER_THREADS
+#define FLIP_ITER_THREADS 512
+#endif
+#ifndef FLIP_HIGH_THREADS
+#define FLIP_HIGH_THREADS 256
+#endif
+#ifndef FLIP_LOAD_BATCH
+#define FLIP_LOAD_BATCH 4
+#endif
+constexpr int kIterThreads = FLIP_ITER_THREADS;
+constexpr int kHighThreads = FLIP_HIGH_THREADS;
+constexpr int kLoadBatch = FLIP_LOAD_BATCH;
+constexpr int kMaxSmem = 227 * 1024;  // shared memory a block may use
+
+// One order over the flips of bits j < bits (bits = L - h):
+//   v2 = v0 + i s2 (dmb v1 + sum_{j < bits} G_j v1[i ^ 2^j] + w),
+//   Phi += ak v2.
+// The block's tile of 2^tile_bits elements of v1 sits in shared memory.
 // v0 and v2 may be the same buffer (v2 overwrites v0 in place): each
 // thread reads v0[i] before it writes v2[i], and no thread reads another
 // element of either.
 template <typename T>
-__global__ void cheby_flip_iter(const typename Complex<T>::type* v0,
-                                typename Complex<T>::type* v2,
-                                const typename Complex<T>::type* __restrict__ v1,
-                                typename Complex<T>::type* __restrict__ phi,
-                                const T* __restrict__ dmb,
-                                const T* __restrict__ G,
-                                const typename Complex<T>::type* __restrict__ w,
-                                int L, int64_t n, T s2, T ak) {
+__global__ void __launch_bounds__(kIterThreads)
+    cheby_flip_iter(const typename Complex<T>::type* v0,
+                    typename Complex<T>::type* v2,
+                    const typename Complex<T>::type* __restrict__ v1,
+                    typename Complex<T>::type* __restrict__ phi,
+                    const T* __restrict__ dmb, const T* __restrict__ G,
+                    const typename Complex<T>::type* __restrict__ w,
+                    int tile_bits, int bits, T s2, T ak) {
   using V = typename Complex<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  V* tile = reinterpret_cast<V*>(smem);
   __shared__ T sG[kMaxBits];
-  if (int(threadIdx.x) < L) sG[threadIdx.x] = G[threadIdx.x];
+  const int tn = 1 << tile_bits;
+  const int64_t base = int64_t(blockIdx.x) << tile_bits;
+  {
+    const char* src = reinterpret_cast<const char*>(v1 + base);
+    const int chunks = tn * int(sizeof(V)) / 16;
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x)
+      cp_async16(smem + 16 * c, src + 16 * c);
+  }
+  if (int(threadIdx.x) < bits) sG[threadIdx.x] = G[threadIdx.x];
+  cp_async_wait_all();
   __syncthreads();
-  const int64_t stride = int64_t(blockDim.x) * gridDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const V u = shifted_h<T, V>(v1, dmb, sG, w, L, i);
+  const int lo = bits < tile_bits ? bits : tile_bits;
+  for (int k = threadIdx.x; k < tn; k += blockDim.x) {
+    const int64_t i = base + k;
+    // streaming operands first, so their loads are in flight during the
+    // flip sum
+    const T d = dmb[i];
     const V x0 = v0[i];
-    V r;  // 2c (H - beta) v1 + v0
-    r.x = x0.x - s2 * u.y;
-    r.y = x0.y + s2 * u.x;
-    v2[i] = r;
     V p = phi[i];
+    V z;
+    z.x = 0;
+    z.y = 0;
+    if (w != nullptr) z = w[i];
+    const V x = tile[k];
+    T ur = d * x.x;
+    T ui = d * x.y;
+#pragma unroll 4
+    for (int j = 0; j < lo; ++j) {
+      const V y = tile[k ^ (1 << j)];
+      ur += sG[j] * y.x;
+      ui += sG[j] * y.y;
+    }
+    // bits above the tile: partners in other tiles, read from global
+    // memory (L2) kLoadBatch at a time, all loads of a batch in flight
+    // before the first is used
+    for (int j0 = lo; j0 < bits; j0 += kLoadBatch) {
+      V y[kLoadBatch];
+#pragma unroll
+      for (int c = 0; c < kLoadBatch; ++c)
+        if (j0 + c < bits) y[c] = v1[i ^ (int64_t(1) << (j0 + c))];
+#pragma unroll
+      for (int c = 0; c < kLoadBatch; ++c)
+        if (j0 + c < bits) {
+          ur += sG[j0 + c] * y[c].x;
+          ui += sG[j0 + c] * y[c].y;
+        }
+    }
+    ur += z.x;
+    ui += z.y;
+    V r;  // 2c (H - beta) v1 + v0
+    r.x = x0.x - s2 * ui;
+    r.y = x0.y + s2 * ur;
+    v2[i] = r;
     p.x += ak * r.x;
     p.y += ak * r.y;
     phi[i] = p;
   }
 }
 
+// out = sum_{r < h} G[L-h+r] v1[i ^ 2^(L-h+r)] (+ w).  Block b holds the
+// cube of the 2^line_bits elements (b << line_bits) .. + 2^line_bits - 1
+// of the low L-h bits, for each of the 2^h values of the top h bits:
+// cube element q is global index ((q >> line_bits) << (L-h)) | (b <<
+// line_bits) | (q & (2^line_bits - 1)).
+template <typename T>
+__global__ void __launch_bounds__(kHighThreads)
+    cheby_flip_high(const typename Complex<T>::type* __restrict__ v1,
+                    const T* __restrict__ G,
+                    const typename Complex<T>::type* __restrict__ w,
+                    typename Complex<T>::type* __restrict__ out, int L, int h,
+                    int line_bits) {
+  using V = typename Complex<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  V* cube = reinterpret_cast<V*>(smem);
+  __shared__ T sG[kMaxBits];
+  const int m = L - h;
+  const int cn = 1 << (line_bits + h);
+  const int line_mask = (1 << line_bits) - 1;
+  const int64_t mid = int64_t(blockIdx.x) << line_bits;
+  for (int q = threadIdx.x; q < cn; q += blockDim.x) {
+    const int64_t i = (int64_t(q >> line_bits) << m) | mid | (q & line_mask);
+    cp_async_elem(cube + q, v1 + i);
+  }
+  if (int(threadIdx.x) < h) sG[threadIdx.x] = G[m + threadIdx.x];
+  cp_async_wait_all();
+  __syncthreads();
+  for (int q = threadIdx.x; q < cn; q += blockDim.x) {
+    const int64_t i = (int64_t(q >> line_bits) << m) | mid | (q & line_mask);
+    T ur = 0;
+    T ui = 0;
+    for (int r = 0; r < h; ++r) {
+      const V y = cube[q ^ (1 << (line_bits + r))];
+      ur += sG[r] * y.x;
+      ui += sG[r] * y.y;
+    }
+    if (w != nullptr) {
+      const V z = w[i];
+      ur += z.x;
+      ui += z.y;
+    }
+    V u;
+    u.x = ur;
+    u.y = ui;
+    out[i] = u;
+  }
+}
+
 int grid_for(int64_t n) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   return int(blocks < (int64_t(1) << 30) ? blocks : (int64_t(1) << 30));
+}
+
+// Allows `kernel` more dynamic shared memory than the default 48 KB.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <typename T>
@@ -169,13 +336,37 @@ int launch_first(const void* v0, void* v1, void* phi, const void* dmb,
 template <typename T>
 int launch_iter(const void* v0, void* v2, const void* v1, void* phi,
                 const void* dmb, const void* G, const void* w, int L,
-                int64_t n, T s2, T ak, void* stream) {
+                int64_t n, int tile_bits, int bits, T s2, T ak,
+                void* stream) {
   using V = typename Complex<T>::type;
-  if (L < 1 || L > kMaxBits || n != (int64_t(1) << L))
+  if (L < 1 || L > kMaxBits || n != (int64_t(1) << L) || bits < 0 ||
+      bits > L || tile_bits < 0 || tile_bits > L)
     return int(cudaErrorInvalidValue);
-  cheby_flip_iter<T><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  const int64_t bytes = (int64_t(1) << tile_bits) * int64_t(sizeof(V));
+  if (bytes < 16 || bytes > kMaxSmem) return int(cudaErrorInvalidValue);
+  const cudaError_t rc = allow_smem(cheby_flip_iter<T>, int(bytes));
+  if (rc != cudaSuccess) return int(rc);
+  cheby_flip_iter<T><<<int(n >> tile_bits), kIterThreads, int(bytes),
+                       (cudaStream_t)stream>>>(
       (const V*)v0, (V*)v2, (const V*)v1, (V*)phi, (const T*)dmb,
-      (const T*)G, (const V*)w, L, n, s2, ak);
+      (const T*)G, (const V*)w, tile_bits, bits, s2, ak);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_high(const void* v1, const void* G, const void* w, void* out,
+                int L, int64_t n, int h, int line_bits, void* stream) {
+  using V = typename Complex<T>::type;
+  if (L < 1 || L > kMaxBits || n != (int64_t(1) << L) || h < 1 ||
+      line_bits < 0 || line_bits + h > L)
+    return int(cudaErrorInvalidValue);
+  const int64_t bytes = (int64_t(1) << (line_bits + h)) * int64_t(sizeof(V));
+  if (bytes > kMaxSmem) return int(cudaErrorInvalidValue);
+  const cudaError_t rc = allow_smem(cheby_flip_high<T>, int(bytes));
+  if (rc != cudaSuccess) return int(rc);
+  cheby_flip_high<T><<<int(n >> (line_bits + h)), kHighThreads, int(bytes),
+                       (cudaStream_t)stream>>>(
+      (const V*)v1, (const T*)G, (const V*)w, (V*)out, L, h, line_bits);
   return int(cudaGetLastError());
 }
 
@@ -200,15 +391,30 @@ int cheby_flip_first_f64(const void* v0, void* v1, void* phi, const void* dmb,
 
 int cheby_flip_iter_f32(const void* v0, void* v2, const void* v1, void* phi,
                         const void* dmb, const void* G, const void* w, int L,
-                        int64_t n, float s2, float ak, void* stream) {
-  return launch_iter<float>(v0, v2, v1, phi, dmb, G, w, L, n, s2, ak, stream);
+                        int64_t n, int tile_bits, int bits, float s2,
+                        float ak, void* stream) {
+  return launch_iter<float>(v0, v2, v1, phi, dmb, G, w, L, n, tile_bits,
+                            bits, s2, ak, stream);
 }
 
 int cheby_flip_iter_f64(const void* v0, void* v2, const void* v1, void* phi,
                         const void* dmb, const void* G, const void* w, int L,
-                        int64_t n, double s2, double ak, void* stream) {
-  return launch_iter<double>(v0, v2, v1, phi, dmb, G, w, L, n, s2, ak,
-                             stream);
+                        int64_t n, int tile_bits, int bits, double s2,
+                        double ak, void* stream) {
+  return launch_iter<double>(v0, v2, v1, phi, dmb, G, w, L, n, tile_bits,
+                             bits, s2, ak, stream);
+}
+
+int cheby_flip_high_f32(const void* v1, const void* G, const void* w,
+                        void* out, int L, int64_t n, int h, int line_bits,
+                        void* stream) {
+  return launch_high<float>(v1, G, w, out, L, n, h, line_bits, stream);
+}
+
+int cheby_flip_high_f64(const void* v1, const void* G, const void* w,
+                        void* out, int L, int64_t n, int h, int line_bits,
+                        void* stream) {
+  return launch_high<double>(v1, G, w, out, L, n, h, line_bits, stream);
 }
 
 }  // extern "C"

@@ -36,9 +36,14 @@ _SIGNATURES = {
     # v0, v1, phi, dmb, G, w, L, n, s, a0, a1, stream
     "cheby_flip_first_f32": [_P] * 6 + [_I, _L] + [ctypes.c_float] * 3 + [_P],
     "cheby_flip_first_f64": [_P] * 6 + [_I, _L] + [ctypes.c_double] * 3 + [_P],
-    # v0, v2, v1, phi, dmb, G, w, L, n, s2, ak, stream
-    "cheby_flip_iter_f32": [_P] * 7 + [_I, _L] + [ctypes.c_float] * 2 + [_P],
-    "cheby_flip_iter_f64": [_P] * 7 + [_I, _L] + [ctypes.c_double] * 2 + [_P],
+    # v0, v2, v1, phi, dmb, G, w, L, n, tile_bits, bits, s2, ak, stream
+    "cheby_flip_iter_f32": [_P] * 7 + [_I, _L, _I, _I]
+                           + [ctypes.c_float] * 2 + [_P],
+    "cheby_flip_iter_f64": [_P] * 7 + [_I, _L, _I, _I]
+                           + [ctypes.c_double] * 2 + [_P],
+    # v1, G, w, out, L, n, h, line_bits, stream
+    "cheby_flip_high_f32": [_P] * 4 + [_I, _L, _I, _I, _P],
+    "cheby_flip_high_f64": [_P] * 4 + [_I, _L, _I, _I, _P],
     # planes, x, y, offsets, n_bands, R, b, halo, stream
     "banded_spmv_f64": [_P] * 3 + [ctypes.POINTER(ctypes.c_int), _I, _L, _I,
                                    _I, _P],

@@ -10,6 +10,13 @@ With ``dmb = d − β`` and ``c = i·s``:
   ``Φ += a_k·v2``, with ``v2`` written into ``out`` (default: ``v0``'s
   buffer) and ``Φ`` updated in place.
 
+On the card :func:`cheby_flip_iter` is two passes (:func:`flip_split`
+picks the split from ``L`` and the type): :func:`cheby_flip_high` sums
+the flips of the top ``h`` bits into a scratch vector ``w_hi`` (plus
+the caller's ``w``), and :func:`cheby_flip_iter_low` runs the order over
+the flips of the bits below ``L − h`` with ``w_hi`` as its ``w``.  The
+top bits' partners lie too far apart for one sweep to find them in L2.
+
 Each takes complex128 states with float64 ``dmb``/``G`` (the
 reference-accuracy tier) or complex64 with float32 (the f32 tier).  A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -26,15 +33,30 @@ from . import _cuda
 __all__ = [
     "LAUNCHES",
     "MAX_BITS",
+    "MAX_HIGH_BITS",
     "reset_launches",
+    "flip_split",
     "flip_sum_plain",
+    "flip_sum_range_plain",
     "cheby_flip_first",
     "cheby_flip_first_plain",
     "cheby_flip_iter",
     "cheby_flip_iter_plain",
+    "cheby_flip_iter_low",
+    "cheby_flip_iter_low_plain",
+    "cheby_flip_high",
+    "cheby_flip_high_plain",
 ]
 
 MAX_BITS = 30
+MAX_HIGH_BITS = 8          # the high pass's cube: at most 2^8 runs
+SMEM_BYTES = 227 * 1024    # shared memory one H100 block may use
+LINE_BYTES = 256           # the high pass's contiguous run per top-bit value
+TILE_BYTES = 16 * 1024     # the iteration's tile of v1 in shared memory
+# Bits below which a flip partner stays within L2's reach while the
+# iteration sweeps the state; the bits above go to the high pass.  Sizes
+# chosen from tools/flip_reach.py runs on an H100 (PERF.md §6).
+REACH_BITS = 18
 
 _TYPES = {
     torch.complex64: ("float", "f32", torch.float32),
@@ -43,7 +65,7 @@ _TYPES = {
 
 LAUNCHES = {
     f"{kernel}<{ctype}>": 0
-    for kernel in ("cheby_flip_first", "cheby_flip_iter")
+    for kernel in ("cheby_flip_first", "cheby_flip_iter", "cheby_flip_high")
     for ctype in ("float", "double")
 }
 
@@ -53,8 +75,28 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
+def flip_split(L: int, dtype) -> tuple[int, int]:
+    """``(tile_bits, h)`` of one order at ``2^L`` in ``dtype``: the
+    iteration stages tiles of ``2^tile_bits`` elements in shared memory,
+    and the high pass takes the top ``h`` bits (``h = 0``: none)."""
+    tile_bits = min(L, _bits_in(TILE_BYTES, dtype))
+    h = min(max(L - REACH_BITS, 0), MAX_HIGH_BITS)
+    return tile_bits, h
+
+
+def high_line_bits(L: int, h: int, dtype) -> int:
+    """The high pass's line: ``2^line_bits`` contiguous elements (at most
+    :data:`LINE_BYTES`) for each value of the top ``h`` bits."""
+    return min(L - h, _bits_in(LINE_BYTES, dtype))
+
+
+def _bits_in(n_bytes: int, dtype) -> int:
+    return (n_bytes // dtype.itemsize).bit_length() - 1
+
+
 def _check(vectors, dmb, G) -> int:
-    """Validate the arguments of one launch; returns ``L``."""
+    """Validate the arguments of one launch (``dmb=None``: no diagonal);
+    returns ``L``."""
     v = vectors[0]
     if v.dtype not in _TYPES:
         raise TypeError(f"state must be complex64 or complex128, got {v.dtype}")
@@ -70,8 +112,9 @@ def _check(vectors, dmb, G) -> int:
             raise ValueError("state vectors must share dtype, length and device")
         if not x.is_contiguous():
             raise ValueError("state vectors must be contiguous")
-    if dmb.dtype != rdtype or dmb.numel() != n or dmb.device != v.device \
-            or not dmb.is_contiguous():
+    if dmb is not None and (dmb.dtype != rdtype or dmb.numel() != n
+                            or dmb.device != v.device
+                            or not dmb.is_contiguous()):
         raise ValueError(f"dmb must be a contiguous {rdtype} vector of "
                          f"length {n} on {v.device}")
     if G.dtype != rdtype or tuple(G.shape) != (L,) or G.device != v.device \
@@ -83,8 +126,14 @@ def _check(vectors, dmb, G) -> int:
 
 def flip_sum_plain(v: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     """``Σ_j G_j·v[i ^ 2^j]`` over a flat ``2^L`` vector."""
+    return flip_sum_range_plain(v, G, 0, G.shape[0])
+
+
+def flip_sum_range_plain(v: torch.Tensor, G: torch.Tensor, lo: int,
+                         hi: int) -> torch.Tensor:
+    """``Σ_{lo ≤ j < hi} G_j·v[i ^ 2^j]`` over a flat ``2^L`` vector."""
     out = torch.zeros_like(v)
-    for j in range(G.shape[0]):
+    for j in range(lo, hi):
         out += G[j] * v.view(-1, 2, 1 << j).flip(1).reshape(v.shape)
     return out
 
@@ -109,6 +158,32 @@ def cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w=None, out=None):
     out.copy_(v2)
     phi.add_(v2, alpha=ak)
     return out
+
+
+def cheby_flip_iter_low_plain(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
+                              out=None):
+    """Plain PyTorch version of :func:`cheby_flip_iter_low`."""
+    out = v0 if out is None else out
+    L = _check([v0, v1, phi, out] + ([w] if w is not None else []), dmb, G)
+    _check_bits(bits, 0, L)
+    u = dmb.view(v1.shape) * v1 + flip_sum_range_plain(v1, G, 0, bits)
+    v2 = (1j * s2) * (u if w is None else u + w) + v0
+    out.copy_(v2)
+    phi.add_(v2, alpha=ak)
+    return out
+
+
+def cheby_flip_high_plain(v1, G, h, w=None):
+    """Plain PyTorch version of :func:`cheby_flip_high`."""
+    L = _check([v1] + ([w] if w is not None else []), None, G)
+    _check_bits(h, 0, L)
+    u = flip_sum_range_plain(v1, G, L - h, L)
+    return u if w is None else u + w
+
+
+def _check_bits(bits, lo, hi):
+    if not lo <= bits <= hi:
+        raise ValueError(f"bit count {bits} outside [{lo}, {hi}]")
 
 
 def _launch(fn_name, ctype, args, device):
@@ -144,19 +219,73 @@ def cheby_flip_first(v0, dmb, G, s, a0, a1, w=None):
 def cheby_flip_iter(v0, v1, phi, dmb, G, s2, ak, w=None, out=None):
     """One order ``v2 = i·s2·((H−β)v1 + w) + v0``, ``Φ += a_k·v2``.
     ``v2`` goes into ``out`` (default: ``v0``, overwritten in place) and
-    is returned; ``Φ`` is updated in place."""
+    is returned; ``Φ`` is updated in place.  On the card: the high pass
+    (when :func:`flip_split` gives ``h > 0``), then the iteration pass."""
     if _device_kind(v0) == "cpu":
         return cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w, out)
     out = v0 if out is None else out
+    L = _check_iter(v0, v1, phi, out, w, dmb, G)
+    tile_bits, h = flip_split(L, v0.dtype)
+    if h:
+        w = _launch_high(v1, G, w, L, h)
+    _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L, tile_bits, L - h)
+    return out
+
+
+def cheby_flip_iter_low(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
+                        out=None):
+    """The iteration pass of :func:`cheby_flip_iter`: the same order
+    with the flips of bits ``0 .. bits−1`` only (the caller supplies the
+    others through ``w``)."""
+    if _device_kind(v0) == "cpu":
+        return cheby_flip_iter_low_plain(v0, v1, phi, dmb, G, s2, ak, bits,
+                                         w, out)
+    out = v0 if out is None else out
+    L = _check_iter(v0, v1, phi, out, w, dmb, G)
+    _check_bits(bits, 0, L)
+    _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L,
+                 flip_split(L, v0.dtype)[0], bits)
+    return out
+
+
+def cheby_flip_high(v1, G, h, w=None):
+    """The high pass of :func:`cheby_flip_iter`: returns
+    ``w_hi = Σ_{j ≥ L−h} G_j·v1[i ^ 2^j]`` (plus ``w`` when given) in a
+    new vector.  On the card ``1 ≤ h ≤`` :data:`MAX_HIGH_BITS`."""
+    if _device_kind(v1) == "cpu":
+        return cheby_flip_high_plain(v1, G, h, w)
+    L = _check([v1] + ([w] if w is not None else []), None, G)
+    _check_bits(h, 1, min(L, MAX_HIGH_BITS))
+    return _launch_high(v1, G, w, L, h)
+
+
+def _check_iter(v0, v1, phi, out, w, dmb, G) -> int:
     L = _check([v0, v1, phi, out] + ([w] if w is not None else []), dmb, G)
     if v1.data_ptr() in (v0.data_ptr(), out.data_ptr(), phi.data_ptr()):
         raise ValueError("v1 must not share memory with v0, out or phi")
+    if v1.data_ptr() % 16:
+        raise ValueError("v1 must be 16-byte aligned")
+    return L
+
+
+def _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L, tile_bits, bits):
     ctype, suffix, _ = _TYPES[v0.dtype]
     _launch(
         f"cheby_flip_iter_{suffix}", f"cheby_flip_iter<{ctype}>",
         (v0.data_ptr(), out.data_ptr(), v1.data_ptr(), phi.data_ptr(),
          dmb.data_ptr(), G.data_ptr(), None if w is None else w.data_ptr(),
-         L, v0.numel(), float(s2), float(ak)),
+         L, v0.numel(), tile_bits, bits, float(s2), float(ak)),
         v0.device,
     )
-    return out
+
+
+def _launch_high(v1, G, w, L, h):
+    ctype, suffix, _ = _TYPES[v1.dtype]
+    w_hi = torch.empty_like(v1)
+    _launch(
+        f"cheby_flip_high_{suffix}", f"cheby_flip_high<{ctype}>",
+        (v1.data_ptr(), G.data_ptr(), None if w is None else w.data_ptr(),
+         w_hi.data_ptr(), L, v1.numel(), h, high_line_bits(L, h, v1.dtype)),
+        v1.device,
+    )
+    return w_hi

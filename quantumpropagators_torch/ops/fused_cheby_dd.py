@@ -72,9 +72,9 @@ def f32_tail_orders(coeffs, per_step_budget: float = 3e-14,
 
 
 def dd_tile_rows(L: int, budget_bytes: int = 100 * 2 ** 20) -> int:
-    """Tile height of the JAX package's TPU plan, kept for API parity:
-    the CUDA kernels do not tile, so this only feeds
-    :func:`make_flip_plan`."""
+    """Tile height of the JAX package's TPU plan, kept for API parity;
+    it only feeds :func:`make_flip_plan`.  The CUDA iteration picks its
+    own tiles (``ops/cheby_flip.py:flip_split``)."""
     return min(1024, 1 << (L - 7))
 
 

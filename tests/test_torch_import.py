@@ -41,7 +41,8 @@ def test_kernel_module_imports_without_toolchain(tmp_path):
         "assert c._lib is None and not c.build_info; "
         "assert set(cf.LAUNCHES) == {'cheby_flip_first<float>', "
         "'cheby_flip_first<double>', 'cheby_flip_iter<float>', "
-        "'cheby_flip_iter<double>'}"
+        "'cheby_flip_iter<double>', 'cheby_flip_high<float>', "
+        "'cheby_flip_high<double>'}"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

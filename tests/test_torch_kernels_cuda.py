@@ -33,12 +33,29 @@ def _inputs(L, cdtype, device, seed=3):
     return vec(), vec(), vec(), dmb, G
 
 
-@pytest.mark.parametrize("cdtype, tol", [(torch.complex64, 1e-6),
-                                         (torch.complex128, 1e-14)])
+def _sizes(cdtype):
+    """L = 1, 2, 4, T-1, T, T+1 around the iteration's tile, the smallest L
+    that runs the high pass, 16 and 20."""
+    T = cf.flip_split(cf.MAX_BITS, cdtype)[0]
+    first_high = next(L for L in range(1, cf.MAX_BITS + 1)
+                      if cf.flip_split(L, cdtype)[1])
+    return sorted({1, 2, 4, T - 1, T, T + 1, first_high, 16, 20})
+
+
+_CASES = [(cdtype, tol, L)
+          for cdtype, tol in ((torch.complex64, 1e-6), (torch.complex128, 1e-14))
+          for L in _sizes(cdtype)]
+
+
+# sums are taken in another order than the plain version's: 1e-14 in
+# double and 1e-6 in float on unit-norm states
+@pytest.mark.parametrize("cdtype, tol, L", _CASES)
 @pytest.mark.parametrize("with_w", [False, True])
-def test_kernels_match_plain(cuda, cdtype, tol, with_w):
-    v0, v1, phi, dmb, G = _inputs(12, cdtype, cuda)
+@pytest.mark.parametrize("separate_out", [False, True])
+def test_kernels_match_plain(cuda, cdtype, tol, L, with_w, separate_out):
+    v0, v1, phi, dmb, G = _inputs(L, cdtype, cuda)
     w = v1.flip(0).contiguous() if with_w else None
+    h = cf.flip_split(L, cdtype)[1]
     cf.reset_launches()
     got = cf.cheby_flip_first(v0, dmb, G, -0.07, 0.8, -0.4, w)
     want = cf.cheby_flip_first_plain(v0, dmb, G, -0.07, 0.8, -0.4, w)
@@ -46,14 +63,27 @@ def test_kernels_match_plain(cuda, cdtype, tol, with_w):
         assert float((a - b).abs().max()) < tol
     k0, kphi = v0.clone(), phi.clone()
     p0, pphi = v0.clone(), phi.clone()
-    cf.cheby_flip_iter(k0, v1, kphi, dmb, G, -0.14, 0.3, w)
-    cf.cheby_flip_iter_plain(p0, v1, pphi, dmb, G, -0.14, 0.3, w)
+    kout = torch.empty_like(v0) if separate_out else None
+    pout = torch.empty_like(v0) if separate_out else None
+    res = cf.cheby_flip_iter(k0, v1, kphi, dmb, G, -0.14, 0.3, w, out=kout)
+    cf.cheby_flip_iter_plain(p0, v1, pphi, dmb, G, -0.14, 0.3, w, out=pout)
     torch.cuda.synchronize()
-    assert float((k0 - p0).abs().max()) < tol
+    assert res is (kout if separate_out else k0)
+    got_v2, want_v2 = (kout, pout) if separate_out else (k0, p0)
+    assert float((got_v2 - want_v2).abs().max()) < tol
     assert float((kphi - pphi).abs().max()) < tol
+    if separate_out:
+        assert torch.equal(k0, v0)  # v0 untouched
     ctype = "float" if cdtype == torch.complex64 else "double"
-    assert cf.LAUNCHES[f"cheby_flip_first<{ctype}>"] == 1
-    assert cf.LAUNCHES[f"cheby_flip_iter<{ctype}>"] == 1
+    assert cf.LAUNCHES == {
+        f"cheby_flip_{kind}<{c}>": int(c == ctype and (kind != "high" or h > 0))
+        for kind in ("first", "iter", "high") for c in ("float", "double")}
+    if h:
+        got_hi = cf.cheby_flip_high(v1, G, h, w)
+        want_hi = cf.cheby_flip_high_plain(v1, G, h, w)
+        torch.cuda.synchronize()
+        assert float((got_hi - want_hi).abs().max()) < tol
+        assert cf.LAUNCHES[f"cheby_flip_high<{ctype}>"] == 2
 
 
 def test_fused_path_on_card_matches_cpu(cuda):
