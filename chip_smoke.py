@@ -97,22 +97,20 @@ def random_state(L, dtype, device, seed):
     return torch.as_tensor(psi).to(device=device, dtype=dtype)
 
 
-_DIAGS: dict = {}
-
-
 def kernel_inputs(L, ctype, device, seed):
     """Seeded inputs for one launch at size 2^L: states, a generic
-    ``dmb = diag − β`` with β ≠ 0, and per-bit flip coefficients."""
-    from quantumpropagators_torch.models.lattice import chain_bonds, ising_diagonal_np
+    ``dmb = diag − β`` with β ≠ 0 (the chain's Ising diagonal, built on
+    the card), and per-bit flip coefficients."""
+    from quantumpropagators_torch.models.lattice import (z_chain_diagonal,
+                                                         zz_chain_diagonal)
 
     cdtype = torch.complex64 if ctype == "float" else torch.complex128
     rdtype = torch.float32 if ctype == "float" else torch.float64
     rng = np.random.default_rng(seed)
-    if L not in _DIAGS:
-        _DIAGS[L] = ising_diagonal_np(L, chain_bonds(L), J, H_FIELD)
-    diag = _DIAGS[L]
+    kw = dict(dtype=torch.float64, device=device)
+    diag = zz_chain_diagonal(L, J, **kw) + z_chain_diagonal(L, H_FIELD, **kw)
     beta = 0.37 * L
-    dmb = torch.as_tensor(diag - beta).to(device=device, dtype=rdtype)
+    dmb = (diag - beta).to(rdtype)
     G = torch.as_tensor(rng.uniform(0.5, 1.5, L)).to(device=device,
                                                       dtype=rdtype)
     v0 = random_state(L, cdtype, device, seed + 1)
@@ -122,10 +120,11 @@ def kernel_inputs(L, ctype, device, seed):
     return v0, v1, phi, dmb, G, s
 
 
-def run_instantiation(name, inputs, plain: bool):
+def run_instantiation(name, inputs, plain: bool, h=None):
     """One call of ``name``'s wrapper (kernel or plain version) on copies
     of ``inputs``; returns the output tensors.  The iteration's wrapper
-    runs both passes where its split has a high pass."""
+    runs both passes where its split has a high pass; the high pass takes
+    ``h`` bits (default: the split's own)."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     v0, v1, phi, dmb, G, s = inputs
@@ -135,44 +134,49 @@ def run_instantiation(name, inputs, plain: bool):
         return fn(v0, dmb, G, s, 0.81, -0.45)
     if kind == "cheby_flip_high":
         fn = cf.cheby_flip_high_plain if plain else cf.cheby_flip_high
-        return (fn(v1, G, cf.flip_split(G.numel(), v1.dtype)[1], v0),)
+        if h is None:
+            h = cf.flip_split(G.numel(), v1.dtype)[1]
+        return (fn(v1, G, h, v0),)
     fn = cf.cheby_flip_iter_plain if plain else cf.cheby_flip_iter
     v0c, phic = v0.clone(), phi.clone()
     fn(v0c, v1, phic, dmb, G, 2.0 * s, 0.13)
     return v0c, phic
 
 
-def check_sizes(name):
-    """The sizes at which phase 2 holds ``name`` against its plain
-    version: the iteration around its tile and split (1, 2, 4, T-1, T,
-    T+1, the smallest L with a high pass, 16, 20), the high pass where
-    it runs, and every kernel at L_CHECK and L_MAIN."""
+def check_cases(name):
+    """The ``(L, h)`` at which phase 2 holds ``name`` against its plain
+    version (``h = None``: the split's own): every kernel at L_CHECK and
+    L_MAIN; the iteration also at ``flip_check_sizes`` and the high pass
+    at those of them where it runs, and at L_MAIN for every h it takes."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     kind, ctype = name[:-1].split("<")
     cdtype = torch.complex64 if ctype == "float" else torch.complex128
-    T = cf.flip_split(cf.MAX_BITS, cdtype)[0]
-    first_high = min(L for L in range(1, cf.MAX_BITS + 1)
-                     if cf.flip_split(L, cdtype)[1])
     sizes = {L_CHECK, L_MAIN}
     if kind != "cheby_flip_first":
-        sizes |= {1, 2, 4, T - 1, T, T + 1, first_high, 16}
-    if kind == "cheby_flip_high":
-        sizes = {L for L in sizes if cf.flip_split(L, cdtype)[1]}
-    return sorted(sizes)
+        sizes |= set(cf.flip_check_sizes(cdtype))
+    if kind != "cheby_flip_high":
+        return [(L, None) for L in sorted(sizes)]
+    cases = [(L, None) for L in sorted(sizes) if cf.flip_split(L, cdtype)[1]]
+    max_h = cf.flip_split(cf.MAX_BITS, cdtype)[1]
+    return cases + [(L_MAIN, h) for h in range(1, max_h + 1)]
 
 
 def compare_kernels(device):
     """Phase 2: every instantiation against its plain version at the
-    sizes of :func:`check_sizes`; returns ``{name: max_abs_err}`` over
+    cases of :func:`check_cases`; returns ``{name: max_abs_err}`` over
     all of them."""
     errs = {}
     for name in REPLACES:
-        for L in check_sizes(name):
-            ctype = name.split("<")[1][:-1]
-            inputs = kernel_inputs(L, ctype, device, SEED)
-            got = run_instantiation(name, inputs, plain=False)
-            want = run_instantiation(name, inputs, plain=True)
+        ctype = name.split("<")[1][:-1]
+        cases = check_cases(name)
+        inputs_L, inputs = None, None
+        for L, h in cases:
+            if L != inputs_L:
+                inputs = None  # free the last size's tensors first
+                inputs_L, inputs = L, kernel_inputs(L, ctype, device, SEED)
+            got = run_instantiation(name, inputs, plain=False, h=h)
+            want = run_instantiation(name, inputs, plain=True, h=h)
             torch.cuda.synchronize()
             err = max(float((a - b).abs().max()) for a, b in zip(got, want))
             scale = max(float(b.abs().max()) for b in want)
@@ -182,15 +186,19 @@ def compare_kernels(device):
             else:
                 ok = err <= 1e-5 * scale
                 tol = "max|d| <= 1e-5 * max|ref|"
-            if L in (L_CHECK, L_MAIN) or not ok:
+            if (h is None and L in (L_CHECK, L_MAIN)) or not ok:
                 log(f"phase 2 kernel-vs-plain {name} L={L}: "
                     f"max|d|={err:.3e} max|ref|={scale:.3e} ({tol}) "
                     f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{name} disagrees with its plain version")
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version at L={L}, h={h}")
             errs[name] = max(err, errs.get(name, 0.0))
-            del inputs, got, want
-        log(f"phase 2 kernel-vs-plain {name}: ok at L = {check_sizes(name)}, "
+            del got, want
+        del inputs
+        where = ", ".join(f"{L}" if h is None else f"{L} (h={h})"
+                          for L, h in cases)
+        log(f"phase 2 kernel-vs-plain {name}: ok at L = {where}, "
             f"max|d| = {errs[name]:.3e}")
     return errs
 

@@ -44,7 +44,7 @@
 // L2 has lost the partners of bits above ~18, so each such bit re-reads
 // v1 from device memory.  On an H100 a one-thread-per-element order at
 // 2^24 stays flat while bits 0-17 are read and then rises ~0.1 ms per bit
-// in double (tools/flip_reach.py); a block of 2^T elements can hold the
+// in double (PERF.md §6); a block of 2^T elements can hold the
 // partners of at most T bits, whatever its shape.
 //
 //   cheby_flip_high<T>: w_hi = sum_{j >= L-h} G_j v1[i ^ 2^j] (+ w).  A
@@ -164,20 +164,10 @@ __device__ __forceinline__ void cp_async_elem(V* dst, const V* src) {
   }
 }
 
-// Block sizes and the number of global flip loads issued together; the
-// macros let tools/flip_reach.py build variants for tuning.
-#ifndef FLIP_ITER_THREADS
-#define FLIP_ITER_THREADS 512
-#endif
-#ifndef FLIP_HIGH_THREADS
-#define FLIP_HIGH_THREADS 256
-#endif
-#ifndef FLIP_LOAD_BATCH
-#define FLIP_LOAD_BATCH 4
-#endif
-constexpr int kIterThreads = FLIP_ITER_THREADS;
-constexpr int kHighThreads = FLIP_HIGH_THREADS;
-constexpr int kLoadBatch = FLIP_LOAD_BATCH;
+// Block sizes and the number of global flip loads issued together.
+constexpr int kIterThreads = 512;
+constexpr int kHighThreads = 256;
+constexpr int kLoadBatch = 4;
 constexpr int kMaxSmem = 227 * 1024;  // shared memory a block may use
 
 // One order over the flips of bits j < bits (bits = L - h):
@@ -203,10 +193,18 @@ __global__ void __launch_bounds__(kIterThreads)
   const int tn = 1 << tile_bits;
   const int64_t base = int64_t(blockIdx.x) << tile_bits;
   {
-    const char* src = reinterpret_cast<const char*>(v1 + base);
-    const int chunks = tn * int(sizeof(V)) / 16;
-    for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-      cp_async16(smem + 16 * c, src + 16 * c);
+    // 16-byte copies; a complex64 v1 at an odd element offset is only
+    // 8-byte aligned and is staged one element at a time
+    const V* src = v1 + base;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const char* bytes = reinterpret_cast<const char*>(src);
+      const int chunks = tn * int(sizeof(V)) / 16;
+      for (int c = threadIdx.x; c < chunks; c += blockDim.x)
+        cp_async16(smem + 16 * c, bytes + 16 * c);
+    } else {
+      for (int k = threadIdx.x; k < tn; k += blockDim.x)
+        cp_async_elem(tile + k, src + k);
+    }
   }
   if (int(threadIdx.x) < bits) sG[threadIdx.x] = G[threadIdx.x];
   cp_async_wait_all();

@@ -33,9 +33,9 @@ from . import _cuda
 __all__ = [
     "LAUNCHES",
     "MAX_BITS",
-    "MAX_HIGH_BITS",
     "reset_launches",
     "flip_split",
+    "flip_check_sizes",
     "flip_sum_plain",
     "flip_sum_range_plain",
     "cheby_flip_first",
@@ -49,14 +49,14 @@ __all__ = [
 ]
 
 MAX_BITS = 30
-MAX_HIGH_BITS = 8          # the high pass's cube: at most 2^8 runs
-SMEM_BYTES = 227 * 1024    # shared memory one H100 block may use
-LINE_BYTES = 256           # the high pass's contiguous run per top-bit value
-TILE_BYTES = 16 * 1024     # the iteration's tile of v1 in shared memory
+_MAX_HIGH_BITS = 8          # the high pass's cube: at most 2^8 runs
+_SMEM_BYTES = 227 * 1024    # shared memory one H100 block may use
+_LINE_BYTES = 256           # the high pass's contiguous run per top-bit value
+_TILE_BYTES = 16 * 1024     # the iteration's tile of v1 in shared memory
 # Bits below which a flip partner stays within L2's reach while the
 # iteration sweeps the state; the bits above go to the high pass.  Sizes
-# chosen from tools/flip_reach.py runs on an H100 (PERF.md §6).
-REACH_BITS = 18
+# chosen from timings on an H100 (PERF.md §6).
+_REACH_BITS = 18
 
 _TYPES = {
     torch.complex64: ("float", "f32", torch.float32),
@@ -79,15 +79,27 @@ def flip_split(L: int, dtype) -> tuple[int, int]:
     """``(tile_bits, h)`` of one order at ``2^L`` in ``dtype``: the
     iteration stages tiles of ``2^tile_bits`` elements in shared memory,
     and the high pass takes the top ``h`` bits (``h = 0``: none)."""
-    tile_bits = min(L, _bits_in(TILE_BYTES, dtype))
-    h = min(max(L - REACH_BITS, 0), MAX_HIGH_BITS)
+    tile_bits = min(L, _bits_in(_TILE_BYTES, dtype))
+    h = min(max(L - _REACH_BITS, 0), _MAX_HIGH_BITS)
     return tile_bits, h
 
 
-def high_line_bits(L: int, h: int, dtype) -> int:
+def flip_check_sizes(dtype) -> list[int]:
+    """The sizes ``L`` at which the card's flip order is held against its
+    plain version: 1, 2, 4, ``T−1``, ``T``, ``T+1`` around the iteration's
+    tile of ``2^T`` elements, the smallest ``L`` with a high pass, 16, 20,
+    and the smallest ``L`` whose high pass takes its most bits."""
+    T = flip_split(MAX_BITS, dtype)[0]
+    splits = [(L, flip_split(L, dtype)[1]) for L in range(1, MAX_BITS + 1)]
+    first_high = min(L for L, h in splits if h)
+    first_cap = min(L for L, h in splits if h == _MAX_HIGH_BITS)
+    return sorted({1, 2, 4, T - 1, T, T + 1, first_high, 16, 20, first_cap})
+
+
+def _line_bits(L: int, h: int, dtype) -> int:
     """The high pass's line: ``2^line_bits`` contiguous elements (at most
-    :data:`LINE_BYTES`) for each value of the top ``h`` bits."""
-    return min(L - h, _bits_in(LINE_BYTES, dtype))
+    ``_LINE_BYTES``) for each value of the top ``h`` bits."""
+    return min(L - h, _bits_in(_LINE_BYTES, dtype))
 
 
 def _bits_in(n_bytes: int, dtype) -> int:
@@ -251,11 +263,11 @@ def cheby_flip_iter_low(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
 def cheby_flip_high(v1, G, h, w=None):
     """The high pass of :func:`cheby_flip_iter`: returns
     ``w_hi = Σ_{j ≥ L−h} G_j·v1[i ^ 2^j]`` (plus ``w`` when given) in a
-    new vector.  On the card ``1 ≤ h ≤`` :data:`MAX_HIGH_BITS`."""
+    new vector.  On the card ``1 ≤ h ≤ 8``."""
     if _device_kind(v1) == "cpu":
         return cheby_flip_high_plain(v1, G, h, w)
     L = _check([v1] + ([w] if w is not None else []), None, G)
-    _check_bits(h, 1, min(L, MAX_HIGH_BITS))
+    _check_bits(h, 1, min(L, _MAX_HIGH_BITS))
     return _launch_high(v1, G, w, L, h)
 
 
@@ -263,8 +275,6 @@ def _check_iter(v0, v1, phi, out, w, dmb, G) -> int:
     L = _check([v0, v1, phi, out] + ([w] if w is not None else []), dmb, G)
     if v1.data_ptr() in (v0.data_ptr(), out.data_ptr(), phi.data_ptr()):
         raise ValueError("v1 must not share memory with v0, out or phi")
-    if v1.data_ptr() % 16:
-        raise ValueError("v1 must be 16-byte aligned")
     return L
 
 
@@ -285,7 +295,7 @@ def _launch_high(v1, G, w, L, h):
     _launch(
         f"cheby_flip_high_{suffix}", f"cheby_flip_high<{ctype}>",
         (v1.data_ptr(), G.data_ptr(), None if w is None else w.data_ptr(),
-         w_hi.data_ptr(), L, v1.numel(), h, high_line_bits(L, h, v1.dtype)),
+         w_hi.data_ptr(), L, v1.numel(), h, _line_bits(L, h, v1.dtype)),
         v1.device,
     )
     return w_hi

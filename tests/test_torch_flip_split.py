@@ -90,17 +90,30 @@ def test_flip_split_invariants(cdtype):
     elem = cdtype.itemsize
     for L in range(1, cf.MAX_BITS + 1):
         tile_bits, h = cf.flip_split(L, cdtype)
-        assert 0 <= h <= cf.MAX_HIGH_BITS and tile_bits <= L
-        assert 16 <= elem << tile_bits <= cf.SMEM_BYTES
+        assert 0 <= h <= cf._MAX_HIGH_BITS and tile_bits <= L
+        assert 16 <= elem << tile_bits <= cf._SMEM_BYTES
         if L <= tile_bits:
             assert h == 0  # the tile is the whole vector: no high pass
         if h:
             assert tile_bits <= L - h  # the passes share no bit
-            line_bits = cf.high_line_bits(L, h, cdtype)
+            line_bits = cf._line_bits(L, h, cdtype)
             assert line_bits + h <= L
-            assert elem << (line_bits + h) <= cf.SMEM_BYTES
+            assert elem << (line_bits + h) <= cf._SMEM_BYTES
     # the main path's size runs the high pass in both tiers
     assert cf.flip_split(24, cdtype)[1] > 0
+
+
+@pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])
+def test_flip_check_sizes_cover_tile_and_split(cdtype):
+    sizes = cf.flip_check_sizes(cdtype)
+    assert sizes == sorted(set(sizes))
+    assert 1 <= sizes[0] and sizes[-1] <= cf.MAX_BITS
+    T = cf.flip_split(cf.MAX_BITS, cdtype)[0]
+    assert {1, 2, 4, T - 1, T, T + 1, 16, 20} <= set(sizes)
+    h = {L: cf.flip_split(L, cdtype)[1] for L in range(1, cf.MAX_BITS + 1)}
+    # the first L with a high pass, and the first with the most high bits
+    assert any(h[L] and not h[L - 1] for L in sizes)
+    assert any(h[L] == cf._MAX_HIGH_BITS > h[L - 1] for L in sizes)
 
 
 @pytest.mark.parametrize("cdtype", [torch.complex64, torch.complex128])

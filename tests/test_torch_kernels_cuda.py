@@ -33,18 +33,9 @@ def _inputs(L, cdtype, device, seed=3):
     return vec(), vec(), vec(), dmb, G
 
 
-def _sizes(cdtype):
-    """L = 1, 2, 4, T-1, T, T+1 around the iteration's tile, the smallest L
-    that runs the high pass, 16 and 20."""
-    T = cf.flip_split(cf.MAX_BITS, cdtype)[0]
-    first_high = next(L for L in range(1, cf.MAX_BITS + 1)
-                      if cf.flip_split(L, cdtype)[1])
-    return sorted({1, 2, 4, T - 1, T, T + 1, first_high, 16, 20})
-
-
-_CASES = [(cdtype, tol, L)
-          for cdtype, tol in ((torch.complex64, 1e-6), (torch.complex128, 1e-14))
-          for L in _sizes(cdtype)]
+_TOLS = ((torch.complex64, 1e-6), (torch.complex128, 1e-14))
+_CASES = [(cdtype, tol, L) for cdtype, tol in _TOLS
+          for L in cf.flip_check_sizes(cdtype)]
 
 
 # sums are taken in another order than the plain version's: 1e-14 in
@@ -84,6 +75,34 @@ def test_kernels_match_plain(cuda, cdtype, tol, L, with_w, separate_out):
         torch.cuda.synchronize()
         assert float((got_hi - want_hi).abs().max()) < tol
         assert cf.LAUNCHES[f"cheby_flip_high<{ctype}>"] == 2
+
+
+@pytest.mark.parametrize("cdtype, tol", _TOLS)
+@pytest.mark.parametrize("h", range(1, 9))
+def test_high_pass_every_h_matches_plain(cuda, cdtype, tol, h):
+    """The high pass at every h it takes, its cube up to 64 KB (h = 8)."""
+    _, v1, w, _, G = _inputs(20, cdtype, cuda)
+    got = cf.cheby_flip_high(v1, G, h, w)
+    want = cf.cheby_flip_high_plain(v1, G, h, w)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) < tol
+
+
+@pytest.mark.parametrize("L", [3, 12, 20])
+def test_iter_accepts_complex64_at_odd_offset(cuda, L):
+    """A complex64 v1 one element into its buffer (8-byte aligned) is
+    staged element by element and gives the same order."""
+    v0, v1, phi, dmb, G = _inputs(L, torch.complex64, cuda)
+    buf = torch.empty(2 ** L + 1, dtype=torch.complex64, device=cuda)
+    odd = buf[1:]
+    odd.copy_(v1)
+    assert odd.data_ptr() % 16 == 8
+    k0, kphi, p0, pphi = v0.clone(), phi.clone(), v0.clone(), phi.clone()
+    cf.cheby_flip_iter(k0, odd, kphi, dmb, G, -0.14, 0.3)
+    cf.cheby_flip_iter_plain(p0, v1, pphi, dmb, G, -0.14, 0.3)
+    torch.cuda.synchronize()
+    assert float((k0 - p0).abs().max()) < 1e-6
+    assert float((kphi - pphi).abs().max()) < 1e-6
 
 
 def test_fused_path_on_card_matches_cpu(cuda):
