@@ -16,10 +16,13 @@ version, then runs Chebyshev propagation through
 
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
-same function.  The flip iteration is two kernels on the card (the high
-pass ``cheby_flip_high`` for the top bits, then ``cheby_flip_iter``);
-phase 6 times the order as the whole wrapper call and each pass alone.  One line per phase; the second-to-last line is the
-kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
+same function.  The flip setup and the flip iteration are two kernels
+each on the card (the high pass ``cheby_flip_high`` for the top bits,
+then the tiled pass ``cheby_flip_first`` or ``cheby_flip_iter``); phase
+6 times each as the whole wrapper call and each pass alone, and phase 8
+records a ``torch.profiler`` trace of 5 reference-tier steps at L = 24.
+One line per phase; the second-to-last line is the kernels' JSON record,
+the last line ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits nonzero without printing
 a result.  It refuses to run without a CUDA device.
 """
@@ -63,9 +66,12 @@ REPLACES = {
     "cheby_flip_high<double>": "quantumpropagators/ops/fused_cheby_dd.py:1022",
 }
 ALSO_REPLACES = {
-    # the dd path's f32 tail runs on the float iteration and its high pass
+    # the dd path's f32 tail runs on the float iteration and its high
+    # pass; the high pass also runs before the setup's tiled pass
     "cheby_flip_iter<float>": "quantumpropagators/ops/fused_cheby_dd.py:1165",
-    "cheby_flip_high<float>": "quantumpropagators/ops/fused_cheby_dd.py:1165",
+    "cheby_flip_high<float>": "quantumpropagators/ops/fused_cheby_dd.py:1165"
+                              ", quantumpropagators/ops/fused_cheby.py:440",
+    "cheby_flip_high<double>": "quantumpropagators/ops/fused_cheby_dd.py:1063",
 }
 
 
@@ -98,9 +104,9 @@ def random_state(L, dtype, device, seed):
 
 
 def kernel_inputs(L, ctype, device, seed):
-    """Seeded inputs for one launch at size 2^L: states, a generic
-    ``dmb = diag − β`` with β ≠ 0 (the chain's Ising diagonal, built on
-    the card), and per-bit flip coefficients."""
+    """Seeded inputs for one launch at size 2^L, made on the card: unit
+    states, a generic ``dmb = diag − β`` with β ≠ 0 (the chain's Ising
+    diagonal), and per-bit flip coefficients."""
     from quantumpropagators_torch.models.lattice import (z_chain_diagonal,
                                                          zz_chain_diagonal)
 
@@ -113,9 +119,15 @@ def kernel_inputs(L, ctype, device, seed):
     dmb = (diag - beta).to(rdtype)
     G = torch.as_tensor(rng.uniform(0.5, 1.5, L)).to(device=device,
                                                       dtype=rdtype)
-    v0 = random_state(L, cdtype, device, seed + 1)
-    v1 = random_state(L, cdtype, device, seed + 2)
-    phi = random_state(L, cdtype, device, seed + 3)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+
+    def state():
+        v = torch.randn(2 ** L, generator=gen, dtype=torch.complex128,
+                        device=device)
+        return (v / torch.linalg.vector_norm(v)).to(cdtype)
+
+    v0, v1, phi = state(), state(), state()
     s = -2.0 / (2.5 * L)
     return v0, v1, phi, dmb, G, s
 
@@ -145,62 +157,65 @@ def run_instantiation(name, inputs, plain: bool, h=None):
 
 def check_cases(name):
     """The ``(L, h)`` at which phase 2 holds ``name`` against its plain
-    version (``h = None``: the split's own): every kernel at L_CHECK and
-    L_MAIN; the iteration also at ``flip_check_sizes`` and the high pass
-    at those of them where it runs, and at L_MAIN for every h it takes."""
+    version (``h = None``: the split's own): every kernel at
+    ``flip_check_sizes``, L_CHECK and L_MAIN; the high pass at those of
+    them where it runs, and at L_MAIN for every h it takes."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     kind, ctype = name[:-1].split("<")
     cdtype = torch.complex64 if ctype == "float" else torch.complex128
-    sizes = {L_CHECK, L_MAIN}
-    if kind != "cheby_flip_first":
-        sizes |= set(cf.flip_check_sizes(cdtype))
+    sizes = sorted(set(cf.flip_check_sizes(cdtype)) | {L_CHECK, L_MAIN})
     if kind != "cheby_flip_high":
-        return [(L, None) for L in sorted(sizes)]
-    cases = [(L, None) for L in sorted(sizes) if cf.flip_split(L, cdtype)[1]]
+        return [(L, None) for L in sizes]
+    cases = [(L, None) for L in sizes if cf.flip_split(L, cdtype)[1]]
     max_h = cf.flip_split(cf.MAX_BITS, cdtype)[1]
     return cases + [(L_MAIN, h) for h in range(1, max_h + 1)]
 
 
 def compare_kernels(device):
     """Phase 2: every instantiation against its plain version at the
-    cases of :func:`check_cases`; returns ``{name: max_abs_err}`` over
-    all of them."""
+    cases of :func:`check_cases`, the inputs of each size and type built
+    once; returns ``{name: max_abs_err}`` over all of them."""
     errs = {}
-    for name in REPLACES:
-        ctype = name.split("<")[1][:-1]
-        cases = check_cases(name)
-        inputs_L, inputs = None, None
-        for L, h in cases:
-            if L != inputs_L:
-                inputs = None  # free the last size's tensors first
-                inputs_L, inputs = L, kernel_inputs(L, ctype, device, SEED)
-            got = run_instantiation(name, inputs, plain=False, h=h)
-            want = run_instantiation(name, inputs, plain=True, h=h)
-            torch.cuda.synchronize()
-            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-            scale = max(float(b.abs().max()) for b in want)
-            if ctype == "double":
-                ok = err <= 1e-13
-                tol = "max|d| <= 1e-13"
-            else:
-                ok = err <= 1e-5 * scale
-                tol = "max|d| <= 1e-5 * max|ref|"
-            if (h is None and L in (L_CHECK, L_MAIN)) or not ok:
-                log(f"phase 2 kernel-vs-plain {name} L={L}: "
-                    f"max|d|={err:.3e} max|ref|={scale:.3e} ({tol}) "
-                    f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version at L={L}, h={h}")
-            errs[name] = max(err, errs.get(name, 0.0))
-            del got, want
-        del inputs
-        where = ", ".join(f"{L}" if h is None else f"{L} (h={h})"
-                          for L, h in cases)
-        log(f"phase 2 kernel-vs-plain {name}: ok at L = {where}, "
-            f"max|d| = {errs[name]:.3e}")
+    for ctype in ("float", "double"):
+        cases = {name: check_cases(name) for name in REPLACES
+                 if name.endswith(f"<{ctype}>")}
+        for L in sorted({L for c in cases.values() for L, _ in c}):
+            inputs = kernel_inputs(L, ctype, device, SEED)
+            for name, name_cases in cases.items():
+                for h in (h for L_, h in name_cases if L_ == L):
+                    errs[name] = max(compare_case(name, ctype, inputs, L, h),
+                                     errs.get(name, 0.0))
+            del inputs
+        for name, name_cases in cases.items():
+            where = ", ".join(f"{L}" if h is None else f"{L} (h={h})"
+                              for L, h in name_cases)
+            log(f"phase 2 kernel-vs-plain {name}: ok at L = {where}, "
+                f"max|d| = {errs[name]:.3e}")
     return errs
+
+
+def compare_case(name, ctype, inputs, L, h):
+    """One case of phase 2; returns its max-abs error or raises."""
+    got = run_instantiation(name, inputs, plain=False, h=h)
+    want = run_instantiation(name, inputs, plain=True, h=h)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = max(float(b.abs().max()) for b in want)
+    if ctype == "double":
+        ok = err <= 1e-13
+        tol = "max|d| <= 1e-13"
+    else:
+        ok = err <= 1e-5 * scale
+        tol = "max|d| <= 1e-5 * max|ref|"
+    if (h is None and L in (L_CHECK, L_MAIN)) or not ok:
+        log(f"phase 2 kernel-vs-plain {name} L={L}: "
+            f"max|d|={err:.3e} max|ref|={scale:.3e} ({tol}) "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain "
+                             f"version at L={L}, h={h}")
+    return err
 
 
 def tfim_generator(L, device):
@@ -222,6 +237,25 @@ def sz0(L, device):
     from quantumpropagators_torch.ops.operators import DiagonalOperator
 
     return DiagonalOperator(_spin(L, 0, torch.float64, device))
+
+
+def check_launches(tier, counts, ctype):
+    """One 20-step run of ``tier`` at L_MAIN launched the setup's tiled
+    pass once a step in ``ctype``, the iteration's in ``ctype`` (and, in
+    the dd tier, the f32 tail's in float), and the high pass once before
+    each tiled pass: ``high = first + iter`` in each type."""
+    other = "float" if ctype == "double" else "double"
+    want_first = {ctype: N_STEPS, other: 0}
+    iters = ("double", "float") if tier == "dd" else ("float",)
+    ok = all(counts[f"cheby_flip_iter<{c}>"] > 0 for c in iters)
+    for c in ("float", "double"):
+        first, it, high = (counts[f"cheby_flip_{k}<{c}>"]
+                           for k in ("first", "iter", "high"))
+        ok &= first == want_first[c] and high == first + it
+    if not ok:
+        raise AssertionError(f"{tier} path launches: {counts} (expected "
+                             f"{N_STEPS} setups in {ctype} and one high "
+                             f"pass before every tiled pass)")
 
 
 def main_path(device, card):
@@ -256,12 +290,7 @@ def main_path(device, card):
                         storage=True)
     torch.cuda.synchronize()
     launches["dd"] = dict(cf.LAUNCHES)
-    if not all(launches["dd"][k] > 0 for k in (
-            "cheby_flip_first<double>", "cheby_flip_iter<double>",
-            "cheby_flip_high<double>", "cheby_flip_iter<float>",
-            "cheby_flip_high<float>")):
-        raise AssertionError(f"dd path did not launch the kernels: "
-                             f"{launches['dd']}")
+    check_launches("dd", launches["dd"], "double")
     # timed run: the same path without observables, after the one above
     t0 = time.perf_counter()
     psi_dd = qt.propagate(psi0, H, tlist, method="cheby", fused=True,
@@ -303,11 +332,7 @@ def main_path(device, card):
     torch.cuda.synchronize()
     t_32 = time.perf_counter() - t0
     launches["pallas"] = dict(cf.LAUNCHES)
-    if not all(launches["pallas"][k] > 0 for k in (
-            "cheby_flip_first<float>", "cheby_flip_iter<float>",
-            "cheby_flip_high<float>")):
-        raise AssertionError(f"f32 path did not launch the kernels: "
-                             f"{launches['pallas']}")
+    check_launches("pallas", launches["pallas"], "float")
     if psi_32.dtype != torch.complex64:
         raise AssertionError(f"f32 tier promoted the state to {psi_32.dtype}")
     err_32 = float((psi_32.to(torch.complex128) - psi_dd).abs().max())
@@ -321,7 +346,7 @@ def main_path(device, card):
     rates = {}
     for tier, t in (("dd", t_dd), ("pallas", t_32)):
         rates[tier] = (N_STEPS / t, N_STEPS * matvecs * nnz / t / 1e9)
-    return launches, rates, matvecs
+    return launches, rates, matvecs, (psi0, H, wrk)
 
 
 def round_trip(device):
@@ -360,9 +385,10 @@ def time_ms(fn, reps):
 def time_kernels(device, card):
     """Phase 6: each instantiation and its plain version at L_MAIN.  The
     iteration runs in place (v0 := v2, Φ += a·v2) on the same buffers
-    every repetition, as it does inside a step; its time is the whole
-    wrapper call (high pass and iteration pass), held against the
-    order's bound, and each pass is also timed alone."""
+    every repetition, as it does inside a step.  The setup's and the
+    order's time is the whole wrapper call (high pass and tiled pass),
+    held against the setup's or the order's bound, and each pass is also
+    timed alone."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     times = {}
@@ -400,13 +426,31 @@ def time_kernels(device, card):
         plain_ms = time_ms(run(plain), 3)
         bound_ms, bound_by = bound(n_bytes, flops, ctype)
         times[name] = (ms, plain_ms, bound_ms, bound_by)
-        what = {"cheby_flip_iter": f"order (high pass h={h} + iteration "
+        what = {"cheby_flip_first": f"setup (high pass h={h} + tiled "
+                                    f"setup pass)",
+                "cheby_flip_iter": f"order (high pass h={h} + iteration "
                                    f"pass)",
-                "cheby_flip_high": f"high pass alone (h={h})"}.get(kind,
-                                                                  "kernel")
+                "cheby_flip_high": f"high pass alone (h={h})"}[kind]
         log(f"phase 6 time {name} L={L_MAIN}: {what} {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}, {100 * bound_ms / ms:.1f} % of it reached) [{card}]")
+        if kind == "cheby_flip_first":
+            # each pass alone, beside the bytes it moves: the high pass
+            # reads v0 and writes w_hi; the tiled pass reads v0, dmb and
+            # w_hi and writes v1 and Φ
+            hi_ms = time_ms(lambda: cf.cheby_flip_high(v0, G, h), 20)
+            w_hi = cf.cheby_flip_high(v0, G, h)
+            lo_ms = time_ms(lambda: cf.cheby_flip_first_low(
+                v0, dmb, G, s, 0.81, -0.45, L_MAIN - h, w_hi), 20)
+            hi_bound = bound(g_bytes + 2 * vec, 4 * h * v0.numel(), ctype)[0]
+            lo_bound = bound(ins + 4 * vec, (4 * L_MAIN + 16) * v0.numel(),
+                             ctype)[0]
+            log(f"phase 6 time {name} L={L_MAIN}: high pass alone on v0 "
+                f"{hi_ms:.4f} ms (its bytes' bound {hi_bound:.4f} ms), "
+                f"tiled setup pass alone (bits < {L_MAIN - h}, w_hi read) "
+                f"{lo_ms:.4f} ms (its bytes' bound {lo_bound:.4f} ms) "
+                f"[{card}]")
+            del w_hi
         if kind == "cheby_flip_iter":
             w_hi = cf.cheby_flip_high(v1, G, h)
             it_ms = time_ms(lambda: cf.cheby_flip_iter_low(
@@ -416,6 +460,63 @@ def time_kernels(device, card):
             del w_hi
         del v0, v1, phi, dmb
     return times
+
+
+def trace_phase(psi0, H, wrk, card, n_steps=5, top=8):
+    """Phase 8: one ``torch.profiler`` trace of ``n_steps`` dd steps of
+    the main path at L_MAIN, after one untraced run of the same steps.
+    Prints the device-busy share of the device's active window (first
+    kernel start to last kernel end), the device operations by time, and
+    the shares of the flip kernels and of PyTorch's elementwise
+    kernels."""
+    import quantumpropagators_torch as qt
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tlist = np.linspace(0.0, n_steps * DT, n_steps + 1)
+
+    def run():
+        return qt.propagate(psi0, H, tlist, method="cheby", fused=True,
+                            kernel="dd", workspace=wrk)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the trace holds no device operation")
+    busy, end = 0.0, spans[0][0]
+    by_name = {}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + stop - start, count + 1)
+    window = end - spans[0][0]
+    kernel_sum = sum(t for t, _ in by_name.values())
+
+    def share(pred):
+        return 100 * sum(t for n, (t, _) in by_name.items()
+                         if pred(n)) / kernel_sum
+
+    log(f"phase 8 trace dd L={L_MAIN} {n_steps} steps: wall "
+        f"{1e3 * wall / n_steps:.4f} ms/step, device window "
+        f"{window / 1e3 / n_steps:.4f} ms/step, busy {100 * busy / window:.2f} "
+        f"% of it ({len(spans)} device operations), flip kernels "
+        f"{share(lambda n: 'cheby_flip' in n):.2f} %, PyTorch elementwise "
+        f"{share(lambda n: 'elementwise' in n):.2f} % of device time "
+        f"[{card}]")
+    for name, (t, count) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:top]:
+        log(f"phase 8 trace top: {t / 1e3 / n_steps:.4f} ms/step "
+            f"{100 * t / kernel_sum:.2f} % x{count // n_steps}/step "
+            f"{name[:110]}")
 
 
 def banded20_operator(device):
@@ -624,7 +725,7 @@ def main() -> int:
         f"(nvcc {_cuda.build_info['seconds']:.2f} s); ptxas: {regs}")
 
     errs = compare_kernels(device)
-    launches, rates, matvecs = main_path(device, card)
+    launches, rates, matvecs, chain = main_path(device, card)
     round_trip(device)
     times = time_kernels(device, card)
     for tier, (steps_s, gnnz) in rates.items():
@@ -634,6 +735,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()  # the 2^24 buffers go before the banded phase
     banded = banded_phase(device, card)
+    trace_phase(*chain, card)
+    del chain
 
     kernels = []
     for name in REPLACES:

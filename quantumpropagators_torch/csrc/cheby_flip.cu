@@ -2,18 +2,17 @@
 //
 //     H = diag(d) + sum_j G_j X_j,    X_j flips bit j of the state index,
 //
-// the transverse-field Ising family at any lattice dimension.  One launch
-// is one polynomial order of the Chebyshev propagator exp(-i H dt)
-// (reference src/cheby.jl:150-213), fused into a single pass over the
-// state:
+// the transverse-field Ising family at any lattice dimension.  The setup
+// and each polynomial order of the Chebyshev propagator exp(-i H dt)
+// (reference src/cheby.jl:150-213) are one or two passes over the state:
 //
-//   cheby_flip_first<T>:  v1 = c (H - beta) v0,            Phi = a0 v0 + a1 v1
-//   cheby_flip_iter<T>:   v2 = 2c (H - beta) v1 + v0,       Phi += a_k v2
+//   setup:      v1 = c (H - beta) v0,            Phi = a0 v0 + a1 v1
+//   iteration:  v2 = 2c (H - beta) v1 + v0,       Phi += a_k v2
 //
 // with c = i s, s = -+2/Delta (forward/backward).  The caller passes
 // dmb = d - beta (real), the per-bit flip coefficients G (real, length L,
 // any time-dependent control amplitude already folded in), the scalar s
-// (first) or 2s (iter), and the Chebyshev coefficient(s).  An optional
+// (setup) or 2s (iteration), and the Chebyshev coefficient(s).  An optional
 // complex vector w (nullptr when unused) is added to (H - beta) v before
 // the scaling: the hook through which contributions computed elsewhere
 // (for example flips of bits that live on another device) enter.
@@ -35,34 +34,39 @@
 //
 // Bound: memory.  Per element and order the iteration must read v1, v0,
 // Phi and dmb and write v2 and Phi: 5.5 vectors, 88 bytes for double and
-// 44 for float.  cheby_flip_first is one thread per element reading every
-// neighbour v1[i ^ 2^j] from global memory.
+// 44 for float; the setup reads v0 and dmb and writes v1 and Phi: 3.5
+// vectors, 56 and 28 bytes.
 //
-// The iteration is two passes, because no single sweep over the state
-// keeps every flip partner in cache: partners of bit j lie 2^j elements
-// apart, and a sweep that streams ~100 bytes per element through the 50 MB
-// L2 has lost the partners of bits above ~18, so each such bit re-reads
-// v1 from device memory.  On an H100 a one-thread-per-element order at
-// 2^24 stays flat while bits 0-17 are read and then rises ~0.1 ms per bit
-// in double (PERF.md §6); a block of 2^T elements can hold the
-// partners of at most T bits, whatever its shape.
+// Both are two passes, because no single sweep over the state keeps every
+// flip partner in cache: partners of bit j lie 2^j elements apart, and a
+// sweep that streams ~100 bytes per element through the 50 MB L2 has lost
+// the partners of bits above ~18, so each such bit re-reads the state
+// from device memory.  On an H100 a one-thread-per-element order at 2^24
+// stays flat while bits 0-17 are read and then rises ~0.1 ms per bit in
+// double (PERF.md §6); a block of 2^T elements can hold the partners of at
+// most T bits, whatever its shape.  Below, x is the vector whose flips
+// are summed: v1 in the iteration, v0 in the setup.
 //
-//   cheby_flip_high<T>: w_hi = sum_{j >= L-h} G_j v1[i ^ 2^j] (+ w).  A
+//   cheby_flip_high<T>: w_hi = sum_{j >= L-h} G_j x[i ^ 2^j] (+ w).  A
 //     block holds a strided cube: one run of 2^line_bits contiguous
 //     elements (256 bytes) for each of the 2^h values of the top h bits,
 //     staged in shared memory with cp.async, so every top-bit partner is
-//     read from there.  One streaming pass: read v1 (and w), write w_hi.
-//   cheby_flip_iter<T>: the order over bits j < L-h, with w_hi as its w.
-//     A block owns a contiguous tile of 2^tile_bits elements of v1 (16
-//     KB), staged in shared memory with cp.async; flips of bits below
-//     tile_bits read the tile, bits tile_bits .. L-h-1 read whole partner
-//     tiles from global memory (L2), kLoadBatch loads in flight at once.
-//     For L <= tile_bits the tile is the whole vector.
+//     read from there.  One streaming pass: read x (and w), write w_hi.
+//   cheby_flip_tiled<T, First>: the order (First = false) or the setup
+//     (First = true) over bits j < L-h, with w_hi as its w.  A block owns
+//     a contiguous tile of 2^tile_bits elements of x (16 KB), staged in
+//     shared memory with cp.async; flips of bits below tile_bits read the
+//     tile, bits tile_bits .. L-h-1 read whole partner tiles from global
+//     memory (L2), a batch of loads in flight at once.  For L <= tile_bits
+//     the tile is the whole vector.  The setup takes v0[i] from its own
+//     tile and has no v0 or Phi stream to read; its tile is 2^11 elements
+//     (32 KB in double), the iteration's 16 KB.
 //
 // The caller picks h, tile_bits and line_bits from L and the type
 // (ops/cheby_flip.py:flip_split); h = 0 skips the high pass.  At L = 24
-// the passes move 32 + 104 bytes per element (double) instead of the ~184
-// of a sweep that re-reads v1 for its top bits.  Tiles of 16 KB beat 32
+// the passes move 32 + 104 bytes per element for an order and 32 + 72 for
+// the setup (double) instead of the ~184 / ~152 of a sweep that re-reads
+// the state for its top bits.  For the iteration, tiles of 16 KB beat 32
 // and 64 KB: more blocks stay resident to hide the middle bits' L2
 // latency.  Arithmetic is plain FMAs, 5-20x below the bytes' time.
 
@@ -73,7 +77,6 @@
 namespace {
 
 constexpr int kMaxBits = 30;
-constexpr int kThreads = 256;
 
 template <typename T>
 struct Complex;
@@ -85,59 +88,6 @@ template <>
 struct Complex<double> {
   using type = double2;
 };
-
-// (H - beta) v at index i, plus w[i] when w is given.  sG holds G in
-// shared memory.
-template <typename T, typename V>
-__device__ __forceinline__ V shifted_h(const V* v, const T* dmb, const T* sG,
-                                       const V* w, int L, int64_t i) {
-  const V x = v[i];
-  const T d = dmb[i];
-  T ur = d * x.x;
-  T ui = d * x.y;
-  for (int j = 0; j < L; ++j) {
-    const V y = v[i ^ (int64_t(1) << j)];
-    ur += sG[j] * y.x;
-    ui += sG[j] * y.y;
-  }
-  if (w != nullptr) {
-    const V z = w[i];
-    ur += z.x;
-    ui += z.y;
-  }
-  V u;
-  u.x = ur;
-  u.y = ui;
-  return u;
-}
-
-template <typename T>
-__global__ void cheby_flip_first(const typename Complex<T>::type* __restrict__ v0,
-                                 typename Complex<T>::type* __restrict__ v1,
-                                 typename Complex<T>::type* __restrict__ phi,
-                                 const T* __restrict__ dmb,
-                                 const T* __restrict__ G,
-                                 const typename Complex<T>::type* __restrict__ w,
-                                 int L, int64_t n, T s, T a0, T a1) {
-  using V = typename Complex<T>::type;
-  __shared__ T sG[kMaxBits];
-  if (int(threadIdx.x) < L) sG[threadIdx.x] = G[threadIdx.x];
-  __syncthreads();
-  const int64_t stride = int64_t(blockDim.x) * gridDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const V u = shifted_h<T, V>(v0, dmb, sG, w, L, i);
-    V r;  // i s u
-    r.x = -s * u.y;
-    r.y = s * u.x;
-    v1[i] = r;
-    const V x = v0[i];
-    V p;
-    p.x = a0 * x.x + a1 * r.x;
-    p.y = a0 * x.y + a1 * r.y;
-    phi[i] = p;
-  }
-}
 
 // 16-byte and 8-byte asynchronous copies from global to shared memory
 // (sm_80+), completed by cp_async_wait_all.
@@ -164,28 +114,33 @@ __device__ __forceinline__ void cp_async_elem(V* dst, const V* src) {
   }
 }
 
-// Block sizes and the number of global flip loads issued together.
-constexpr int kIterThreads = 512;
+// Block sizes and the number of global flip loads issued together: the
+// setup, with fewer streams of its own to hide their latency, issues all
+// of its L2 partner loads (7 at L = 24) in one batch.
+constexpr int kTiledThreads = 512;
 constexpr int kHighThreads = 256;
 constexpr int kLoadBatch = 4;
+constexpr int kFirstLoadBatch = 8;
 constexpr int kMaxSmem = 227 * 1024;  // shared memory a block may use
 
-// One order over the flips of bits j < bits (bits = L - h):
-//   v2 = v0 + i s2 (dmb v1 + sum_{j < bits} G_j v1[i ^ 2^j] + w),
-//   Phi += ak v2.
-// The block's tile of 2^tile_bits elements of v1 sits in shared memory.
-// v0 and v2 may be the same buffer (v2 overwrites v0 in place): each
-// thread reads v0[i] before it writes v2[i], and no thread reads another
-// element of either.
-template <typename T>
-__global__ void __launch_bounds__(kIterThreads)
-    cheby_flip_iter(const typename Complex<T>::type* v0,
-                    typename Complex<T>::type* v2,
-                    const typename Complex<T>::type* __restrict__ v1,
-                    typename Complex<T>::type* __restrict__ phi,
-                    const T* __restrict__ dmb, const T* __restrict__ G,
-                    const typename Complex<T>::type* __restrict__ w,
-                    int tile_bits, int bits, T s2, T ak) {
+// One pass over the flips of bits j < bits (bits = L - h) of x:
+//   u = dmb x + sum_{j < bits} G_j x[i ^ 2^j] + w, then
+//   the iteration (First = false, x = v1):  out = v0 + i s u,  Phi += a out;
+//   the setup     (First = true,  x = v0):  out = i s u,  Phi = a0 x + a out.
+// The block's tile of 2^tile_bits elements of x sits in shared memory.
+// In the iteration v0 and out may be the same buffer (out overwrites v0 in
+// place): each thread reads v0[i] before it writes out[i], and no thread
+// reads another element of either.  The setup reads neither v0 (nullptr)
+// nor Phi: x[i] comes from the tile, and Phi is only written.
+template <typename T, bool First>
+__global__ void __launch_bounds__(kTiledThreads)
+    cheby_flip_tiled(const typename Complex<T>::type* v0,
+                     typename Complex<T>::type* out,
+                     const typename Complex<T>::type* __restrict__ x,
+                     typename Complex<T>::type* __restrict__ phi,
+                     const T* __restrict__ dmb, const T* __restrict__ G,
+                     const typename Complex<T>::type* __restrict__ w,
+                     int tile_bits, int bits, T s, T a, T a0) {
   using V = typename Complex<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   V* tile = reinterpret_cast<V*>(smem);
@@ -193,9 +148,9 @@ __global__ void __launch_bounds__(kIterThreads)
   const int tn = 1 << tile_bits;
   const int64_t base = int64_t(blockIdx.x) << tile_bits;
   {
-    // 16-byte copies; a complex64 v1 at an odd element offset is only
+    // 16-byte copies; a complex64 x at an odd element offset is only
     // 8-byte aligned and is staged one element at a time
-    const V* src = v1 + base;
+    const V* src = x + base;
     if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
       const char* bytes = reinterpret_cast<const char*>(src);
       const int chunks = tn * int(sizeof(V)) / 16;
@@ -215,15 +170,18 @@ __global__ void __launch_bounds__(kIterThreads)
     // streaming operands first, so their loads are in flight during the
     // flip sum
     const T d = dmb[i];
-    const V x0 = v0[i];
-    V p = phi[i];
+    V x0, p;
+    if constexpr (!First) {
+      x0 = v0[i];
+      p = phi[i];
+    }
     V z;
     z.x = 0;
     z.y = 0;
     if (w != nullptr) z = w[i];
-    const V x = tile[k];
-    T ur = d * x.x;
-    T ui = d * x.y;
+    const V xi = tile[k];
+    T ur = d * xi.x;
+    T ui = d * xi.y;
 #pragma unroll 4
     for (int j = 0; j < lo; ++j) {
       const V y = tile[k ^ (1 << j)];
@@ -231,15 +189,16 @@ __global__ void __launch_bounds__(kIterThreads)
       ui += sG[j] * y.y;
     }
     // bits above the tile: partners in other tiles, read from global
-    // memory (L2) kLoadBatch at a time, all loads of a batch in flight
+    // memory (L2) a batch at a time, all loads of a batch in flight
     // before the first is used
-    for (int j0 = lo; j0 < bits; j0 += kLoadBatch) {
-      V y[kLoadBatch];
+    constexpr int batch = First ? kFirstLoadBatch : kLoadBatch;
+    for (int j0 = lo; j0 < bits; j0 += batch) {
+      V y[batch];
 #pragma unroll
-      for (int c = 0; c < kLoadBatch; ++c)
-        if (j0 + c < bits) y[c] = v1[i ^ (int64_t(1) << (j0 + c))];
+      for (int c = 0; c < batch; ++c)
+        if (j0 + c < bits) y[c] = x[i ^ (int64_t(1) << (j0 + c))];
 #pragma unroll
-      for (int c = 0; c < kLoadBatch; ++c)
+      for (int c = 0; c < batch; ++c)
         if (j0 + c < bits) {
           ur += sG[j0 + c] * y[c].x;
           ui += sG[j0 + c] * y[c].y;
@@ -247,24 +206,31 @@ __global__ void __launch_bounds__(kIterThreads)
     }
     ur += z.x;
     ui += z.y;
-    V r;  // 2c (H - beta) v1 + v0
-    r.x = x0.x - s2 * ui;
-    r.y = x0.y + s2 * ur;
-    v2[i] = r;
-    p.x += ak * r.x;
-    p.y += ak * r.y;
+    V r;
+    if constexpr (First) {  // c (H - beta) v0
+      r.x = -s * ui;
+      r.y = s * ur;
+      p.x = a0 * xi.x + a * r.x;
+      p.y = a0 * xi.y + a * r.y;
+    } else {  // 2c (H - beta) v1 + v0
+      r.x = x0.x - s * ui;
+      r.y = x0.y + s * ur;
+      p.x += a * r.x;
+      p.y += a * r.y;
+    }
+    out[i] = r;
     phi[i] = p;
   }
 }
 
-// out = sum_{r < h} G[L-h+r] v1[i ^ 2^(L-h+r)] (+ w).  Block b holds the
+// out = sum_{r < h} G[L-h+r] x[i ^ 2^(L-h+r)] (+ w).  Block b holds the
 // cube of the 2^line_bits elements (b << line_bits) .. + 2^line_bits - 1
 // of the low L-h bits, for each of the 2^h values of the top h bits:
 // cube element q is global index ((q >> line_bits) << (L-h)) | (b <<
 // line_bits) | (q & (2^line_bits - 1)).
 template <typename T>
 __global__ void __launch_bounds__(kHighThreads)
-    cheby_flip_high(const typename Complex<T>::type* __restrict__ v1,
+    cheby_flip_high(const typename Complex<T>::type* __restrict__ x,
                     const T* __restrict__ G,
                     const typename Complex<T>::type* __restrict__ w,
                     typename Complex<T>::type* __restrict__ out, int L, int h,
@@ -279,7 +245,7 @@ __global__ void __launch_bounds__(kHighThreads)
   const int64_t mid = int64_t(blockIdx.x) << line_bits;
   for (int q = threadIdx.x; q < cn; q += blockDim.x) {
     const int64_t i = (int64_t(q >> line_bits) << m) | mid | (q & line_mask);
-    cp_async_elem(cube + q, v1 + i);
+    cp_async_elem(cube + q, x + i);
   }
   if (int(threadIdx.x) < h) sG[threadIdx.x] = G[m + threadIdx.x];
   cp_async_wait_all();
@@ -305,11 +271,6 @@ __global__ void __launch_bounds__(kHighThreads)
   }
 }
 
-int grid_for(int64_t n) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return int(blocks < (int64_t(1) << 30) ? blocks : (int64_t(1) << 30));
-}
-
 // Allows `kernel` more dynamic shared memory than the default 48 KB.
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
@@ -318,41 +279,28 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T>
-int launch_first(const void* v0, void* v1, void* phi, const void* dmb,
-                 const void* G, const void* w, int L, int64_t n, T s, T a0,
-                 T a1, void* stream) {
-  using V = typename Complex<T>::type;
-  if (L < 1 || L > kMaxBits || n != (int64_t(1) << L))
-    return int(cudaErrorInvalidValue);
-  cheby_flip_first<T><<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const V*)v0, (V*)v1, (V*)phi, (const T*)dmb, (const T*)G,
-      (const V*)w, L, n, s, a0, a1);
-  return int(cudaGetLastError());
-}
-
-template <typename T>
-int launch_iter(const void* v0, void* v2, const void* v1, void* phi,
-                const void* dmb, const void* G, const void* w, int L,
-                int64_t n, int tile_bits, int bits, T s2, T ak,
-                void* stream) {
+template <typename T, bool First>
+int launch_tiled(const void* v0, void* out, const void* x, void* phi,
+                 const void* dmb, const void* G, const void* w, int L,
+                 int64_t n, int tile_bits, int bits, T s, T a, T a0,
+                 void* stream) {
   using V = typename Complex<T>::type;
   if (L < 1 || L > kMaxBits || n != (int64_t(1) << L) || bits < 0 ||
       bits > L || tile_bits < 0 || tile_bits > L)
     return int(cudaErrorInvalidValue);
   const int64_t bytes = (int64_t(1) << tile_bits) * int64_t(sizeof(V));
   if (bytes < 16 || bytes > kMaxSmem) return int(cudaErrorInvalidValue);
-  const cudaError_t rc = allow_smem(cheby_flip_iter<T>, int(bytes));
+  const cudaError_t rc = allow_smem(cheby_flip_tiled<T, First>, int(bytes));
   if (rc != cudaSuccess) return int(rc);
-  cheby_flip_iter<T><<<int(n >> tile_bits), kIterThreads, int(bytes),
-                       (cudaStream_t)stream>>>(
-      (const V*)v0, (V*)v2, (const V*)v1, (V*)phi, (const T*)dmb,
-      (const T*)G, (const V*)w, tile_bits, bits, s2, ak);
+  cheby_flip_tiled<T, First><<<int(n >> tile_bits), kTiledThreads,
+                               int(bytes), (cudaStream_t)stream>>>(
+      (const V*)v0, (V*)out, (const V*)x, (V*)phi, (const T*)dmb,
+      (const T*)G, (const V*)w, tile_bits, bits, s, a, a0);
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int launch_high(const void* v1, const void* G, const void* w, void* out,
+int launch_high(const void* x, const void* G, const void* w, void* out,
                 int L, int64_t n, int h, int line_bits, void* stream) {
   using V = typename Complex<T>::type;
   if (L < 1 || L > kMaxBits || n != (int64_t(1) << L) || h < 1 ||
@@ -364,7 +312,7 @@ int launch_high(const void* v1, const void* G, const void* w, void* out,
   if (rc != cudaSuccess) return int(rc);
   cheby_flip_high<T><<<int(n >> (line_bits + h)), kHighThreads, int(bytes),
                        (cudaStream_t)stream>>>(
-      (const V*)v1, (const T*)G, (const V*)w, (V*)out, L, h, line_bits);
+      (const V*)x, (const T*)G, (const V*)w, (V*)out, L, h, line_bits);
   return int(cudaGetLastError());
 }
 
@@ -374,45 +322,51 @@ int launch_high(const void* v1, const void* G, const void* w, void* out,
 // the launch (0 on success).
 extern "C" {
 
+// The setup's tiled pass: v1 and Phi from v0.
 int cheby_flip_first_f32(const void* v0, void* v1, void* phi, const void* dmb,
                          const void* G, const void* w, int L, int64_t n,
-                         float s, float a0, float a1, void* stream) {
-  return launch_first<float>(v0, v1, phi, dmb, G, w, L, n, s, a0, a1, stream);
+                         int tile_bits, int bits, float s, float a0, float a1,
+                         void* stream) {
+  return launch_tiled<float, true>(nullptr, v1, v0, phi, dmb, G, w, L, n,
+                                   tile_bits, bits, s, a1, a0, stream);
 }
 
 int cheby_flip_first_f64(const void* v0, void* v1, void* phi, const void* dmb,
                          const void* G, const void* w, int L, int64_t n,
-                         double s, double a0, double a1, void* stream) {
-  return launch_first<double>(v0, v1, phi, dmb, G, w, L, n, s, a0, a1,
-                              stream);
+                         int tile_bits, int bits, double s, double a0,
+                         double a1, void* stream) {
+  return launch_tiled<double, true>(nullptr, v1, v0, phi, dmb, G, w, L, n,
+                                    tile_bits, bits, s, a1, a0, stream);
 }
 
+// The iteration's tiled pass: v2 from v0 and v1, Phi updated.
 int cheby_flip_iter_f32(const void* v0, void* v2, const void* v1, void* phi,
                         const void* dmb, const void* G, const void* w, int L,
                         int64_t n, int tile_bits, int bits, float s2,
                         float ak, void* stream) {
-  return launch_iter<float>(v0, v2, v1, phi, dmb, G, w, L, n, tile_bits,
-                            bits, s2, ak, stream);
+  return launch_tiled<float, false>(v0, v2, v1, phi, dmb, G, w, L, n,
+                                    tile_bits, bits, s2, ak, 0.0f, stream);
 }
 
 int cheby_flip_iter_f64(const void* v0, void* v2, const void* v1, void* phi,
                         const void* dmb, const void* G, const void* w, int L,
                         int64_t n, int tile_bits, int bits, double s2,
                         double ak, void* stream) {
-  return launch_iter<double>(v0, v2, v1, phi, dmb, G, w, L, n, tile_bits,
-                             bits, s2, ak, stream);
+  return launch_tiled<double, false>(v0, v2, v1, phi, dmb, G, w, L, n,
+                                     tile_bits, bits, s2, ak, 0.0, stream);
 }
 
-int cheby_flip_high_f32(const void* v1, const void* G, const void* w,
+// The high pass of either: w_hi from x (v1 or v0).
+int cheby_flip_high_f32(const void* x, const void* G, const void* w,
                         void* out, int L, int64_t n, int h, int line_bits,
                         void* stream) {
-  return launch_high<float>(v1, G, w, out, L, n, h, line_bits, stream);
+  return launch_high<float>(x, G, w, out, L, n, h, line_bits, stream);
 }
 
-int cheby_flip_high_f64(const void* v1, const void* G, const void* w,
+int cheby_flip_high_f64(const void* x, const void* G, const void* w,
                         void* out, int L, int64_t n, int h, int line_bits,
                         void* stream) {
-  return launch_high<double>(v1, G, w, out, L, n, h, line_bits, stream);
+  return launch_high<double>(x, G, w, out, L, n, h, line_bits, stream);
 }
 
 }  // extern "C"

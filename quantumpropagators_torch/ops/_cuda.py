@@ -33,9 +33,11 @@ NVCC_FLAGS = (
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # v0, v1, phi, dmb, G, w, L, n, s, a0, a1, stream
-    "cheby_flip_first_f32": [_P] * 6 + [_I, _L] + [ctypes.c_float] * 3 + [_P],
-    "cheby_flip_first_f64": [_P] * 6 + [_I, _L] + [ctypes.c_double] * 3 + [_P],
+    # v0, v1, phi, dmb, G, w, L, n, tile_bits, bits, s, a0, a1, stream
+    "cheby_flip_first_f32": [_P] * 6 + [_I, _L, _I, _I]
+                            + [ctypes.c_float] * 3 + [_P],
+    "cheby_flip_first_f64": [_P] * 6 + [_I, _L, _I, _I]
+                            + [ctypes.c_double] * 3 + [_P],
     # v0, v2, v1, phi, dmb, G, w, L, n, tile_bits, bits, s2, ak, stream
     "cheby_flip_iter_f32": [_P] * 7 + [_I, _L, _I, _I]
                            + [ctypes.c_float] * 2 + [_P],

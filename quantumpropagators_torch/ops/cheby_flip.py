@@ -10,12 +10,13 @@ With ``dmb = d − β`` and ``c = i·s``:
   ``Φ += a_k·v2``, with ``v2`` written into ``out`` (default: ``v0``'s
   buffer) and ``Φ`` updated in place.
 
-On the card :func:`cheby_flip_iter` is two passes (:func:`flip_split`
-picks the split from ``L`` and the type): :func:`cheby_flip_high` sums
-the flips of the top ``h`` bits into a scratch vector ``w_hi`` (plus
-the caller's ``w``), and :func:`cheby_flip_iter_low` runs the order over
-the flips of the bits below ``L − h`` with ``w_hi`` as its ``w``.  The
-top bits' partners lie too far apart for one sweep to find them in L2.
+On the card each of them is two passes (:func:`flip_split` picks the
+split from ``L`` and the type): :func:`cheby_flip_high` sums the flips
+of the top ``h`` bits of ``v0`` (setup) or ``v1`` (order) into a scratch
+vector ``w_hi`` (plus the caller's ``w``), and :func:`cheby_flip_first_low`
+or :func:`cheby_flip_iter_low` runs the setup or the order over the
+flips of the bits below ``L − h`` with ``w_hi`` as its ``w``.  The top
+bits' partners lie too far apart for one sweep to find them in L2.
 
 Each takes complex128 states with float64 ``dmb``/``G`` (the
 reference-accuracy tier) or complex64 with float32 (the f32 tier).  A
@@ -40,6 +41,8 @@ __all__ = [
     "flip_sum_range_plain",
     "cheby_flip_first",
     "cheby_flip_first_plain",
+    "cheby_flip_first_low",
+    "cheby_flip_first_low_plain",
     "cheby_flip_iter",
     "cheby_flip_iter_plain",
     "cheby_flip_iter_low",
@@ -53,6 +56,7 @@ _MAX_HIGH_BITS = 8          # the high pass's cube: at most 2^8 runs
 _SMEM_BYTES = 227 * 1024    # shared memory one H100 block may use
 _LINE_BYTES = 256           # the high pass's contiguous run per top-bit value
 _TILE_BYTES = 16 * 1024     # the iteration's tile of v1 in shared memory
+_SETUP_TILE_BITS = 11       # the setup's tile of v0: 2^11 elements
 # Bits below which a flip partner stays within L2's reach while the
 # iteration sweeps the state; the bits above go to the high pass.  Sizes
 # chosen from timings on an H100 (PERF.md §6).
@@ -75,25 +79,28 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
-def flip_split(L: int, dtype) -> tuple[int, int]:
-    """``(tile_bits, h)`` of one order at ``2^L`` in ``dtype``: the
-    iteration stages tiles of ``2^tile_bits`` elements in shared memory,
-    and the high pass takes the top ``h`` bits (``h = 0``: none)."""
-    tile_bits = min(L, _bits_in(_TILE_BYTES, dtype))
+def flip_split(L: int, dtype, setup: bool = False) -> tuple[int, int]:
+    """``(tile_bits, h)`` of one order (or, with ``setup``, of the setup)
+    at ``2^L`` in ``dtype``: the tiled pass stages tiles of
+    ``2^tile_bits`` elements in shared memory, and the high pass takes
+    the top ``h`` bits (``h = 0``: none)."""
+    tile_bits = _SETUP_TILE_BITS if setup else _bits_in(_TILE_BYTES, dtype)
     h = min(max(L - _REACH_BITS, 0), _MAX_HIGH_BITS)
-    return tile_bits, h
+    return min(L, tile_bits), h
 
 
 def flip_check_sizes(dtype) -> list[int]:
-    """The sizes ``L`` at which the card's flip order is held against its
-    plain version: 1, 2, 4, ``T−1``, ``T``, ``T+1`` around the iteration's
-    tile of ``2^T`` elements, the smallest ``L`` with a high pass, 16, 20,
-    and the smallest ``L`` whose high pass takes its most bits."""
-    T = flip_split(MAX_BITS, dtype)[0]
+    """The sizes ``L`` at which the card's setup and flip order are held
+    against their plain versions: 1, 2, 4, ``T−1``, ``T``, ``T+1`` around
+    the tiled passes' tiles of ``2^T`` elements (the order's and the
+    setup's), the smallest ``L`` with a high pass, 16, 20, and the
+    smallest ``L`` whose high pass takes its most bits."""
+    tiles = {flip_split(MAX_BITS, dtype, setup)[0] for setup in (False, True)}
     splits = [(L, flip_split(L, dtype)[1]) for L in range(1, MAX_BITS + 1)]
     first_high = min(L for L, h in splits if h)
     first_cap = min(L for L, h in splits if h == _MAX_HIGH_BITS)
-    return sorted({1, 2, 4, T - 1, T, T + 1, first_high, 16, 20, first_cap})
+    return sorted({1, 2, 4, first_high, 16, 20, first_cap}
+                  | {T + d for T in tiles for d in (-1, 0, 1)})
 
 
 def _line_bits(L: int, h: int, dtype) -> int:
@@ -162,6 +169,15 @@ def cheby_flip_first_plain(v0, dmb, G, s, a0, a1, w=None):
     return v1, a0 * v0 + a1 * v1
 
 
+def cheby_flip_first_low_plain(v0, dmb, G, s, a0, a1, bits, w=None):
+    """Plain PyTorch version of :func:`cheby_flip_first_low`."""
+    L = _check([v0] + ([w] if w is not None else []), dmb, G)
+    _check_bits(bits, 0, L)
+    u = dmb.view(v0.shape) * v0 + flip_sum_range_plain(v0, G, 0, bits)
+    v1 = (1j * s) * (u if w is None else u + w)
+    return v1, a0 * v0 + a1 * v1
+
+
 def cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w=None, out=None):
     """Plain PyTorch version of :func:`cheby_flip_iter`."""
     out = v0 if out is None else out
@@ -211,21 +227,27 @@ def _device_kind(v):
 
 def cheby_flip_first(v0, dmb, G, s, a0, a1, w=None):
     """Chebyshev setup ``v1 = i·s·((H−β)v0 + w)``, ``Φ = a0·v0 + a1·v1``;
-    returns ``(v1, Φ)``."""
+    returns ``(v1, Φ)``.  On the card: the high pass over ``v0`` (when
+    :func:`flip_split` gives ``h > 0``), then the tiled setup pass."""
     if _device_kind(v0) == "cpu":
         return cheby_flip_first_plain(v0, dmb, G, s, a0, a1, w)
     L = _check([v0] + ([w] if w is not None else []), dmb, G)
-    ctype, suffix, _ = _TYPES[v0.dtype]
-    v1 = torch.empty_like(v0)
-    phi = torch.empty_like(v0)
-    _launch(
-        f"cheby_flip_first_{suffix}", f"cheby_flip_first<{ctype}>",
-        (v0.data_ptr(), v1.data_ptr(), phi.data_ptr(), dmb.data_ptr(),
-         G.data_ptr(), None if w is None else w.data_ptr(), L, v0.numel(),
-         float(s), float(a0), float(a1)),
-        v0.device,
-    )
-    return v1, phi
+    tile_bits, h = flip_split(L, v0.dtype, setup=True)
+    if h:
+        w = _launch_high(v0, G, w, L, h)
+    return _launch_first(v0, dmb, G, s, a0, a1, w, L, tile_bits, L - h)
+
+
+def cheby_flip_first_low(v0, dmb, G, s, a0, a1, bits, w=None):
+    """The tiled pass of :func:`cheby_flip_first`: the same setup with
+    the flips of bits ``0 .. bits−1`` only (the caller supplies the
+    others through ``w``); returns ``(v1, Φ)``."""
+    if _device_kind(v0) == "cpu":
+        return cheby_flip_first_low_plain(v0, dmb, G, s, a0, a1, bits, w)
+    L = _check([v0] + ([w] if w is not None else []), dmb, G)
+    _check_bits(bits, 0, L)
+    return _launch_first(v0, dmb, G, s, a0, a1, w, L,
+                         flip_split(L, v0.dtype, setup=True)[0], bits)
 
 
 def cheby_flip_iter(v0, v1, phi, dmb, G, s2, ak, w=None, out=None):
@@ -261,9 +283,10 @@ def cheby_flip_iter_low(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
 
 
 def cheby_flip_high(v1, G, h, w=None):
-    """The high pass of :func:`cheby_flip_iter`: returns
-    ``w_hi = Σ_{j ≥ L−h} G_j·v1[i ^ 2^j]`` (plus ``w`` when given) in a
-    new vector.  On the card ``1 ≤ h ≤ 8``."""
+    """The high pass of :func:`cheby_flip_iter` (and, on ``v0``, of
+    :func:`cheby_flip_first`): returns ``w_hi = Σ_{j ≥ L−h}
+    G_j·v1[i ^ 2^j]`` (plus ``w`` when given) in a new vector.  On the
+    card ``1 ≤ h ≤ 8``."""
     if _device_kind(v1) == "cpu":
         return cheby_flip_high_plain(v1, G, h, w)
     L = _check([v1] + ([w] if w is not None else []), None, G)
@@ -276,6 +299,20 @@ def _check_iter(v0, v1, phi, out, w, dmb, G) -> int:
     if v1.data_ptr() in (v0.data_ptr(), out.data_ptr(), phi.data_ptr()):
         raise ValueError("v1 must not share memory with v0, out or phi")
     return L
+
+
+def _launch_first(v0, dmb, G, s, a0, a1, w, L, tile_bits, bits):
+    ctype, suffix, _ = _TYPES[v0.dtype]
+    v1 = torch.empty_like(v0)
+    phi = torch.empty_like(v0)
+    _launch(
+        f"cheby_flip_first_{suffix}", f"cheby_flip_first<{ctype}>",
+        (v0.data_ptr(), v1.data_ptr(), phi.data_ptr(), dmb.data_ptr(),
+         G.data_ptr(), None if w is None else w.data_ptr(), L, v0.numel(),
+         tile_bits, bits, float(s), float(a0), float(a1)),
+        v0.device,
+    )
+    return v1, phi
 
 
 def _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L, tile_bits, bits):

@@ -4,13 +4,14 @@ family, any lattice dimension): PyTorch port of
 
 ``H = diag(d) + flip_scale·Σⱼ gⱼ·Xⱼ`` with ``Xⱼ`` the flip of index bit
 ``j``.  Each polynomial order of the Chebyshev recurrence (reference
-``src/cheby.jl:150-213``) is ONE pass over the state — the
+``src/cheby.jl:150-213``) is one call of
 :func:`~.cheby_flip.cheby_flip_first` / :func:`~.cheby_flip.cheby_flip_iter`
-kernels — so its device-memory traffic is: read v₀, v₁, Φ, dmb; write
-v₂, Φ.  This module keeps the JAX package's planning and structure
-detection; the TPU's three-way split of the flips (lane matmul, row
-rolls, cross-tile matmul) has no counterpart, every flip is an index
-XOR.
+— on the card a high pass over the top index bits and a tiled pass over
+the rest — whose device-memory traffic is: read v₀, v₁, Φ, dmb; write
+v₂, Φ; plus the high pass's scratch vector.  This module keeps the JAX
+package's planning and structure detection; the TPU's three-way split
+of the flips (lane matmul, row rolls, cross-tile matmul) has no
+counterpart, every flip is an index XOR.
 """
 
 from __future__ import annotations
@@ -207,7 +208,8 @@ def flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt, *,
                     forward: bool = True, w_fn=None):
     """One Chebyshev step ``exp(-i H dt)·psi`` for
     ``H − β = diag(dmb) + Σ_j G_j X_j`` on a flat ``2^L`` complex state,
-    one kernel launch per polynomial order.  ``psi`` is not modified.
+    one :mod:`.cheby_flip` call per polynomial order.  ``psi`` is not
+    modified.
 
     ``w_fn(v) -> w`` (optional) adds ``w`` to ``(H−β)·v`` at every
     order: contributions computed outside the kernel.

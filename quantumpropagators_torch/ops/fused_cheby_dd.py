@@ -5,7 +5,7 @@ The JAX package emulates float64 on f32-only TPUs with double-float
 (hi/lo f32) planes.  The H100 has native FP64, and a complex128 element
 is the same 16 bytes as the four dd planes, so this tier is plain
 complex128: the state is a complex128 tensor, ``dmb``/``coeffs`` are
-float64, and every polynomial order is one launch of the ``double``
+float64, and every polynomial order is one call of the ``double``
 instance of :mod:`.cheby_flip`.  The names (``cheby_step_fused_dd``,
 ``f32_tail``, ``fast=``) stay so that the JAX package's callers have a
 counterpart.

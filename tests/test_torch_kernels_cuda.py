@@ -66,15 +66,36 @@ def test_kernels_match_plain(cuda, cdtype, tol, L, with_w, separate_out):
     if separate_out:
         assert torch.equal(k0, v0)  # v0 untouched
     ctype = "float" if cdtype == torch.complex64 else "double"
+    # with a split, the high pass runs before the setup's tiled pass and
+    # before the order's
+    n_high = 2 if h else 0
     assert cf.LAUNCHES == {
-        f"cheby_flip_{kind}<{c}>": int(c == ctype and (kind != "high" or h > 0))
+        f"cheby_flip_{kind}<{c}>": (n_high if kind == "high" else 1)
+        * int(c == ctype)
         for kind in ("first", "iter", "high") for c in ("float", "double")}
     if h:
         got_hi = cf.cheby_flip_high(v1, G, h, w)
         want_hi = cf.cheby_flip_high_plain(v1, G, h, w)
         torch.cuda.synchronize()
         assert float((got_hi - want_hi).abs().max()) < tol
-        assert cf.LAUNCHES[f"cheby_flip_high<{ctype}>"] == 2
+        assert cf.LAUNCHES[f"cheby_flip_high<{ctype}>"] == 3
+
+
+@pytest.mark.parametrize("cdtype, tol, L", _CASES)
+@pytest.mark.parametrize("with_w", [False, True])
+def test_first_low_pass_matches_plain(cuda, cdtype, tol, L, with_w):
+    """The setup's tiled pass alone, over no bit, the tile's bits, the
+    bits below the split and all bits."""
+    v0, v1, _, dmb, G = _inputs(L, cdtype, cuda)
+    w = v1 if with_w else None
+    tile_bits, h = cf.flip_split(L, cdtype, setup=True)
+    for bits in sorted({0, tile_bits, L - h, L}):
+        got = cf.cheby_flip_first_low(v0, dmb, G, -0.07, 0.8, -0.4, bits, w)
+        want = cf.cheby_flip_first_low_plain(v0, dmb, G, -0.07, 0.8, -0.4,
+                                             bits, w)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) < tol
 
 
 @pytest.mark.parametrize("cdtype, tol", _TOLS)
@@ -103,6 +124,22 @@ def test_iter_accepts_complex64_at_odd_offset(cuda, L):
     torch.cuda.synchronize()
     assert float((k0 - p0).abs().max()) < 1e-6
     assert float((kphi - pphi).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("L", [3, 12, 20])
+def test_first_accepts_complex64_at_odd_offset(cuda, L):
+    """A complex64 v0 one element into its buffer (8-byte aligned) is
+    staged element by element and gives the same setup."""
+    v0, _, _, dmb, G = _inputs(L, torch.complex64, cuda)
+    buf = torch.empty(2 ** L + 1, dtype=torch.complex64, device=cuda)
+    odd = buf[1:]
+    odd.copy_(v0)
+    assert odd.data_ptr() % 16 == 8
+    got = cf.cheby_flip_first(odd, dmb, G, -0.07, 0.8, -0.4)
+    want = cf.cheby_flip_first_plain(v0, dmb, G, -0.07, 0.8, -0.4)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) < 1e-6
 
 
 def test_fused_path_on_card_matches_cpu(cuda):
