@@ -258,6 +258,19 @@ def check_launches(tier, counts, ctype):
                              f"pass before every tiled pass)")
 
 
+def median_wall(run, reps=3):
+    """``run()``'s last result and the median of ``reps`` wall times of
+    it, each synchronized: one run's time on a shared host varies by a
+    few percent."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, float(np.median(walls))
+
+
 def main_path(device, card):
     """Phases 3-4: the L = 24 driven chain through
     ``propagate(fused=True)`` in both tiers.  Returns the numbers the
@@ -291,12 +304,10 @@ def main_path(device, card):
     torch.cuda.synchronize()
     launches["dd"] = dict(cf.LAUNCHES)
     check_launches("dd", launches["dd"], "double")
-    # timed run: the same path without observables, after the one above
-    t0 = time.perf_counter()
-    psi_dd = qt.propagate(psi0, H, tlist, method="cheby", fused=True,
-                          kernel="dd", workspace=wrk)
-    torch.cuda.synchronize()
-    t_dd = time.perf_counter() - t0
+    # timed runs: the same path without observables, after the one above
+    psi_dd, t_dd = median_wall(lambda: qt.propagate(
+        psi0, H, tlist, method="cheby", fused=True, kernel="dd",
+        workspace=wrk))
     norms = np.abs(data[1])
     szs = data[0]
     if data.shape != (2, N_STEPS + 1) or not np.all(np.isfinite(data)):
@@ -326,13 +337,17 @@ def main_path(device, card):
 
     # -- f32 tier (kernel="pallas", complex64) ----------------------------
     cf.reset_launches()
-    t0 = time.perf_counter()
-    psi_32 = qt.propagate(psi0.to(torch.complex64), H, tlist, method="cheby",
-                          fused=True, kernel="pallas", workspace=wrk)
+
+    def run_32():
+        return qt.propagate(psi0.to(torch.complex64), H, tlist,
+                            method="cheby", fused=True, kernel="pallas",
+                            workspace=wrk)
+
+    psi_32 = run_32()
     torch.cuda.synchronize()
-    t_32 = time.perf_counter() - t0
     launches["pallas"] = dict(cf.LAUNCHES)
     check_launches("pallas", launches["pallas"], "float")
+    _, t_32 = median_wall(run_32)
     if psi_32.dtype != torch.complex64:
         raise AssertionError(f"f32 tier promoted the state to {psi_32.dtype}")
     err_32 = float((psi_32.to(torch.complex128) - psi_dd).abs().max())
@@ -730,8 +745,8 @@ def main() -> int:
     times = time_kernels(device, card)
     for tier, (steps_s, gnnz) in rates.items():
         log(f"phase 6 main path {tier} L={L_MAIN}: {steps_s:.3f} steps/s, "
-            f"{gnnz:.3f} Gnnz/s ({matvecs} matvecs/step, nnz=(L+1)*2^L) "
-            f"[{card}]")
+            f"{gnnz:.3f} Gnnz/s ({matvecs} matvecs/step, nnz=(L+1)*2^L; "
+            f"median of 3 timed runs of {N_STEPS} steps) [{card}]")
     gc.collect()
     torch.cuda.empty_cache()  # the 2^24 buffers go before the banded phase
     banded = banded_phase(device, card)
