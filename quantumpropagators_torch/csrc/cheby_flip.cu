@@ -114,9 +114,9 @@ __device__ __forceinline__ void cp_async_elem(V* dst, const V* src) {
   }
 }
 
-// Block sizes and the number of global flip loads issued together: the
-// setup, with fewer streams of its own to hide their latency, issues all
-// of its L2 partner loads (7 at L = 24) in one batch.
+// Block sizes and the number of global flip loads in flight together:
+// the setup, with fewer streams of its own to hide their latency, loads
+// all of its L2 partners (7 at L = 24) in one batch.
 constexpr int kTiledThreads = 512;
 constexpr int kHighThreads = 256;
 constexpr int kLoadBatch = 4;

@@ -166,7 +166,8 @@ def variants():
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     dev = torch.device("cuda", 0)
-    libs = build_variants(HERE / "chiprun_out" / "variants")
+    libs = build_variants(HERE / "quantumpropagators_torch" / "_build"
+                          / "variants")
     tag = f"[{card()}]"
     stream = torch.cuda.current_stream(dev).cuda_stream
     for ctype, sfx in (("double", "f64"), ("float", "f32")):
