@@ -14,6 +14,13 @@ version, then runs Chebyshev propagation through
   at 2^20 states (8192 coupled 128-level units) in the reference tier
   (``kernel="dd"``), on the banded SpMV kernel.
 
+Phase 9 then runs the Krylov methods on phase 7's operator and band
+planes, again on the banded SpMV kernel: fixed-Leja Newton through
+``propagate(..., fused=True, method="newton_leja")`` over the same 20
+steps, and ``newton`` and ``expv`` at ``precision="dd"`` over 5 steps,
+each held against phase 7's Chebyshev result; and every registered
+method on two small configurations against host ``expm`` oracles.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -690,7 +697,7 @@ def banded_phase(device, card):
         raise AssertionError(f"banded backward round trip: {err_rt}")
     log(f"phase 7 dd backward round trip 2^{L}: max|d|={err_rt:.3e} "
         f"(<= 1e-12) ok")
-    del data, p_dd, p_xla, back, psi_T
+    del data, p_xla, back
 
     # -- times: kernel, plain version, one-call library equivalent -------
     ms = time_ms(lambda: bs.banded_spmv(planes, offsets, x), 20)
@@ -717,9 +724,203 @@ def banded_phase(device, card):
     log(f"phase 7 main path dd banded20 2^{L}: {steps_s:.3f} steps/s, "
         f"{gnnz:.3f} Gnnz/s (2 x {orders - 1} matvecs/step x "
         f"{nnz_stored} stored nnz) [{card}]")
-    return {"launches": launches, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    del xp, windows
+    entry = {"launches": launches, "max_abs_err": max_err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": library_ms}
+    # what phase 9 reuses: the operator, its band planes, the envelope and
+    # the Chebyshev results after 20 and after 5 steps
+    ctx = dict(op=op, banded=banded, psi0=psi0, env=env, wrk=wrk,
+               tlist=tlist, steps_s=steps_s, psi_T=psi_T, psi_5=p_dd)
+    return entry, ctx
+
+
+def krylov_phase(device, card, ctx):
+    """Phase 9: the Krylov methods on phase 7's banded20 operator at 2^20,
+    on the same band planes (``dd_operator_terms``) and envelope:
+    fixed-Leja Newton through ``propagate(fused=True)`` over the 20 steps
+    (every node one ``banded_spmv<double>`` launch), against phase 7's
+    Chebyshev result, its norm, its backward round trip and three steps
+    with the plain product on the card; then 5 steps each of ``newton``
+    and ``expv`` at ``precision="dd"`` against 5 Chebyshev steps.
+    Returns each path's banded launches."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.ops.newton_leja import newton_leja_plan
+    from quantumpropagators_torch.propagate import propagate_propagator
+    from quantumpropagators_torch.utils.timings import (disable_timings,
+                                                        enable_timings)
+
+    op, psi0, tlist = ctx["op"], ctx["psi0"], ctx["tlist"]
+    env = ctx["env"]
+    e_min, e_max = env.e_min, env.e_min + env.delta
+    dt = float(tlist[1] - tlist[0])
+    L = N_BANDED.bit_length() - 1
+    leja = dict(method="newton_leja", fused=True, e_min=e_min, e_max=e_max,
+                dd_operator_terms=(ctx["banded"],))
+    nodes = len(newton_leja_plan(e_min, e_max, dt).points)
+    obs = (lambda psi: torch.linalg.vector_norm(psi),)
+    launches = {}
+
+    # -- fixed-Leja Newton, 20 steps ---------------------------------------
+    bs.reset_launches()
+    norms = qt.propagate(psi0, op, tlist, observables=obs, storage=True,
+                         **leja)
+    torch.cuda.synchronize()
+    n = launches["phase 9 newton_leja"] = bs.LAUNCHES[BANDED]
+    if n != N_STEPS * (nodes - 1):
+        raise AssertionError(f"Leja path: {n} banded launches, expected "
+                             f"{N_STEPS} x ({nodes} - 1)")
+    norm_err = float(np.abs(np.abs(norms) - 1.0).max())
+    if norms.shape != (N_STEPS + 1,) or not norm_err <= 1e-12:
+        raise AssertionError(f"Leja norm not kept: {norm_err}")
+    t0 = time.perf_counter()
+    psi_L = qt.propagate(psi0, op, tlist, **leja)
+    torch.cuda.synchronize()
+    t_leja = time.perf_counter() - t0
+    err = float((psi_L - ctx["psi_T"]).abs().max())
+    if not err <= 1e-10:
+        raise AssertionError(f"Leja vs Chebyshev after 20 steps: {err}")
+    log(f"phase 9 newton_leja banded20 2^{L} {N_STEPS} steps: {nodes} Leja "
+        f"nodes/step, max|d| vs phase 7 cheby dd={err:.3e} (<= 1e-10), "
+        f"max|norm-1|={norm_err:.2e} (<= 1e-12), launches={n} = "
+        f"{N_STEPS} x ({nodes} - 1) ok")
+    back = qt.propagate(psi_L, op, tlist, backward=True, **leja)
+    torch.cuda.synchronize()
+    err_rt = float((back - psi0).abs().max())
+    if not err_rt <= 1e-11:
+        raise AssertionError(f"Leja backward round trip: {err_rt}")
+    log(f"phase 9 newton_leja backward round trip 2^{L}: "
+        f"max|d|={err_rt:.3e} (<= 1e-11) ok")
+    # three steps with the plain product on the card
+    short = tlist[:4]
+    psi_k = qt.propagate(psi0, op, short, **leja)
+    kernel = bs.banded_spmv
+    bs.banded_spmv = bs.banded_spmv_plain
+    try:
+        psi_p = qt.propagate(psi0, op, short, **leja)
+        torch.cuda.synchronize()
+    finally:
+        bs.banded_spmv = kernel
+    err_p = float((psi_k - psi_p).abs().max())
+    if not err_p <= 1e-12:
+        raise AssertionError(f"Leja kernel vs plain product: {err_p}")
+    log(f"phase 9 newton_leja 3 steps, kernel vs plain product on the "
+        f"card: max|d|={err_p:.3e} (<= 1e-12) ok")
+    del back, psi_k, psi_p, norms
+    rates = {"newton_leja": (N_STEPS, t_leja)}
+
+    # -- newton and expv at precision="dd", 5 steps ---------------------------
+    short = tlist[:6]
+    enable_timings()
+    try:
+        for method, kw in (("newton", {}), ("expv", {})):
+            bs.reset_launches()
+            prop = qt.init_prop(psi0, op, short, method=method,
+                                precision="dd",
+                                dd_operator_terms=(ctx["banded"],), **kw)
+            t0 = time.perf_counter()
+            propagate_propagator(prop)
+            torch.cuda.synchronize()
+            rates[method] = (5, time.perf_counter() - t0)
+            n = launches[f"phase 9 {method} dd"] = bs.LAUNCHES[BANDED]
+            matvecs = prop.timing_data.counters.get("matvec", 0)
+            if n != matvecs or n == 0:
+                raise AssertionError(f"{method}: {n} banded launches, "
+                                     f"{matvecs} matvecs")
+            err = float((prop.state_dd - ctx["psi_5"]).abs().max())
+            if not err <= 1e-10:
+                raise AssertionError(f"{method} dd vs cheby: {err}")
+            log(f"phase 9 {method} dd banded20 2^{L} 5 steps: max|d| vs "
+                f"5 cheby dd steps={err:.3e} (<= 1e-10), launches={n} = "
+                f"the restarts' matvecs ok")
+            del prop
+    finally:
+        disable_timings()
+    t_cheby = N_STEPS / ctx["steps_s"]
+    for method, (steps, t) in [("cheby dd (phase 7)", (N_STEPS, t_cheby))] \
+            + list(rates.items()):
+        log(f"phase 9 time {method} banded20 2^{L}: {steps / t:.3f} steps/s, "
+            f"{1e3 * t / steps:.3f} ms/step [{card}]")
+    return launches
+
+
+def small_configs(device, card):
+    """Phase 9, small configurations against host ``expm`` oracles: every
+    registered method on the N = 1024 sparse Hermitian of
+    ``bench.py:330-342`` (spectral radius 10, dt = 0.5, 20 steps), and
+    fixed-Leja Newton on the N = 10 driven transmon ladder of
+    ``bench.py:142-290`` (100 steps)."""
+    import scipy.linalg
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import eigsh
+
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.models.controls import \
+        discretize_on_midpoints
+
+    N = 1024
+    rng = np.random.default_rng(42)
+    A = sp.random(N, N, density=0.01, random_state=rng,
+                  data_rvs=rng.standard_normal)
+    H = (0.5 * (A + A.T)).tocsr()
+    lam = [abs(eigsh(H, k=1, which=w, return_eigenvectors=False)[0])
+           for w in ("LA", "SA")]
+    H = (H * (10.0 / max(lam))).astype(np.float64)
+    psi0 = rng.standard_normal(N) + 1j * rng.standard_normal(N)
+    psi0 /= np.linalg.norm(psi0)
+    tlist = np.linspace(0.0, 10.0, 21)
+    oracle = scipy.linalg.expm(-10j * H.toarray()) @ psi0
+    op = qt.csr_from_scipy(H, device=device)
+    psi = torch.as_tensor(psi0, device=device)
+    # the JAX tests' tolerances: 1e-10, and 1e-7 for the DP5 integrator
+    for method, kw, tol in (("cheby", {}, 1e-10), ("newton", {}, 1e-10),
+                            ("expv", {}, 1e-10), ("expprop", {}, 1e-10),
+                            ("ode", {}, 1e-7)):
+        t0 = time.perf_counter()
+        out = qt.propagate(psi, op, tlist, method=method, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        if out.device != device:
+            raise AssertionError(f"{method} left the device")
+        err = float(np.linalg.norm(out.cpu().numpy() - oracle))
+        if not err <= tol:
+            raise AssertionError(f"sparse N={N} {method} vs expm: {err}")
+        log(f"phase 9 sparse Hermitian N={N} {method} 20 steps: |d| vs "
+            f"expm={err:.3e} (<= {tol:g}), {20 / t:.3f} steps/s, "
+            f"{1e3 * t / 20:.3f} ms/step [{card}]")
+
+    N = 10
+    a = sp.diags(np.sqrt(np.arange(1, N, dtype=float)), 1).tocsr()
+    ad = a.T.tocsr()
+    n_op = (ad @ a).tocsr()
+    H0 = (6.0 * n_op - 0.1 * (n_op @ (n_op - sp.identity(N)))).tocsr()
+    Hd = (a + ad).tocsr()
+    eps = lambda t: 0.3 * float(np.cos(5.8 * t))
+    gen = qt.hamiltonian(qt.dia_from_scipy(H0, device=device),
+                         (qt.dia_from_scipy(Hd, device=device), eps))
+    tlist = np.linspace(0.0, 10.0, 101)
+    ev = np.concatenate([np.linalg.eigvalsh(H0.toarray() + s * Hd.toarray())
+                         for s in (-0.3, 0.3)])
+    buf = 0.02 * (ev.max() - ev.min())
+    psi0 = np.eye(N)[0].astype(complex)
+    vals = discretize_on_midpoints(eps, tlist)
+    oracle = psi0
+    for k in range(len(tlist) - 1):
+        oracle = scipy.linalg.expm(-0.1j * (H0 + vals[k] * Hd).toarray()) \
+            @ oracle
+    t0 = time.perf_counter()
+    out = qt.propagate(torch.as_tensor(psi0, device=device), gen, tlist,
+                       method="newton_leja", fused=True,
+                       e_min=float(ev.min() - buf), e_max=float(ev.max() + buf),
+                       dd_operator_terms=[H0, Hd])
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    err = float(np.abs(out.cpu().numpy() - oracle).max())
+    if out.device != device or not err <= 1e-11:
+        raise AssertionError(f"transmon newton_leja vs expm: {err}")
+    log(f"phase 9 transmon N={N} newton_leja 100 steps: max|d| vs expm="
+        f"{err:.3e} (<= 1e-11), {100 / t:.3f} steps/s [{card}]")
 
 
 def main() -> int:
@@ -749,9 +950,19 @@ def main() -> int:
             f"median of 3 timed runs of {N_STEPS} steps) [{card}]")
     gc.collect()
     torch.cuda.empty_cache()  # the 2^24 buffers go before the banded phase
-    banded = banded_phase(device, card)
+    banded, ctx = banded_phase(device, card)
     trace_phase(*chain, card)
     del chain
+    # phase 9 reads each Krylov path's banded launches; phase 7's count
+    # stays its own
+    banded["launches_by_path"] = {"phase 7 cheby dd": banded["launches"]}
+    for path, n in krylov_phase(device, card, ctx).items():
+        banded["launches_by_path"][path] = n
+        banded["launches"] += n
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_configs(device, card)
 
     kernels = []
     for name in REPLACES:

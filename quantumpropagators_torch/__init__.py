@@ -2,15 +2,18 @@
 :mod:`quantumpropagators`.
 
 Same public names and semantics as the JAX package, on torch tensors:
-controls and pulse shapes, the operator / generator algebra, lattice
-operators, Chebyshev propagation (stepwise through ``propagate`` and
-whole-grid through ``propagate(..., fused=True)``), storage and the
-``check=True`` contract checks.  The TPU Pallas kernels of the
-Chebyshev hot loop are hand-written CUDA kernels for Hopper
-(``csrc/cheby_flip.cu`` for diagonal-plus-site-flip generators,
-``csrc/banded_spmv.cu`` for block-banded operators), built with
-``nvcc`` at first use; on CPU tensors their plain PyTorch versions run
-instead.
+controls, amplitudes, CRAB functions and pulse shapes, the operator /
+generator algebra, lattice operators, the propagation methods
+``cheby``, ``newton``, ``krylov``/``expv``, ``expprop`` and ``ode``
+(stepwise through ``propagate``), whole-grid Chebyshev and fixed-Leja
+Newton propagation (``propagate(..., fused=True)``), storage and the
+``check=True`` contract checks.  ``precision="dd"`` and ``kernel="dd"``
+keep the JAX package's names for its reference-accuracy tier, which is
+complex128 here.  The TPU Pallas kernels are hand-written CUDA kernels
+for Hopper (``csrc/cheby_flip.cu`` for diagonal-plus-site-flip
+generators, ``csrc/banded_spmv.cu`` for block-banded operators, the
+product the Krylov methods also run), built with ``nvcc`` at first
+use; on CPU tensors their plain PyTorch versions run instead.
 
 Tensors are built on the package's default device, ``cuda``, unless
 the caller names one; ``set_default_device("cpu")`` makes the CPU the
@@ -41,6 +44,12 @@ from .models.generators import (
     liouvillian,
 )
 from .models.shapes import blackman, box, flattop
+from .models.amplitudes import GuidedAmplitude, LockedAmplitude, ShapedAmplitude
+from .models.crab import (
+    CRABFunction,
+    VariedFrequencyCRABFunction,
+    crab_initial_parameters,
+)
 from .models.lattice import (
     GroupedSiteSum,
     SiteOperatorSum,
@@ -93,6 +102,13 @@ __all__ = [
     "flattop",
     "box",
     "blackman",
+    # amplitudes & parameterized functions
+    "LockedAmplitude",
+    "ShapedAmplitude",
+    "GuidedAmplitude",
+    "CRABFunction",
+    "VariedFrequencyCRABFunction",
+    "crab_initial_parameters",
     # lattice models
     "SiteOperatorSum",
     "GroupedSiteSum",

@@ -1,8 +1,9 @@
 """Carrying objects between the JAX package and the port.
 
 :func:`from_jax` turns the JAX package's states, dense arrays, operators
-and generators into the port's, through numpy; :func:`to_numpy` is the
-way back for tensors.  Nothing here imports jax: objects are recognized
+and generators, and its double-float values and operators (as float64
+or complex128 ``hi + lo``), into the port's, through numpy;
+:func:`to_numpy` is the way back for tensors.  Nothing here imports jax: objects are recognized
 by class name and attributes (``.diag``, ``.site_mats``, ``.L``,
 ``.active``, ``.ops``, ``.coeffs``, ``.amplitudes``), so the same code
 also accepts the port's own objects.  Control callables and amplitude
@@ -17,6 +18,7 @@ import torch
 from .models.generators import Generator, Operator, ScaledOperator
 from .models.lattice import GroupedSiteSum, SiteOperatorSum
 from .ops.bsr_dd import BandedDD
+from .ops.dd_linalg import CDDOp, DenseDDOp, TermsDDOp
 from .ops.operators import (
     BSROperator,
     CSROperator,
@@ -38,12 +40,22 @@ def _index(x, device):
     return _tensor(x, device).to(torch.int64)
 
 
+def _f64(x) -> np.ndarray:
+    return np.asarray(host_np(x), dtype=np.float64)
+
+
 def from_jax(obj, device=None):
     """The port's counterpart of ``obj`` (a JAX array, a numpy array, an
     operator, an :class:`Operator`/:class:`Generator`, or a tuple/list
     of these), with its tensors on ``device`` (default: the package's
     :func:`~.ops.operators.default_device`)."""
     name = type(obj).__name__
+    # the JAX DD / CDD pairs are named tuples: matched before tuples
+    if name == "DD":
+        # a double-float pair: the float64 value hi + lo
+        return _tensor(_f64(obj.hi) + _f64(obj.lo), device)
+    if name == "CDD":
+        return torch.complex(from_jax(obj.re, device), from_jax(obj.im, device))
     if isinstance(obj, (tuple, list)):
         return type(obj)(from_jax(o, device) for o in obj)
     if name in ("CSROperator", "StackedCSROperator"):
@@ -68,13 +80,38 @@ def from_jax(obj, device=None):
         # one float64 plane tensor in place of the hi/lo float32 pair
         planes = getattr(obj, "planes", None)
         if planes is None:
-            planes = (np.asarray(host_np(obj.planes_hi), np.float64)
-                      + np.asarray(host_np(obj.planes_lo), np.float64))
+            planes = _f64(obj.planes_hi) + _f64(obj.planes_lo)
         return BandedDD(planes=_tensor(planes, device),
                         offsets=tuple(int(o) for o in obj.offsets),
                         R=int(obj.R), b=int(obj.b),
                         shape=tuple(int(n) for n in obj.shape),
                         logical_nnz=int(obj.logical_nnz))
+    if name == "DenseDDOp":
+        mat = getattr(obj, "mat", None)
+        if mat is None:  # the JAX class: re/im × hi/lo f32 planes
+            mat = _f64(obj.re_hi) + _f64(obj.re_lo) + 0j
+            if obj.im_hi is not None:
+                mat = mat + 1j * (_f64(obj.im_hi) + _f64(obj.im_lo))
+        return DenseDDOp(_tensor(mat, device).to(torch.complex128))
+    if name == "CDDOp":
+        return CDDOp(from_jax(obj.re, device),
+                     None if obj.im is None else from_jax(obj.im, device),
+                     tuple(int(n) for n in obj.shape))
+    if name == "TermsDDOp":
+        c = np.asarray(host_np(obj.coeffs4))
+        if c.ndim == 2:  # the JAX (4, n) hi/lo planes
+            c = (c[0].astype(np.float64) + c[1]) + 1j * (
+                c[2].astype(np.float64) + c[3])
+        return TermsDDOp(from_jax(tuple(obj.terms), device),
+                         c.astype(np.complex128),
+                         tuple(int(n) for n in obj.shape))
+    if name == "BSRdd":
+        # float64 blocks of the padded (n_pad, n_pad) operator
+        return BSROperator(
+            blocks=_tensor(_f64(obj.blocks_hi) + _f64(obj.blocks_lo), device),
+            cols=_index(obj.cols, device),
+            shape=tuple(int(n) for n in obj.shape),
+            block_size=int(obj.block_size))
     if name == "DiagonalOperator":
         return DiagonalOperator(_tensor(obj.diag, device))
     if name == "SiteOperatorSum":

@@ -4,7 +4,9 @@
 ``propagate(state, generator, tlist, method=...)`` validates inputs,
 initializes a propagator, and runs the outer time loop with optional
 observable storage and per-step callbacks.  ``fused=True`` runs the
-whole grid through :func:`~.fused.cheby_propagate_fused` instead.
+whole grid through :func:`~.fused.cheby_propagate_fused` (or, with
+``method="newton_leja"``, :func:`~.ops.newton_leja.newton_leja_propagate_dd`)
+instead.
 """
 
 from __future__ import annotations
@@ -57,12 +59,13 @@ def propagate(
     - ``callback(propagator, observables)`` runs after every step.
     - ``backward=True`` propagates from ``tlist[-1]`` to ``tlist[0]``
       (storage filled back-to-front).
-    - ``fused=True`` (cheby only): run the whole time grid through
-      :func:`~.fused.cheby_propagate_fused` (the hand-written flip
-      kernels where the generator has diagonal-plus-site-flip
-      structure).  Observables must then be functions of the state
-      tensor (or operators → expectation values); host callbacks are
-      unsupported.
+    - ``fused=True`` (``method`` ``"cheby"`` or ``"newton_leja"``): run
+      the whole time grid through :func:`~.fused.cheby_propagate_fused`
+      (the hand-written flip kernels where the generator has
+      diagonal-plus-site-flip structure) or, for ``"newton_leja"``,
+      :func:`~.ops.newton_leja.newton_leja_propagate_dd` (complex128).
+      Observables must then be functions of the state tensor (or
+      operators → expectation values); host callbacks are unsupported.
 
     Returns the final state, or the storage if ``storage=True``.
     """
@@ -139,11 +142,6 @@ def _propagate_fused(
             "fused=True runs entirely on device; per-step host callbacks "
             "are unsupported (use observables instead)"
         )
-    if str(method).lower() == "newton_leja":
-        raise NotImplementedError(
-            "method='newton_leja' with fused=True is not ported yet "
-            "(ROADMAP A7: ops/newton_leja.py)"
-        )
     state = as_tensor(state)
     tlist = np.asarray(tlist, dtype=np.float64)
     max_bytes = int(kwargs.pop("max_storage_bytes", 8 << 30))
@@ -179,15 +177,31 @@ def _propagate_fused(
                         vals.append(torch.as_tensor(o(psi)))
                 return vals[0] if len(vals) == 1 else torch.stack(vals)
 
-    psi_final, outputs = cheby_propagate_fused(
-        state,
-        generator,
-        tlist,
-        observable_fn=observable_fn,
-        store_states=store_states,
-        backward=backward,
-        **kwargs,
-    )
+    if str(method).lower() == "newton_leja":
+        # fixed-Leja Newton in complex128 (Hermitian generators): see
+        # ops/newton_leja.py
+        from .ops.newton_leja import newton_leja_propagate_dd
+
+        psi_final, outputs, _plan = newton_leja_propagate_dd(
+            state,
+            generator,
+            tlist,
+            observable_fn=observable_fn,
+            store_states=store_states,
+            backward=backward,
+            **kwargs,
+        )
+        psi_final = psi_final.reshape(state.shape)
+    else:
+        psi_final, outputs = cheby_propagate_fused(
+            state,
+            generator,
+            tlist,
+            observable_fn=observable_fn,
+            store_states=store_states,
+            backward=backward,
+            **kwargs,
+        )
     out_storage = None
     if storage is not None and storage is not False:
         if store_states:

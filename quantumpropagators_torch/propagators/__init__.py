@@ -1,6 +1,7 @@
-"""Propagator layer: stateful stepping objects.  Only the ``cheby``
-method is registered so far; other method names raise the same
-"Unknown propagation method" error as the JAX package."""
+"""Propagator layer: stateful stepping objects.  The registered methods
+are the JAX package's: ``cheby``, ``expprop``, ``newton``, ``krylov`` /
+``expv`` and ``ode``; any other method name raises the same "Unknown
+propagation method" error."""
 
 from .base import (
     PiecewisePropagator,
@@ -18,8 +19,16 @@ from .base import (
 
 # Register the built-in methods
 from . import cheby as _cheby  # noqa: F401
+from . import expprop as _expprop  # noqa: F401
+from . import newton as _newton  # noqa: F401
+from . import krylov as _krylov  # noqa: F401
+from . import ode as _ode  # noqa: F401
 
 from .cheby import ChebyPropagator
+from .expprop import ExpPropagator
+from .newton import NewtonPropagator
+from .krylov import KrylovPropagator
+from .ode import ODEContinuousPropagator, ODEPropagator, ODEPWCPropagator, ode_function
 
 __all__ = [
     "Propagator",
@@ -34,4 +43,9 @@ __all__ = [
     "available_methods",
     "get_uniform_dt",
     "ChebyPropagator",
+    "ExpPropagator",
+    "NewtonPropagator",
+    "KrylovPropagator",
+    "ODEPropagator",
+    "ode_function",
 ]

@@ -150,6 +150,11 @@ class ChebyPropagator(PWCPropagatorBase):
         self.state = state
         return self.state
 
+    @property
+    def state_dd(self):
+        """The complex128 state (the JAX package's dd planes merged)."""
+        return self.state.to(torch.complex128)
+
     def prop_step(self):
         if self._done:
             return None

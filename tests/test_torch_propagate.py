@@ -151,14 +151,21 @@ def test_unknown_method_errors(tls):
             jnp.zeros((2, 2), dtype=complex),
             (jnp.asarray(SX), lambda t: 1.0)), TLIST, method="foo")
     assert str(jexc.value).startswith("Unknown propagation method 'foo'")
-    # auto on a non-Hermitian generator resolves to newton, not ported yet
+    # auto on a non-Hermitian generator resolves to newton in both
+    # packages, which needs more than two levels
     nonherm = torch.tensor([[0, 1], [0, 0]], dtype=torch.complex128)
-    with pytest.raises(ValueError, match="Unknown propagation method 'auto'"):
+    with pytest.raises(ValueError, match="state dimension > 2"):
         qt.propagate(tpsi0, qt.hamiltonian(nonherm, (torch.as_tensor(SX),
                                                      lambda t: 1.0)),
                      TLIST, check=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        qt.propagate(tpsi0, tgen, TLIST, method="newton_leja", fused=True)
+    with pytest.raises(ValueError, match="state dimension > 2"):
+        qp.propagate(jnp.asarray([1.0 + 0j, 0]), qp.hamiltonian(
+            jnp.asarray(nonherm.numpy()), (jnp.asarray(SX), lambda t: 1.0)),
+            TLIST, check=False)
+    # fused newton_leja runs and agrees with the Chebyshev propagation
+    got = qt.propagate(tpsi0, tgen, TLIST, method="newton_leja", fused=True)
+    ref = qt.propagate(tpsi0, tgen, TLIST, method="cheby")
+    assert float((got - ref).abs().max()) < 1e-10
 
 
 def test_generator_firewall(tls):
