@@ -231,7 +231,7 @@ def _optomech():
     jgen = qp.hamiltonian(jax_csr(H0), (jax_csr(H_int), eps))
     psi0 = np.zeros(H0.shape[0], dtype=complex)
     psi0[0] = 1.0
-    return jgen, np.linspace(0, 1, 51), psi0
+    return jgen, np.linspace(0, 0.5, 26), psi0
 
 
 def _transmon():
@@ -241,7 +241,7 @@ def _transmon():
     a = np.diag(np.sqrt(np.arange(1, N)), 1).astype(complex)
     eps = lambda t: 0.5 * qp.flattop(t, T=4.0, t_rise=1.0) * np.cos(omega * t)
     jgen = qp.hamiltonian(jnp.asarray(H0), (jnp.asarray(a + a.conj().T), eps))
-    return jgen, np.linspace(0, 1, 101), np.eye(N)[0].astype(complex)
+    return jgen, np.linspace(0, 0.5, 51), np.eye(N)[0].astype(complex)
 
 
 _SYSTEMS = {"optomech": _optomech, "transmon": _transmon}
