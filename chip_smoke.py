@@ -21,6 +21,13 @@ steps, and ``newton`` and ``expv`` at ``precision="dd"`` over 5 steps,
 each held against phase 7's Chebyshev result; and every registered
 method on two small configurations against host ``expm`` oracles.
 
+Phase 10 runs the sharded layer (``quantumpropagators_torch.parallel``)
+on four shard slots of the one card over a world-size-1 NCCL group: the
+L = 24 chain in both tiers against phases 3 and 4, one step with a
+zero-coupling slot bit, banded20 against phase 7 (band planes split on
+the card), and small chain, CSR and BSR checks; norms go through the
+mesh's ``psum``.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -368,7 +375,7 @@ def main_path(device, card):
     rates = {}
     for tier, t in (("dd", t_dd), ("pallas", t_32)):
         rates[tier] = (N_STEPS / t, N_STEPS * matvecs * nnz / t / 1e9)
-    return launches, rates, matvecs, (psi0, H, wrk)
+    return launches, rates, matvecs, (psi0, H, wrk), (psi_dd, psi_32)
 
 
 def round_trip(device):
@@ -923,6 +930,250 @@ def small_configs(device, card):
         f"{err:.3e} (<= 1e-11), {100 / t:.3f} steps/s [{card}]")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_phase(device, card, chain, finals, ctx, rates):
+    """Phase 10: the sharded paths on four shard slots of this card, all
+    in this process, over a world-size-1 NCCL group: the L = 24 chain in
+    both tiers against phases 3 and 4, one step with a zero-coupling
+    slot bit, banded20 against phase 7, and small checks of the chain,
+    CSR and BSR paths.  Norms go through the mesh's ``psum`` (NCCL
+    ``all_reduce``).  Returns the flip launches of each counted path and
+    the banded launches of the banded20 path."""
+    import torch.distributed as dist
+
+    from quantumpropagators_torch.models.generators import (
+        coeff_table, coeff_table_np)
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.ops.fused_cheby import make_flip_plan
+    from quantumpropagators_torch.ops.fused_cheby_dd import (
+        cheby_step_fused_dd, f32_tail_orders)
+    from quantumpropagators_torch.parallel import sharded_banded as sbd
+    from quantumpropagators_torch.parallel import sharded_fused as sf
+    from quantumpropagators_torch.parallel.distributed import \
+        initialize_multihost
+    from quantumpropagators_torch.parallel.mesh import chain_mesh, \
+        shard_vector
+
+    t_phase = time.perf_counter()
+    group = initialize_multihost(f"localhost:{free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = chain_mesh(4, group=group, device=device)
+
+        def norm_err(x):
+            return abs(float(mesh.psum((x.abs() ** 2).sum(-1))) - 1.0)
+
+        psi0, H, wrk = chain
+        psi_dd, psi_32 = finals
+        L = L_MAIN
+        tlist = np.linspace(0.0, N_STEPS * DT, N_STEPS + 1)
+        diag = H.ops[0].diag.real.to(torch.float64)
+        beta = wrk.delta / 2.0 + wrk.e_min
+        c64 = np.asarray(wrk.coeffs, dtype=np.float64)
+        tail = f32_tail_orders(c64)
+        # the dd main path's per-step, per-bit flip table (fused._dd_path)
+        drive = np.asarray(coeff_table_np(H, tlist))[:, 0]
+        Gbits = torch.as_tensor(np.outer(drive, np.full(L, G_FIELD)),
+                                device=device)
+        kw = dict(delta=wrk.delta, e_min=wrk.e_min, dt=wrk.dt)
+        paths, out = {}, {}
+
+        # -- (b) TFIM L = 24 over 4 slots, reference tier -------------------
+        step_dd = sf.make_sharded_fused_cheby_step_dd(mesh, L, 1.0,
+                                                      f32_tail=tail, **kw)
+        dmb = shard_vector(mesh, diag - beta)
+        cf.reset_launches()
+        t0 = time.perf_counter()
+        state = shard_vector(mesh, psi0)
+        for k in range(N_STEPS):
+            state = step_dd(dmb, state, c64, flip_scale=Gbits[k])
+        torch.cuda.synchronize()
+        t_dd = time.perf_counter() - t0
+        paths["phase 10 sharded dd"] = counts = dict(cf.LAUNCHES)
+        if not all(counts[k] > 0 for k in (
+                "cheby_flip_first<double>", "cheby_flip_iter<double>",
+                "cheby_flip_high<double>", "cheby_flip_iter<float>",
+                "cheby_flip_high<float>")):
+            raise AssertionError(f"sharded dd launches: {counts}")
+        err = float((state.reshape(-1) - psi_dd).abs().max())
+        nerr = norm_err(state)
+        if not (err <= 1e-12 and nerr <= 1e-12):
+            raise AssertionError(f"sharded dd vs phase 3: {err}, norm {nerr}")
+        flips = sum(counts.values()) / N_STEPS
+        log(f"phase 10 sharded dd L={L} 4 slots {N_STEPS} steps: max|d| vs "
+            f"phase 3={err:.3e} (<= 1e-12), |psum norm^2-1|={nerr:.2e}, "
+            f"exchange {step_dd.exchange_plan}, flip launches/step "
+            f"{flips:.0f} ok")
+        out["dd"] = N_STEPS / t_dd
+        del state
+
+        # -- (b) f32 tier -----------------------------------------------------
+        table = coeff_table(H, tlist)
+        table = (table.real if table.is_complex() else table).to(
+            torch.float32)[:, 0]
+        step_32 = sf.make_sharded_fused_cheby_step(mesh, L, G_FIELD, **kw)
+        d32 = shard_vector(mesh, diag)
+        p32 = psi0.to(torch.complex64)
+        cf.reset_launches()
+        t0 = time.perf_counter()
+        re = shard_vector(mesh, p32.real.contiguous())
+        im = shard_vector(mesh, p32.imag.contiguous())
+        for k in range(N_STEPS):
+            re, im = step_32(d32, re, im, c64, flip_scale=table[k])
+        state = torch.complex(re, im)
+        torch.cuda.synchronize()
+        t_32 = time.perf_counter() - t0
+        paths["phase 10 sharded f32"] = counts = dict(cf.LAUNCHES)
+        if not all(counts[f"cheby_flip_{k}<float>"] > 0
+                   for k in ("first", "iter", "high")):
+            raise AssertionError(f"sharded f32 launches: {counts}")
+        err = float((state.reshape(-1) - psi_32).abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"sharded f32 vs phase 4: {err}")
+        log(f"phase 10 sharded f32 L={L} 4 slots {N_STEPS} steps: max|d| vs "
+            f"phase 4={err:.3e} (<= 1e-5), flip launches/step "
+            f"{sum(counts.values()) / N_STEPS:.0f} ok")
+        out["pallas"] = N_STEPS / t_32
+        del state, re, im, d32, p32
+
+        # -- (b) a zero-coupling slot bit: its exchange is skipped -----------
+        g_bits = np.full(L, G_FIELD)
+        g_bits[5] = 0.0
+        order, g_perm = sf.weak_site_permutation(L, g_bits, 4)
+        step_w = sf.make_sharded_fused_cheby_step_dd(mesh, L, g_perm,
+                                                     f32_tail=tail, **kw)
+        if step_w.exchange_plan["skipped_zero_coupling_bits"] != 1:
+            raise AssertionError(f"weak-site plan {step_w.exchange_plan}")
+        got = step_w(sf.permute_index_bits(diag - beta, order),
+                     sf.permute_index_bits(psi0, order), c64)
+        got = sf.permute_index_bits(got, sf.invert_bit_order(order))
+        want = cheby_step_fused_dd(make_flip_plan(L, g_bits), diag - beta,
+                                   psi0, c64, f32_tail=tail, **kw)
+        err = float((got - want).abs().max())
+        if not err <= 1e-12:
+            raise AssertionError(f"weak-site step vs unsharded: {err}")
+        log(f"phase 10 weak-site slot bits {order[-2:]} (g[5] = 0): "
+            f"skipped_zero_coupling_bits=1, one step vs the unsharded dd "
+            f"step max|d|={err:.3e} (<= 1e-12) ok")
+        del got, want, dmb
+
+        # -- (c) banded20 over 4 slots ---------------------------------------
+        bw = ctx["wrk"]
+        pb, step_b, kind = sbd.make_sharded_dd_cheby_step(
+            mesh, ctx["banded"], 4, delta=bw.delta, e_min=bw.e_min,
+            dt=bw.dt, tile_rows=8)
+        if kind != "banded_pallas":
+            raise AssertionError(f"banded20 sharded kind {kind}")
+        cb = np.asarray(bw.coeffs, dtype=np.float64)
+        bs.reset_launches()
+        t0 = time.perf_counter()
+        state = shard_vector(mesh, ctx["psi0"])
+        for _ in range(N_STEPS):
+            state = step_b(pb, state, cb)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        n_banded = bs.LAUNCHES[BANDED]
+        want_n = 4 * N_STEPS * (len(cb) - 1)
+        if n_banded != want_n:
+            raise AssertionError(f"sharded banded launches {n_banded}, "
+                                 f"expected {want_n}")
+        err = float((state.reshape(-1) - ctx["psi_T"]).abs().max())
+        nerr = norm_err(state)
+        if not (err <= 1e-10 and nerr <= 1e-12):
+            raise AssertionError(f"sharded banded20 vs phase 7: {err}, "
+                                 f"norm {nerr}")
+        log(f"phase 10 sharded banded20 2^{N_BANDED.bit_length() - 1} 4 "
+            f"slots (R_local={pb.R_local}, "
+            f"kind={kind}) {N_STEPS} steps: max|d| vs phase 7={err:.3e} "
+            f"(<= 1e-10), |psum norm^2-1|={nerr:.2e}, launches={n_banded} "
+            f"= 4 x {N_STEPS} x ({len(cb)} - 1) ok")
+        out["banded20"] = N_STEPS / t_b
+        del state, pb
+
+        small_sharded_checks(mesh, device)
+        for tier, base in (("dd", rates["dd"][0]), ("pallas", rates["pallas"][0]),
+                           ("banded20", ctx["steps_s"])):
+            log(f"phase 10 time {tier}: sharded 4 slots {out[tier]:.3f} "
+                f"steps/s (the counted run), unsharded {base:.3f} steps/s "
+                f"(phase {dict(dd=6, pallas=6, banded20=7)[tier]}) [{card}]")
+        log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    return paths, n_banded
+
+
+def small_sharded_checks(mesh, device):
+    """Phase 10 (d): the chain step (L = 16, prepared site terms), the
+    CSR and BSR applies and the BSR dd step (2^14) on the card against
+    their unsharded counterparts."""
+    import scipy.sparse as sp
+
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops.cheby import cheby_apply, cheby_coeffs
+    from quantumpropagators_torch.ops.df64_sparse import (
+        bsr_dd_from_scipy, cheby_apply_dd_bsr)
+    from quantumpropagators_torch.parallel import sharded_bsr as sbsr
+    from quantumpropagators_torch.parallel import sharded_chain as sch
+    from quantumpropagators_torch.parallel import sharded_csr as scsr
+
+    errs = {}
+    H_diag, H_x = qt.transverse_field_ising(16, J=J, g=G_FIELD, h=H_FIELD,
+                                            dtype=torch.complex128,
+                                            device=device)
+    op = qt.Operator([H_diag, H_x], [1.0])
+    bound = (16 - 1) * J + 16 * (G_FIELD + H_FIELD)
+    coeffs = cheby_coeffs(2 * bound, DT)
+    psi = random_state(16, torch.complex128, device, SEED + 90)
+    op_sh = sch.prepare_sharded_operator(op, 4)
+    step = sch.make_sharded_cheby_step(mesh, op_sh, delta=2 * bound,
+                                       e_min=-bound, dt=DT)
+    errs["chain step L=16"] = (step(op_sh, psi, coeffs) - cheby_apply(
+        op, psi, coeffs, 2 * bound, -bound, DT)).abs().max()
+
+    rng = np.random.default_rng(SEED + 91)
+    N, w = 2 ** 14, 24
+    A = sp.diags([rng.standard_normal(N - abs(k)) for k in range(-w, w + 1)],
+                 list(range(-w, w + 1))).tocsr()
+    A = (0.5 * (A + A.T)).tocsr()
+    x = random_state(14, torch.complex128, device, SEED + 92)
+    want = qt.csr_from_scipy(A, device=device).apply(x)
+    scale = want.abs().max()
+    pa = scsr.partition_csr_rows(A, 4, device=device)
+    pc = scsr.partition_csr_banded(A, 4, device=device)
+    pb = sbsr.partition_bsr(A, 4, block_size=64, device=device)
+    errs["CSR all-gather apply (rel)"] = (scsr.make_allgather_csr_apply(
+        mesh, pa)(pa, x) - want).abs().max() / scale
+    errs["CSR banded apply (rel)"] = (scsr.make_banded_csr_apply(
+        mesh, pc)(pc, x) - want).abs().max() / scale
+    errs["BSR banded apply (rel)"] = (sbsr.make_banded_bsr_apply(
+        mesh, pb)(pb, x) - want).abs().max() / scale
+    bound = float(np.abs(A).sum(axis=1).max())
+    c = cheby_coeffs(2 * bound, DT)
+    pdd = sbsr.partition_bsr_dd(A, 4, block_size=64, device=device)
+    dstep = sbsr.make_sharded_bsr_cheby_step_dd(mesh, pdd, delta=2 * bound,
+                                                e_min=-bound, dt=DT)
+    ref = cheby_apply_dd_bsr(bsr_dd_from_scipy(A, 64, device=device), x, c,
+                             2 * bound, -bound, DT)
+    errs["BSR dd step"] = (dstep(pdd, x, c) - ref).abs().max()
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        tol = 1e-13 if "rel" in name else 1e-12
+        if not float(e) <= tol:
+            raise AssertionError(f"phase 10 {name}: {float(e)} > {tol}")
+    log("phase 10 small sharded checks on the card: " + ", ".join(
+        f"{name} {float(e):.3e}" for name, e in errs.items())
+        + " (<= 1e-13 rel / 1e-12) ok")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
@@ -941,7 +1192,7 @@ def main() -> int:
         f"(nvcc {_cuda.build_info['seconds']:.2f} s); ptxas: {regs}")
 
     errs = compare_kernels(device)
-    launches, rates, matvecs, chain = main_path(device, card)
+    launches, rates, matvecs, chain, finals = main_path(device, card)
     round_trip(device)
     times = time_kernels(device, card)
     for tier, (steps_s, gnnz) in rates.items():
@@ -952,27 +1203,34 @@ def main() -> int:
     torch.cuda.empty_cache()  # the 2^24 buffers go before the banded phase
     banded, ctx = banded_phase(device, card)
     trace_phase(*chain, card)
-    del chain
     # phase 9 reads each Krylov path's banded launches; phase 7's count
     # stays its own
     banded["launches_by_path"] = {"phase 7 cheby dd": banded["launches"]}
     for path, n in krylov_phase(device, card, ctx).items():
         banded["launches_by_path"][path] = n
         banded["launches"] += n
-    del ctx
     gc.collect()
     torch.cuda.empty_cache()
     small_configs(device, card)
+    flip_paths, n = sharded_phase(device, card, chain, finals, ctx, rates)
+    banded["launches_by_path"]["phase 10 sharded banded20"] = n
+    banded["launches"] += n
+    del chain, finals, ctx
 
     kernels = []
     for name in REPLACES:
         ms, plain_ms, bound_ms, bound_by = times[name]
+        by_path = {"phase 3 dd": launches["dd"][name],
+                   "phase 4 pallas": launches["pallas"][name],
+                   **{path: counts[name]
+                      for path, counts in flip_paths.items()}}
         entry = {
             "name": name,
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES[name],
-            "launches": launches["dd"][name] + launches["pallas"][name],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,

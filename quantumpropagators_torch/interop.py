@@ -1,8 +1,9 @@
 """Carrying objects between the JAX package and the port.
 
 :func:`from_jax` turns the JAX package's states, dense arrays, operators
-and generators, and its double-float values and operators (as float64
-or complex128 ``hi + lo``), into the port's, through numpy;
+and generators, its double-float values and operators (as float64
+or complex128 ``hi + lo``), and its sharded partitions (CSR, BSR,
+banded, and ``ShardedSiteSum``) into the port's, through numpy;
 :func:`to_numpy` is the way back for tensors.  Nothing here imports jax: objects are recognized
 by class name and attributes (``.diag``, ``.site_mats``, ``.L``,
 ``.active``, ``.ops``, ``.coeffs``, ``.amplitudes``), so the same code
@@ -28,6 +29,10 @@ from .ops.operators import (
     host_np,
     resolve_device,
 )
+from .parallel import sharded_csr
+from .parallel.sharded_banded import PartitionedBandedDD
+from .parallel.sharded_bsr import PartitionedBSR
+from .parallel.sharded_chain import ShardedSiteSum
 
 __all__ = ["from_jax", "to_numpy"]
 
@@ -112,6 +117,40 @@ def from_jax(obj, device=None):
             cols=_index(obj.cols, device),
             shape=tuple(int(n) for n in obj.shape),
             block_size=int(obj.block_size))
+    if name in ("PartitionedCSR", "BandedPartitionedCSR"):
+        extra = {"halo": int(obj.halo)} if hasattr(obj, "halo") else {}
+        return getattr(sharded_csr, name)(
+            data=_tensor(obj.data, device), col=_index(obj.col, device),
+            row=_index(obj.row, device), n_rows_local=int(obj.n_rows_local),
+            n_devices=int(obj.n_devices),
+            shape=tuple(int(n) for n in obj.shape), **extra)
+    if name in ("PartitionedBSR", "PartitionedBSRdd"):
+        blocks = (_f64(obj.blocks_hi) + _f64(obj.blocks_lo)
+                  if name == "PartitionedBSRdd" else obj.blocks)
+        return PartitionedBSR(
+            blocks=_tensor(blocks, device), cols=_index(obj.cols, device),
+            halo_blocks=int(obj.halo_blocks),
+            n_block_rows_local=int(obj.n_block_rows_local),
+            n_devices=int(obj.n_devices), block_size=int(obj.block_size),
+            shape=tuple(int(n) for n in obj.shape))
+    if name == "PartitionedBandedDD":
+        def f64(field):
+            return _tensor(_f64(getattr(obj, field + "_hi"))
+                           + _f64(getattr(obj, field + "_lo")), device)
+
+        return PartitionedBandedDD(
+            planes=f64("planes"), edge_left=f64("edge_left"),
+            edge_right=f64("edge_right"),
+            offsets=tuple(int(o) for o in obj.offsets),
+            R_local=int(obj.R_local), n_devices=int(obj.n_devices),
+            b=int(obj.b), wb=int(obj.wb), tile_rows=int(obj.tile_rows),
+            shape=tuple(int(n) for n in obj.shape),
+            logical_nnz=int(obj.logical_nnz))
+    if name == "ShardedSiteSum":
+        return ShardedSiteSum(
+            device_mats=_tensor(obj.device_mats, device),
+            local=from_jax(obj.local, device), p=int(obj.p), L=int(obj.L),
+            device_active=tuple(bool(a) for a in obj.device_active))
     if name == "DiagonalOperator":
         return DiagonalOperator(_tensor(obj.diag, device))
     if name == "SiteOperatorSum":

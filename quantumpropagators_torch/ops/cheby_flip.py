@@ -20,9 +20,14 @@ bits' partners lie too far apart for one sweep to find them in L2.
 
 Each takes complex128 states with float64 ``dmb``/``G`` (the
 reference-accuracy tier) or complex64 with float32 (the f32 tier).  A
-wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  :data:`LAUNCHES` counts kernel launches
-per instantiation (the plain versions do not count).
+state is a flat ``2^L`` vector or a ``(slots, 2^L)`` stack of
+independent ``2^L`` states (the shard slots of one process,
+:mod:`..parallel.mesh`); ``dmb`` and ``w`` hold as many entries as the
+state, and one ``G`` serves every slot.  On the card a stack is one
+launch per slot and pass.  A wrapper given CPU tensors runs the plain
+version; given CUDA tensors it launches the kernel or raises.
+:data:`LAUNCHES` counts kernel launches per instantiation (the plain
+versions do not count).
 """
 
 from __future__ import annotations
@@ -120,12 +125,15 @@ def _check(vectors, dmb, G) -> int:
     if v.dtype not in _TYPES:
         raise TypeError(f"state must be complex64 or complex128, got {v.dtype}")
     rdtype = _TYPES[v.dtype][2]
-    n = v.numel()
-    L = n.bit_length() - 1
-    if n != 1 << L or L < 1:
-        raise ValueError(f"state length must be 2^L, got {n}")
+    if v.dim() not in (1, 2):
+        raise ValueError(f"state must be a 2^L vector or a (slots, 2^L) "
+                         f"stack, got shape {tuple(v.shape)}")
+    L = v.shape[-1].bit_length() - 1
+    if v.shape[-1] != 1 << L or L < 1:
+        raise ValueError(f"state length must be 2^L, got {v.shape[-1]}")
     if L > MAX_BITS:
         raise ValueError(f"L = {L} > {MAX_BITS} is not supported")
+    n = v.numel()
     for x in vectors:
         if x.dtype != v.dtype or x.numel() != n or x.device != v.device:
             raise ValueError("state vectors must share dtype, length and device")
@@ -134,8 +142,8 @@ def _check(vectors, dmb, G) -> int:
     if dmb is not None and (dmb.dtype != rdtype or dmb.numel() != n
                             or dmb.device != v.device
                             or not dmb.is_contiguous()):
-        raise ValueError(f"dmb must be a contiguous {rdtype} vector of "
-                         f"length {n} on {v.device}")
+        raise ValueError(f"dmb must be a contiguous {rdtype} tensor of "
+                         f"{n} entries on {v.device}")
     if G.dtype != rdtype or tuple(G.shape) != (L,) or G.device != v.device \
             or not G.is_contiguous():
         raise ValueError(f"G must be a contiguous {rdtype} vector of shape "
@@ -159,7 +167,7 @@ def flip_sum_range_plain(v: torch.Tensor, G: torch.Tensor, lo: int,
 
 def _shifted_h(v, dmb, G, w):
     u = dmb.view(v.shape) * v + flip_sum_plain(v, G)
-    return u if w is None else u + w
+    return u if w is None else u + w.view(v.shape)
 
 
 def cheby_flip_first_plain(v0, dmb, G, s, a0, a1, w=None):
@@ -174,7 +182,7 @@ def cheby_flip_first_low_plain(v0, dmb, G, s, a0, a1, bits, w=None):
     L = _check([v0] + ([w] if w is not None else []), dmb, G)
     _check_bits(bits, 0, L)
     u = dmb.view(v0.shape) * v0 + flip_sum_range_plain(v0, G, 0, bits)
-    v1 = (1j * s) * (u if w is None else u + w)
+    v1 = (1j * s) * (u if w is None else u + w.view(v0.shape))
     return v1, a0 * v0 + a1 * v1
 
 
@@ -195,7 +203,7 @@ def cheby_flip_iter_low_plain(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
     L = _check([v0, v1, phi, out] + ([w] if w is not None else []), dmb, G)
     _check_bits(bits, 0, L)
     u = dmb.view(v1.shape) * v1 + flip_sum_range_plain(v1, G, 0, bits)
-    v2 = (1j * s2) * (u if w is None else u + w) + v0
+    v2 = (1j * s2) * (u if w is None else u + w.view(v1.shape)) + v0
     out.copy_(v2)
     phi.add_(v2, alpha=ak)
     return out
@@ -206,7 +214,7 @@ def cheby_flip_high_plain(v1, G, h, w=None):
     L = _check([v1] + ([w] if w is not None else []), None, G)
     _check_bits(h, 0, L)
     u = flip_sum_range_plain(v1, G, L - h, L)
-    return u if w is None else u + w
+    return u if w is None else u + w.view(v1.shape)
 
 
 def _check_bits(bits, lo, hi):
@@ -301,38 +309,53 @@ def _check_iter(v0, v1, phi, out, w, dmb, G) -> int:
     return L
 
 
+def _slots(L, *tensors):
+    """Per slot, the tuple of each tensor's ``2^L``-entry row (``None``
+    stays ``None``)."""
+    views = [None if t is None else t.view(-1, 1 << L) for t in tensors]
+    return [tuple(None if t is None else t[r] for t in views)
+            for r in range(views[0].shape[0])]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_first(v0, dmb, G, s, a0, a1, w, L, tile_bits, bits):
     ctype, suffix, _ = _TYPES[v0.dtype]
     v1 = torch.empty_like(v0)
     phi = torch.empty_like(v0)
-    _launch(
-        f"cheby_flip_first_{suffix}", f"cheby_flip_first<{ctype}>",
-        (v0.data_ptr(), v1.data_ptr(), phi.data_ptr(), dmb.data_ptr(),
-         G.data_ptr(), None if w is None else w.data_ptr(), L, v0.numel(),
-         tile_bits, bits, float(s), float(a0), float(a1)),
-        v0.device,
-    )
+    for x0, x1, p, d, wr in _slots(L, v0, v1, phi, dmb, w):
+        _launch(
+            f"cheby_flip_first_{suffix}", f"cheby_flip_first<{ctype}>",
+            (x0.data_ptr(), x1.data_ptr(), p.data_ptr(), d.data_ptr(),
+             G.data_ptr(), _ptr(wr), L, 1 << L, tile_bits, bits, float(s),
+             float(a0), float(a1)),
+            v0.device,
+        )
     return v1, phi
 
 
 def _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L, tile_bits, bits):
     ctype, suffix, _ = _TYPES[v0.dtype]
-    _launch(
-        f"cheby_flip_iter_{suffix}", f"cheby_flip_iter<{ctype}>",
-        (v0.data_ptr(), out.data_ptr(), v1.data_ptr(), phi.data_ptr(),
-         dmb.data_ptr(), G.data_ptr(), None if w is None else w.data_ptr(),
-         L, v0.numel(), tile_bits, bits, float(s2), float(ak)),
-        v0.device,
-    )
+    for x0, o, x1, p, d, wr in _slots(L, v0, out, v1, phi, dmb, w):
+        _launch(
+            f"cheby_flip_iter_{suffix}", f"cheby_flip_iter<{ctype}>",
+            (x0.data_ptr(), o.data_ptr(), x1.data_ptr(), p.data_ptr(),
+             d.data_ptr(), G.data_ptr(), _ptr(wr), L, 1 << L, tile_bits,
+             bits, float(s2), float(ak)),
+            v0.device,
+        )
 
 
 def _launch_high(v1, G, w, L, h):
     ctype, suffix, _ = _TYPES[v1.dtype]
     w_hi = torch.empty_like(v1)
-    _launch(
-        f"cheby_flip_high_{suffix}", f"cheby_flip_high<{ctype}>",
-        (v1.data_ptr(), G.data_ptr(), None if w is None else w.data_ptr(),
-         w_hi.data_ptr(), L, v1.numel(), h, _line_bits(L, h, v1.dtype)),
-        v1.device,
-    )
+    for x1, wr, o in _slots(L, v1, w, w_hi):
+        _launch(
+            f"cheby_flip_high_{suffix}", f"cheby_flip_high<{ctype}>",
+            (x1.data_ptr(), G.data_ptr(), _ptr(wr), o.data_ptr(), L,
+             1 << L, h, _line_bits(L, h, v1.dtype)),
+            v1.device,
+        )
     return w_hi

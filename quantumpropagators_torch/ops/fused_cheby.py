@@ -207,9 +207,9 @@ def flip_structure_multi(ops):
 def flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt, *,
                     forward: bool = True, w_fn=None):
     """One Chebyshev step ``exp(-i H dt)·psi`` for
-    ``H − β = diag(dmb) + Σ_j G_j X_j`` on a flat ``2^L`` complex state,
-    one :mod:`.cheby_flip` call per polynomial order.  ``psi`` is not
-    modified.
+    ``H − β = diag(dmb) + Σ_j G_j X_j`` on a flat ``2^L`` complex state
+    or a ``(slots, 2^L)`` stack of them, one :mod:`.cheby_flip` call per
+    polynomial order.  ``psi`` is not modified.
 
     ``w_fn(v) -> w`` (optional) adds ``w`` to ``(H−β)·v`` at every
     order: contributions computed outside the kernel.
@@ -248,25 +248,28 @@ def cheby_step_fused(
     ``H = diag + flip_scale·Σ g_j X_j`` on the planar state ``(re, im)``
     (the JAX package's public face); returns the new ``(re, im)``.
 
-    ``flip_scale`` is a scalar (float or 0-d tensor) or ``None`` (1);
-    ``extra_w_fn(vr, vi) -> (wr, wi)`` injects an additional
-    contribution to ``H·v`` computed outside the kernel, scaled by
-    ``flip_scale`` like the flips.
+    ``re``/``im``/``diag`` hold one ``2^plan.L`` state or a stack of
+    them (shard slots).  ``flip_scale`` is a scalar (float or 0-d
+    tensor) or ``None`` (1); ``extra_w_fn(vr, vi) -> (wr, wi)``, called
+    with ``re``'s shape, injects an additional contribution to ``H·v``
+    computed outside the kernel, scaled by ``flip_scale`` like the
+    flips.
     """
     shape = re.shape
-    psi = torch.complex(re, im).reshape(-1)
+    # one row per state: several rows are the shard slots of one process
+    psi = torch.complex(re, im).reshape(-1, 1 << plan.L)
     rdtype = re.dtype
     scale = torch.as_tensor(1.0 if flip_scale is None else flip_scale,
                             dtype=rdtype, device=re.device)
     G = torch.as_tensor(plan.gs, dtype=rdtype, device=re.device) * scale
     beta = float(delta) / 2.0 + float(e_min)
-    dmb = (diag.reshape(-1).to(rdtype) - beta).contiguous()
+    dmb = (diag.reshape(psi.shape).to(rdtype) - beta).contiguous()
     w_fn = None
     if extra_w_fn is not None:
         def w_fn(v):
             wr, wi = extra_w_fn(v.real.reshape(shape), v.imag.reshape(shape))
             return (scale * torch.complex(wr.to(rdtype), wi.to(rdtype))
-                    ).reshape(-1)
+                    ).reshape(v.shape)
     out = flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt,
                           forward=forward, w_fn=w_fn)
     return out.real.reshape(shape), out.imag.reshape(shape)

@@ -114,14 +114,16 @@ def cheby_step_fused_dd(
     """One reference-accuracy Chebyshev step ``exp(-i H dt)·state``,
     ``H = diag + Σ_j g_j·flip_scale_j·X_j``.
 
-    ``state`` is a flat complex128 ``2^L`` tensor (not modified);
+    ``state`` is a flat complex128 ``2^L`` tensor or a ``(slots, 2^L)``
+    stack of them, the shard slots of one process (not modified);
     ``dmb`` the float64 ``diag − β`` (β = Δ/2 + E_min); ``coeffs`` the
     float64 Chebyshev coefficients.  ``flip_scale`` is ``None``, a
     scalar, or a per-bit vector of length ``L + len(extra_gs)``.
 
     ``extra_nb_fn(v) -> [v_r, ...]`` (optional) delivers, for each extra
     bit ``r`` held outside this state (e.g. on another device), the
-    state with that bit flipped; it enters with coefficient
+    state with that bit flipped, in ``v``'s ``(slots, 2^L)`` shape; it
+    enters with coefficient
     ``extra_gs[r]·flip_scale[L+r]``.  ``extra_nb_hi_fn`` is its complex64
     companion for the f32 tail; without it the tail is disabled so that
     accuracy never silently degrades.
@@ -145,19 +147,19 @@ def cheby_step_fused_dd(
     G_extra = G_all[plan.L:]
     beta = float(delta) / 2.0 + float(e_min)
     s = (-1.0 if forward else 1.0) * 2.0 / float(delta)
-    dmb = dmb.reshape(-1).to(torch.float64).contiguous()
+    v0 = state.reshape(-1, 1 << plan.L)
+    dmb = dmb.reshape(v0.shape).to(torch.float64).contiguous()
 
     def extra_w(v, fn, g):
         if fn is None:
             return None
         w = None
         for gr, nb in zip(g, fn(v)):
-            term = gr * nb.reshape(-1)
+            term = gr * nb.reshape(v.shape)
             w = term if w is None else w + term
         return w
 
     k_dd_end = n_orders - f32_tail  # complex128 handles orders [0, k_dd_end)
-    v0 = state.reshape(-1)
     v1, phi = cheby_flip_first(v0, dmb, G, s, c64[0], c64[1],
                                extra_w(v0, extra_nb_fn, G_extra))
     for k in range(2, k_dd_end):
