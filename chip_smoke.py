@@ -23,10 +23,12 @@ method on two small configurations against host ``expm`` oracles.
 
 Phase 10 runs the sharded layer (``quantumpropagators_torch.parallel``)
 on four shard slots of the one card over a world-size-1 NCCL group: the
-L = 24 chain in both tiers against phases 3 and 4, one step with a
-zero-coupling slot bit, banded20 against phase 7 (band planes split on
-the card), and small chain, CSR and BSR checks; norms go through the
-mesh's ``psum``.
+L = 24 chain in both tiers against phases 3 and 4, with a trace of each,
+one step with a zero-coupling slot bit, banded20 against phase 7 (band
+planes split on the card), and small chain, CSR and BSR checks; norms go
+through the mesh's ``psum``.  Phase 2 holds the flip kernels on a
+4-slot stack as phase 10 launches them, and phase 10 holds the banded
+kernel on each slot's planes.
 
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
@@ -146,39 +148,54 @@ def kernel_inputs(L, ctype, device, seed):
     return v0, v1, phi, dmb, G, s
 
 
-def run_instantiation(name, inputs, plain: bool, h=None):
+def run_instantiation(name, inputs, plain: bool, h=None, w=None):
     """One call of ``name``'s wrapper (kernel or plain version) on copies
-    of ``inputs``; returns the output tensors.  The iteration's wrapper
-    runs both passes where its split has a high pass; the high pass takes
-    ``h`` bits (default: the split's own)."""
+    of ``inputs``, with ``w`` added to every product (the high pass:
+    ``w``, default ``v0``); returns the output tensors.  The iteration's
+    wrapper runs both passes where its split has a high pass; the high
+    pass takes ``h`` bits (default: the split's own)."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     v0, v1, phi, dmb, G, s = inputs
     kind = name.split("<")[0]
     if kind == "cheby_flip_first":
         fn = cf.cheby_flip_first_plain if plain else cf.cheby_flip_first
-        return fn(v0, dmb, G, s, 0.81, -0.45)
+        return fn(v0, dmb, G, s, 0.81, -0.45, w)
     if kind == "cheby_flip_high":
         fn = cf.cheby_flip_high_plain if plain else cf.cheby_flip_high
         if h is None:
             h = cf.flip_split(G.numel(), v1.dtype)[1]
-        return (fn(v1, G, h, v0),)
+        return (fn(v1, G, h, v0 if w is None else w),)
     fn = cf.cheby_flip_iter_plain if plain else cf.cheby_flip_iter
     v0c, phic = v0.clone(), phi.clone()
-    fn(v0c, v1, phic, dmb, G, 2.0 * s, 0.13)
+    fn(v0c, v1, phic, dmb, G, 2.0 * s, 0.13, w)
     return v0c, phic
+
+
+def slot_stack(inputs, slots=4):
+    """Phase 10's per-slot launches at L_MAIN: the L_MAIN ``inputs`` as a
+    ``(slots, 2^(L_MAIN − p))`` stack of slot states with the slot-local
+    flip coefficients, and a stack ``w`` standing in for the slot bits'
+    exchanged flips; returns ``(stack_inputs, w)``."""
+    v0, v1, phi, dmb, G, s = inputs
+    p = slots.bit_length() - 1
+    stack = tuple(x.view(slots, -1) for x in (v0, v1, phi, dmb))
+    w = torch.roll(v1, 1 << (L_MAIN - 1)).view(slots, -1)
+    return stack + (G[:L_MAIN - p].contiguous(), s), w
 
 
 def check_cases(name):
     """The ``(L, h)`` at which phase 2 holds ``name`` against its plain
     version (``h = None``: the split's own): every kernel at
-    ``flip_check_sizes``, L_CHECK and L_MAIN; the high pass at those of
-    them where it runs, and at L_MAIN for every h it takes."""
+    ``flip_check_sizes``, L_CHECK, L_MAIN − 2 (phase 10's slots) and
+    L_MAIN; the high pass at those of them where it runs, and at L_MAIN
+    for every h it takes."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     kind, ctype = name[:-1].split("<")
     cdtype = torch.complex64 if ctype == "float" else torch.complex128
-    sizes = sorted(set(cf.flip_check_sizes(cdtype)) | {L_CHECK, L_MAIN})
+    sizes = sorted(set(cf.flip_check_sizes(cdtype))
+                   | {L_CHECK, L_MAIN - 2, L_MAIN})
     if kind != "cheby_flip_high":
         return [(L, None) for L in sizes]
     cases = [(L, None) for L in sizes if cf.flip_split(L, cdtype)[1]]
@@ -189,7 +206,8 @@ def check_cases(name):
 def compare_kernels(device):
     """Phase 2: every instantiation against its plain version at the
     cases of :func:`check_cases`, the inputs of each size and type built
-    once; returns ``{name: max_abs_err}`` over all of them."""
+    once, and on :func:`slot_stack`'s 4-slot stack with a ``w``; returns
+    ``{name: max_abs_err}`` over all of them."""
     errs = {}
     for ctype in ("float", "double"):
         cases = {name: check_cases(name) for name in REPLACES
@@ -200,19 +218,27 @@ def compare_kernels(device):
                 for h in (h for L_, h in name_cases if L_ == L):
                     errs[name] = max(compare_case(name, ctype, inputs, L, h),
                                      errs.get(name, 0.0))
+            if L == L_MAIN:
+                stack, w = slot_stack(inputs)
+                for name in cases:
+                    errs[name] = max(compare_case(
+                        name, ctype, stack, L_MAIN - 2, None, w), errs[name])
+                del stack, w
             del inputs
         for name, name_cases in cases.items():
             where = ", ".join(f"{L}" if h is None else f"{L} (h={h})"
                               for L, h in name_cases)
-            log(f"phase 2 kernel-vs-plain {name}: ok at L = {where}, "
+            log(f"phase 2 kernel-vs-plain {name}: ok at L = {where} and "
+                f"on a 4 x 2^{L_MAIN - 2} slot stack with w, "
                 f"max|d| = {errs[name]:.3e}")
     return errs
 
 
-def compare_case(name, ctype, inputs, L, h):
-    """One case of phase 2; returns its max-abs error or raises."""
-    got = run_instantiation(name, inputs, plain=False, h=h)
-    want = run_instantiation(name, inputs, plain=True, h=h)
+def compare_case(name, ctype, inputs, L, h, w=None):
+    """One case of phase 2 (``w``: on a slot stack, with that ``w``);
+    returns its max-abs error or raises."""
+    got = run_instantiation(name, inputs, plain=False, h=h, w=w)
+    want = run_instantiation(name, inputs, plain=True, h=h, w=w)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     scale = max(float(b.abs().max()) for b in want)
@@ -222,13 +248,15 @@ def compare_case(name, ctype, inputs, L, h):
     else:
         ok = err <= 1e-5 * scale
         tol = "max|d| <= 1e-5 * max|ref|"
-    if (h is None and L in (L_CHECK, L_MAIN)) or not ok:
-        log(f"phase 2 kernel-vs-plain {name} L={L}: "
+    if (h is None and L in (L_CHECK, L_MAIN)) or w is not None or not ok:
+        where = f"L={L}" if w is None else f"4 x 2^{L} slot stack with w"
+        log(f"phase 2 kernel-vs-plain {name} {where}: "
             f"max|d|={err:.3e} max|ref|={scale:.3e} ({tol}) "
             f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain "
-                             f"version at L={L}, h={h}")
+                             f"version at L={L}, h={h}, stack "
+                             f"{w is not None}")
     return err
 
 
@@ -491,22 +519,15 @@ def time_kernels(device, card):
     return times
 
 
-def trace_phase(psi0, H, wrk, card, n_steps=5, top=8):
-    """Phase 8: one ``torch.profiler`` trace of ``n_steps`` dd steps of
-    the main path at L_MAIN, after one untraced run of the same steps.
-    Prints the device-busy share of the device's active window (first
-    kernel start to last kernel end), the device operations by time, and
-    the shares of the flip kernels and of PyTorch's elementwise
-    kernels."""
-    import quantumpropagators_torch as qt
+def trace_steps(run, label, n_steps, card, top=8):
+    """One ``torch.profiler`` trace of ``run()`` (``n_steps`` steps), after
+    one untraced call of it.  Prints the device-busy share of the
+    device's active window (first kernel start to last kernel end), the
+    device time a step of the flip kernels, of copies and of PyTorch's
+    elementwise kernels, and the device operations by time; returns the
+    device ms a step of the flip kernels and of everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    tlist = np.linspace(0.0, n_steps * DT, n_steps + 1)
-
-    def run():
-        return qt.propagate(psi0, H, tlist, method="cheby", fused=True,
-                            kernel="dd", workspace=wrk)
 
     run()
     torch.cuda.synchronize()
@@ -530,22 +551,43 @@ def trace_phase(psi0, H, wrk, card, n_steps=5, top=8):
     window = end - spans[0][0]
     kernel_sum = sum(t for t, _ in by_name.values())
 
-    def share(pred):
-        return 100 * sum(t for n, (t, _) in by_name.items()
-                         if pred(n)) / kernel_sum
+    def ms(pred):
+        return sum(t for n, (t, _) in by_name.items()
+                   if pred(n)) / 1e3 / n_steps
 
-    log(f"phase 8 trace dd L={L_MAIN} {n_steps} steps: wall "
-        f"{1e3 * wall / n_steps:.4f} ms/step, device window "
-        f"{window / 1e3 / n_steps:.4f} ms/step, busy {100 * busy / window:.2f} "
-        f"% of it ({len(spans)} device operations), flip kernels "
-        f"{share(lambda n: 'cheby_flip' in n):.2f} %, PyTorch elementwise "
-        f"{share(lambda n: 'elementwise' in n):.2f} % of device time "
-        f"[{card}]")
+    def is_copy(n):
+        return "opy" in n or "Memcpy" in n or "CatArray" in n
+
+    flip = ms(lambda n: "cheby_flip" in n)
+    other = kernel_sum / 1e3 / n_steps - flip
+    log(f"{label} {n_steps} steps: wall {1e3 * wall / n_steps:.4f} ms/step, "
+        f"device window {window / 1e3 / n_steps:.4f} ms/step, busy "
+        f"{100 * busy / window:.2f} % of it ({len(spans)} device "
+        f"operations); device ms/step: flip kernels {flip:.4f} "
+        f"({100 * flip / (flip + other):.2f} %), copies "
+        f"{ms(is_copy):.4f}, PyTorch elementwise "
+        f"{ms(lambda n: 'elementwise' in n and not is_copy(n)):.4f}, "
+        f"all else {other:.4f} [{card}]")
     for name, (t, count) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:top]:
-        log(f"phase 8 trace top: {t / 1e3 / n_steps:.4f} ms/step "
+        log(f"{label} top: {t / 1e3 / n_steps:.4f} ms/step "
             f"{100 * t / kernel_sum:.2f} % x{count // n_steps}/step "
             f"{name[:110]}")
+    return flip, other
+
+
+def trace_phase(psi0, H, wrk, card, n_steps=5, top=8):
+    """Phase 8: one trace of ``n_steps`` dd steps of the main path at
+    L_MAIN (:func:`trace_steps`)."""
+    import quantumpropagators_torch as qt
+
+    tlist = np.linspace(0.0, n_steps * DT, n_steps + 1)
+
+    def run():
+        return qt.propagate(psi0, H, tlist, method="cheby", fused=True,
+                            kernel="dd", workspace=wrk)
+
+    trace_steps(run, f"phase 8 trace dd L={L_MAIN}", n_steps, card, top)
 
 
 def banded20_operator(device):
@@ -941,9 +983,10 @@ def free_port() -> int:
 def sharded_phase(device, card, chain, finals, ctx, rates):
     """Phase 10: the sharded paths on four shard slots of this card, all
     in this process, over a world-size-1 NCCL group: the L = 24 chain in
-    both tiers against phases 3 and 4, one step with a zero-coupling
-    slot bit, banded20 against phase 7, and small checks of the chain,
-    CSR and BSR paths.  Norms go through the mesh's ``psum`` (NCCL
+    both tiers against phases 3 and 4 (then a trace of 3 steps of each),
+    one step with a zero-coupling slot bit, banded20 against phase 7
+    (after ``banded_spmv`` on each slot's planes against its plain
+    version), and small checks of the chain, CSR and BSR paths.  Norms go through the mesh's ``psum`` (NCCL
     ``all_reduce``).  Returns the flip launches of each counted path and
     the banded launches of the banded20 path."""
     import torch.distributed as dist
@@ -991,11 +1034,16 @@ def sharded_phase(device, card, chain, finals, ctx, rates):
         step_dd = sf.make_sharded_fused_cheby_step_dd(mesh, L, 1.0,
                                                       f32_tail=tail, **kw)
         dmb = shard_vector(mesh, diag - beta)
+
+        def run_dd(n=N_STEPS):
+            state = shard_vector(mesh, psi0)
+            for k in range(n):
+                state = step_dd(dmb, state, c64, flip_scale=Gbits[k])
+            return state
+
         cf.reset_launches()
         t0 = time.perf_counter()
-        state = shard_vector(mesh, psi0)
-        for k in range(N_STEPS):
-            state = step_dd(dmb, state, c64, flip_scale=Gbits[k])
+        state = run_dd()
         torch.cuda.synchronize()
         t_dd = time.perf_counter() - t0
         paths["phase 10 sharded dd"] = counts = dict(cf.LAUNCHES)
@@ -1013,8 +1061,10 @@ def sharded_phase(device, card, chain, finals, ctx, rates):
             f"phase 3={err:.3e} (<= 1e-12), |psum norm^2-1|={nerr:.2e}, "
             f"exchange {step_dd.exchange_plan}, flip launches/step "
             f"{flips:.0f} ok")
-        out["dd"] = N_STEPS / t_dd
+        out["dd"] = (N_STEPS / t_dd, N_STEPS / median_wall(run_dd)[1])
         del state
+        trace_steps(lambda: run_dd(3), f"phase 10 trace sharded dd L={L} 4 "
+                    f"slots", 3, card, top=6)
 
         # -- (b) f32 tier -----------------------------------------------------
         table = coeff_table(H, tlist)
@@ -1023,13 +1073,17 @@ def sharded_phase(device, card, chain, finals, ctx, rates):
         step_32 = sf.make_sharded_fused_cheby_step(mesh, L, G_FIELD, **kw)
         d32 = shard_vector(mesh, diag)
         p32 = psi0.to(torch.complex64)
+
+        def run_32(n=N_STEPS):
+            re = shard_vector(mesh, p32.real.contiguous())
+            im = shard_vector(mesh, p32.imag.contiguous())
+            for k in range(n):
+                re, im = step_32(d32, re, im, c64, flip_scale=table[k])
+            return torch.complex(re, im)
+
         cf.reset_launches()
         t0 = time.perf_counter()
-        re = shard_vector(mesh, p32.real.contiguous())
-        im = shard_vector(mesh, p32.imag.contiguous())
-        for k in range(N_STEPS):
-            re, im = step_32(d32, re, im, c64, flip_scale=table[k])
-        state = torch.complex(re, im)
+        state = run_32()
         torch.cuda.synchronize()
         t_32 = time.perf_counter() - t0
         paths["phase 10 sharded f32"] = counts = dict(cf.LAUNCHES)
@@ -1042,8 +1096,11 @@ def sharded_phase(device, card, chain, finals, ctx, rates):
         log(f"phase 10 sharded f32 L={L} 4 slots {N_STEPS} steps: max|d| vs "
             f"phase 4={err:.3e} (<= 1e-5), flip launches/step "
             f"{sum(counts.values()) / N_STEPS:.0f} ok")
-        out["pallas"] = N_STEPS / t_32
-        del state, re, im, d32, p32
+        out["pallas"] = (N_STEPS / t_32, N_STEPS / median_wall(run_32)[1])
+        del state
+        trace_steps(lambda: run_32(3), f"phase 10 trace sharded f32 L={L} 4 "
+                    f"slots", 3, card, top=6)
+        del d32, p32
 
         # -- (b) a zero-coupling slot bit: its exchange is skipped -----------
         g_bits = np.full(L, G_FIELD)
@@ -1073,12 +1130,18 @@ def sharded_phase(device, card, chain, finals, ctx, rates):
             dt=bw.dt, tile_rows=8)
         if kind != "banded_pallas":
             raise AssertionError(f"banded20 sharded kind {kind}")
+        err_b = slot_planes_check(pb, shard_vector(mesh, ctx["psi0"]))
         cb = np.asarray(bw.coeffs, dtype=np.float64)
+
+        def run_b():
+            state = shard_vector(mesh, ctx["psi0"])
+            for _ in range(N_STEPS):
+                state = step_b(pb, state, cb)
+            return state
+
         bs.reset_launches()
         t0 = time.perf_counter()
-        state = shard_vector(mesh, ctx["psi0"])
-        for _ in range(N_STEPS):
-            state = step_b(pb, state, cb)
+        state = run_b()
         torch.cuda.synchronize()
         t_b = time.perf_counter() - t0
         n_banded = bs.LAUNCHES[BANDED]
@@ -1096,19 +1159,43 @@ def sharded_phase(device, card, chain, finals, ctx, rates):
             f"kind={kind}) {N_STEPS} steps: max|d| vs phase 7={err:.3e} "
             f"(<= 1e-10), |psum norm^2-1|={nerr:.2e}, launches={n_banded} "
             f"= 4 x {N_STEPS} x ({len(cb)} - 1) ok")
-        out["banded20"] = N_STEPS / t_b
-        del state, pb
+        del state
+        out["banded20"] = (N_STEPS / t_b, N_STEPS / median_wall(run_b)[1])
+        del pb
 
         small_sharded_checks(mesh, device)
         for tier, base in (("dd", rates["dd"][0]), ("pallas", rates["pallas"][0]),
                            ("banded20", ctx["steps_s"])):
-            log(f"phase 10 time {tier}: sharded 4 slots {out[tier]:.3f} "
-                f"steps/s (the counted run), unsharded {base:.3f} steps/s "
-                f"(phase {dict(dd=6, pallas=6, banded20=7)[tier]}) [{card}]")
+            log(f"phase 10 time {tier}: sharded 4 slots {out[tier][0]:.3f} "
+                f"steps/s (the counted run), {out[tier][1]:.3f} steps/s "
+                f"(median of 3 timed runs after it), unsharded {base:.3f} "
+                f"steps/s (phase "
+                f"{dict(dd=6, pallas=6, banded20=7)[tier]}) [{card}]")
         log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
     finally:
         dist.destroy_process_group()
-    return paths, n_banded
+    return paths, n_banded, err_b
+
+
+def slot_planes_check(pb, x):
+    """Phase 10 (c): ``banded_spmv<double>`` in clamped mode on each
+    slot's partitioned planes (its cross-slot edge blocks zeroed) and
+    that slot's rows of ``x``, against the plain version; returns the
+    max-abs error or raises (relative error ``<= 1e-13``, as phase 7)."""
+    from quantumpropagators_torch.ops import banded_spmv as bs
+
+    err = rel = 0.0
+    for s in range(pb.n_devices):
+        got = bs.banded_spmv(pb.planes[s], pb.offsets, x[s])
+        want = bs.banded_spmv_plain(pb.planes[s], pb.offsets, x[s])
+        d = float((got - want).abs().max())
+        err, rel = max(err, d), max(rel, d / float(want.abs().max()))
+    if not rel <= 1e-13:
+        raise AssertionError(f"{BANDED} on the slot planes: rel {rel}")
+    log(f"phase 10 kernel-vs-plain {BANDED} on each of {pb.n_devices} slots' "
+        f"planes (R_local={pb.R_local}, edge blocks zeroed): max|d|={err:.3e} "
+        f"rel={rel:.3e} (rel <= 1e-13) ok")
+    return err
 
 
 def small_sharded_checks(mesh, device):
@@ -1212,9 +1299,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     small_configs(device, card)
-    flip_paths, n = sharded_phase(device, card, chain, finals, ctx, rates)
+    flip_paths, n, err_b = sharded_phase(device, card, chain, finals, ctx,
+                                         rates)
     banded["launches_by_path"]["phase 10 sharded banded20"] = n
     banded["launches"] += n
+    banded["max_abs_err"] = max(banded["max_abs_err"], err_b)
     del chain, finals, ctx
 
     kernels = []

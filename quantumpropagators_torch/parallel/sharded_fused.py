@@ -6,12 +6,13 @@ of a :class:`~.mesh.Mesh`, so the top ``p`` index bits select the slot.
 Each slot runs the flip kernels (:mod:`..ops.cheby_flip`) over its low
 ``L − p`` bits; a flip of a *slot bit* is the partner slot's whole
 block, delivered per polynomial order by :meth:`~.mesh.Mesh.ppermute`
-through the kernels' hooks: ``extra_w_fn`` of
-:func:`~..ops.fused_cheby.cheby_step_fused` (f32 tier) and
+as the ``w`` of each order: through ``w_fn`` of
+:func:`~..ops.fused_cheby.flip_cheby_step` (f32 tier) and
 ``extra_nb_fn``/``extra_nb_hi_fn``/``extra_gs`` of
 :func:`~..ops.fused_cheby_dd.cheby_step_fused_dd` (reference tier,
-complex128).  The Chebyshev recurrence needs no reduction, so a step is
-exchanges plus kernel launches, one per slot and pass.
+complex128), one complex exchange per coupled slot bit.  The
+Chebyshev recurrence needs no reduction, so a step is exchanges plus
+kernel launches, one per slot and pass.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.cheby import cheby_coeffs
-from ..ops.fused_cheby import cheby_step_fused, make_flip_plan
+from ..ops.fused_cheby import flip_cheby_step, make_flip_plan
 from ..ops.fused_cheby_dd import (
     cheby_step_fused_dd,
     dd_tile_rows,
@@ -103,20 +104,17 @@ def _flip_perm(mesh: Mesh, j: int):
     return [(i, i ^ (1 << j)) for i in range(mesh.n_devices)]
 
 
-def _device_flip_w(mesh: Mesh, device_gs):
-    """``extra_w_fn`` adding the slot-bit flip contributions:
-    ``W += Σ_j g_j · slot(i XOR 2^j)``, one exchange per coupled bit."""
+def _live_bits(device_gs) -> tuple:
+    """The slot bits with nonzero coupling: only they are exchanged."""
+    return tuple(j for j, gj in enumerate(device_gs) if gj != 0.0)
 
-    def fn(vr, vi):
-        wr = torch.zeros_like(vr)
-        wi = torch.zeros_like(vi)
-        for j, gj in enumerate(device_gs):
-            if gj == 0.0:
-                continue  # zero-coupling slot bit: no exchange
-            perm = _flip_perm(mesh, j)
-            wr = wr + gj * mesh.ppermute(vr, perm)
-            wi = wi + gj * mesh.ppermute(vi, perm)
-        return wr, wi
+
+def _slot_neighbours(mesh: Mesh, live):
+    """``v -> [slot(i XOR 2^j) of v for j in live]``: one exchange of the
+    complex stack per coupled slot bit."""
+
+    def fn(v):
+        return [mesh.ppermute(v, _flip_perm(mesh, j)) for j in live]
 
     return fn
 
@@ -141,22 +139,38 @@ def make_sharded_fused_cheby_step(
     rank's ``(n_local, 2^(L−p))`` slots, or with one rank the whole
     ``(2^L,)`` vector) and ``coeffs`` the Chebyshev coefficients; the
     outputs keep ``re``'s shape.  ``flip_scale`` scales every flip,
-    slot bits included.  ``interpret`` and ``axis_name`` are accepted for
-    parity with the JAX package and ignored.
+    slot bits included; slot bits with zero coupling skip their
+    exchange.  ``interpret`` and ``axis_name`` are accepted for parity
+    with the JAX package and ignored.
     """
     del interpret, axis_name
     plan_local, device_gs = sharded_flip_plan(
         L, g, mesh.n_devices, tile_rows=tile_rows
     )
-    extra = _device_flip_w(mesh, device_gs)
+    live = _live_bits(device_gs)
+    neighbours = _slot_neighbours(mesh, live)
+    beta = float(delta) / 2.0 + float(e_min)
 
     def step(diag, re, im, coeffs, flip_scale=1.0):
-        out_r, out_i = cheby_step_fused(
-            plan_local, mesh.local(diag), mesh.local(re), mesh.local(im),
-            coeffs, delta, e_min, dt, flip_scale=flip_scale,
-            forward=forward, extra_w_fn=extra,
-        )
-        return out_r.reshape(re.shape), out_i.reshape(im.shape)
+        rdtype = re.dtype
+        scale = torch.as_tensor(flip_scale, dtype=rdtype, device=re.device)
+        G = torch.as_tensor(plan_local.gs, dtype=rdtype,
+                            device=re.device) * scale
+        gs = [device_gs[j] * scale for j in live]
+
+        def w_fn(v):
+            # the exchanged rows are fresh copies: scale and sum in place
+            nbs = neighbours(v)
+            w = nbs[0].mul_(gs[0])
+            for gj, nb in zip(gs[1:], nbs[1:]):
+                w.add_(nb.mul_(gj))
+            return w
+
+        psi = mesh.local(torch.complex(re, im))
+        dmb = (mesh.local(diag).to(rdtype) - beta).contiguous()
+        out = flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt,
+                              forward=forward, w_fn=w_fn if live else None)
+        return out.real.reshape(re.shape), out.imag.reshape(im.shape)
 
     return step
 
@@ -200,16 +214,13 @@ def make_sharded_fused_cheby_step_dd(
     """
     del interpret, axis_name
     p = device_bits(mesh.n_devices)
-    gs = np.broadcast_to(np.asarray(g, dtype=np.float64), (L,))
     L_local = L - p
-    plan_local = make_flip_plan(L_local, gs[:L_local],
-                                tile_rows=tile_rows or dd_tile_rows(L_local))
-    device_gs = tuple(float(v) for v in gs[L_local:])
-    live = tuple(j for j, gj in enumerate(device_gs) if gj != 0.0)
+    plan_local, device_gs = sharded_flip_plan(
+        L, g, mesh.n_devices, tile_rows=tile_rows or dd_tile_rows(L_local)
+    )
+    live = _live_bits(device_gs)
     live_gs = tuple(device_gs[j] for j in live)
-
-    def extra_nb(v):
-        return [mesh.ppermute(v, _flip_perm(mesh, j)) for j in live]
+    extra_nb = _slot_neighbours(mesh, live)
 
     if f32_tail == "auto":
         tail = f32_tail_orders(cheby_coeffs(delta, dt))

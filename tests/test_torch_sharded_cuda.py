@@ -69,6 +69,36 @@ def test_sharded_dd_step_on_card_matches_cpu(cuda):
     assert float((out["cpu"] - out[str(cuda)]).abs().max()) < 1e-12
 
 
+def test_sharded_f32_step_on_card_matches_cpu(cuda):
+    """One complex64 step under a flip scale, 4 slots of 2^18, one slot
+    bit coupled and one not: one exchange per product, and the card
+    agrees with the CPU to 1e-5 of the largest amplitude."""
+    L = 20
+    g = np.full(L, 1.2)
+    g[L - 2] = 0.0  # slot bit 0 uncoupled
+    H_diag, _ = qt.transverse_field_ising(L, J=1.0, g=1.2, h=0.3,
+                                          dtype=torch.float64, device="cpu")
+    bound = (L - 1) + 0.3 * L + 1.2 * L
+    e_min, delta, dt = -bound, 2 * bound, 0.05
+    coeffs = cheby_coeffs(delta, dt)
+    diag = H_diag.diag.to(torch.float32)
+    psi = _state(2 ** L, 15).to(torch.complex64)
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = chain_mesh(4, device=dev)
+        step = sf.make_sharded_fused_cheby_step(
+            mesh, L, g, delta=delta, e_min=e_min, dt=dt)
+        cf.reset_launches()
+        re, im = step(diag.to(dev), psi.real.contiguous().to(dev),
+                      psi.imag.contiguous().to(dev), coeffs, 0.8)
+        out[str(dev)] = torch.complex(re, im).cpu()
+    assert cf.LAUNCHES["cheby_flip_first<float>"] == 4
+    assert cf.LAUNCHES["cheby_flip_iter<float>"] == 4 * (len(coeffs) - 2)
+    want = out["cpu"]
+    err = float((out[str(cuda)] - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())
+
+
 def test_sharded_banded_step_on_card_matches_cpu(cuda):
     """Random band planes (offsets -1, 0, 1; b = 128, R = 512) over 4
     slots: the clamped kernel per slot plus the edge correction."""

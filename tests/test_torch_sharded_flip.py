@@ -230,6 +230,34 @@ def test_weak_site_device_bits_skip_exchange():
     assert np.abs(z - want).max() < 1e-12
 
 
+def test_sharded_fused_step_skips_zero_coupling_bits():
+    """The f32-tier step (float64 arrays) with one coupled and two
+    zero-coupling slot bits: one exchange of the complex stack per
+    product, and the result matches the f64 oracle under a flip
+    scale."""
+    Lb = 13
+    rng = np.random.default_rng(33)
+    g_bits = rng.uniform(0.8, 1.5, size=Lb)
+    g_bits[[10, 12]] = 0.0
+    diag64 = rng.normal(size=1 << Lb)
+    bound = float(np.abs(diag64).max() + np.abs(g_bits).sum())
+    e_min, delta = -bound, 2 * bound
+    psi = rng.standard_normal(1 << Lb) + 1j * rng.standard_normal(1 << Lb)
+    psi /= np.linalg.norm(psi)
+
+    mesh = chain_mesh(8, device="cpu")
+    rec = _RecordingMesh(mesh)
+    step = sf.make_sharded_fused_cheby_step(
+        mesh, Lb, g_bits, delta=delta, e_min=e_min, dt=DT, tile_rows=8)
+    coeffs = cheby_coeffs(delta, DT)
+    r, i = step(torch.as_tensor(diag64), torch.as_tensor(psi.real),
+                torch.as_tensor(psi.imag), coeffs, FS)
+    assert rec.seen == [torch.complex128] * (len(coeffs) - 1)
+    want = _np_cheby_oracle(diag64, FS * g_bits, Lb, psi, coeffs, delta,
+                            e_min, DT)
+    assert np.abs(r.numpy() + 1j * i.numpy() - want).max() < 1e-12
+
+
 @pytest.mark.parametrize("slots", SLOTS)
 def test_sharded_fused_backward_roundtrip(problem, slots):
     diag, psi_np, e_min, delta = problem

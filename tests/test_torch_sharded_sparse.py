@@ -4,9 +4,11 @@
 and 8 shard slots in one process.
 
 The JAX package's sharded applies and steps run once per module on its
-8-device mesh; its banded Pallas path (one interpret-mode call takes
-25-140 s here) is held by its partition layout and by the dense oracles
-its own tests use."""
+8-device mesh, the BSR dd step on the double-float planes its tests
+use.  Its banded Pallas step (one interpret-mode call takes 25-140 s
+here) is held by its partition layout, by the JAX package's unsharded
+``cheby_apply`` on the same operator and by the dense oracle its own
+tests use."""
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,7 @@ from jax.sharding import PartitionSpec as P
 import quantumpropagators as qp
 import quantumpropagators_torch as qt
 from quantumpropagators.models.lattice import transverse_field_ising
+from quantumpropagators.ops.cheby import cheby_apply as jax_cheby_apply
 from quantumpropagators.ops.cheby import cheby_coeffs
 from quantumpropagators.parallel import mesh as jax_mesh
 from quantumpropagators.parallel import sharded_banded as jax_sbd
@@ -50,6 +53,12 @@ def _state(rng, n):
 
 def _rel(got, want):
     return np.abs(np.asarray(got) - want).max() / np.abs(want).max()
+
+
+def _dd_split(x64):
+    """The JAX double-float pair ``(hi, lo)`` of float32 planes."""
+    hi = np.asarray(x64, np.float64).astype(np.float32)
+    return hi, (x64 - hi.astype(np.float64)).astype(np.float32)
 
 
 def random_banded(N, w, rng, density=0.6):
@@ -212,6 +221,12 @@ def bsr():
     pdd = jax_sbsr.partition_bsr_dd(Ar, 8, block_size=b)
     step = jax_sbsr.make_sharded_bsr_cheby_step(
         mesh, pb, delta=delta, e_min=e_min, dt=DT)
+    step_dd = jax_sbsr.make_sharded_bsr_cheby_step_dd(
+        mesh, pdd, delta=delta, e_min=e_min, dt=DT)
+    state4 = tuple(jax_mesh.shard_vector(mesh, jnp.asarray(p)) for p in
+                   (*_dd_split(psi.real), *_dd_split(psi.imag)))
+    rh, rl, ih, il = (np.asarray(p, np.float64) for p in step_dd(
+        pdd, state4, *(jnp.asarray(c) for c in _dd_split(coeffs))))
     return dict(
         A=A, Ar=Ar, far=far, psi=psi, b=b, e_min=e_min, delta=delta,
         coeffs=coeffs, jax_pb=pb, jax_pdd=pdd,
@@ -219,6 +234,7 @@ def bsr():
         allgather=np.asarray(jax_sbsr.make_allgather_bsr_apply(
             mesh, pg)(pg, sv)),
         step=np.asarray(step(pb, sv, jnp.asarray(coeffs))),
+        step_dd=(rh + rl) + 1j * (ih + il),
     )
 
 
@@ -249,8 +265,9 @@ def test_bsr_applies_and_step_match_jax(bsr, slots):
 @pytest.mark.parametrize("slots", SLOTS)
 def test_bsr_dd_apply_and_step(bsr, slots):
     """Float64 blocks, complex128 state: the apply against the f64
-    matvec, the step against ``expm``; the partition against the JAX
-    double-float one carried over."""
+    matvec, the step against the JAX package's sharded double-float
+    step and ``expm``; the partition against the JAX double-float one
+    carried over."""
     mesh = _mesh(slots)
     Ar, b = bsr["Ar"], bsr["b"]
     pdd = sbsr.partition_bsr_dd(Ar, slots, block_size=b)
@@ -265,6 +282,7 @@ def test_bsr_dd_apply_and_step(bsr, slots):
     step = sbsr.make_sharded_bsr_cheby_step_dd(
         mesh, pdd, delta=bsr["delta"], e_min=bsr["e_min"], dt=DT)
     got = step(pdd, x, bsr["coeffs"]).numpy()
+    assert np.abs(got - bsr["step_dd"]).max() < 1e-12
     want = scipy.linalg.expm(-1j * DT * Ar.toarray()) @ bsr["psi"]
     assert np.abs(got - want).max() < 1e-12
 
@@ -283,11 +301,18 @@ def banded():
     ).tocsr()
     A = (0.5 * (A + A.T)).tocsr()
     bound = float(np.abs(A).sum(axis=1).max())
-    return A, N, rng, -bound, 2 * bound
+    e_min, delta = -bound, 2 * bound
+    psi = _state(np.random.default_rng(18), N)
+    # the JAX package's unsharded step on the same operator
+    want = np.asarray(jax_cheby_apply(
+        qp.csr_from_scipy(A.astype(complex)), jnp.asarray(psi),
+        jnp.asarray(cheby_coeffs(delta, 0.05)), delta, e_min, 0.05))
+    return dict(A=A, N=N, rng=rng, e_min=e_min, delta=delta, psi=psi,
+                step=want)
 
 
 def test_partition_banded_layout_matches_jax(banded):
-    A, N, rng, _, _ = banded
+    A = banded["A"]
     pb = sbd.partition_banded_dd(A, 8, tile_rows=2, block=8)
     jpb = jax_sbd.partition_banded_dd(A, 8, tile_rows=2, block=8)
     assert pb.offsets == jpb.offsets == (-2, -1, 0, 1, 2)
@@ -308,7 +333,7 @@ def test_sharded_banded_apply_at_shard_edges(banded, slots):
     """A random state and one living only on the block rows beside the
     slot edges: the clamped kernel on each slot's zeroed edge blocks
     plus the edge correction give ``A·x``."""
-    A, N, rng, _, _ = banded
+    A, N, rng = banded["A"], banded["N"], banded["rng"]
     mesh = _mesh(slots)
     pb = sbd.partition_banded_dd(A, slots, tile_rows=2, block=8)
     edge = np.zeros(N)
@@ -329,17 +354,19 @@ def test_sharded_banded_apply_at_shard_edges(banded, slots):
 @pytest.mark.parametrize("slots", SLOTS)
 def test_sharded_banded_step_and_factory(banded, slots):
     """The factory picks the banded path for the banded operator (its
-    step against ``expm`` to 1e-12) and falls back to the blocked-ELL
-    chain when a far coupling breaks the band."""
-    A, N, rng, e_min, delta = banded
+    step against the JAX package's ``cheby_apply`` and ``expm`` to
+    1e-12) and falls back to the blocked-ELL chain when a far coupling
+    breaks the band."""
+    A, N, psi = banded["A"], banded["N"], banded["psi"]
+    e_min, delta = banded["e_min"], banded["delta"]
     mesh = _mesh(slots)
     coeffs = cheby_coeffs(delta, 0.05)
-    psi = _state(rng, N)
     kw = dict(delta=delta, e_min=e_min, dt=0.05, tile_rows=2, block_size=8)
     pb, step, kind = sbd.make_sharded_dd_cheby_step(mesh, A, slots, **kw)
     assert kind == "banded_pallas"
     assert isinstance(pb, sbd.PartitionedBandedDD)
     got = step(pb, torch.as_tensor(psi), coeffs).numpy()
+    assert np.abs(got - banded["step"]).max() < 1e-12
     want = scipy.linalg.expm(-0.05j * A.toarray()) @ psi
     assert np.abs(got - want).max() < 1e-12
     far = A.tolil()
