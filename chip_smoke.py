@@ -30,6 +30,17 @@ through the mesh's ``psum``.  Phase 2 holds the flip kernels on a
 4-slot stack as phase 10 launches them, and phase 10 holds the banded
 kernel on each slot's planes.
 
+Phase 11 runs the Krylov methods on a sharded state over the same
+group: phase 7's banded20 operator partitioned into 4 slots
+(``partition_bsr`` in halo mode) behind ``DistributedBSR``, so that
+``specrange``, ``newton`` and ``expv`` reduce over the mesh's ``psum``;
+it holds them against the unsharded ``specrange`` and phase 7's
+Chebyshev result, runs ``check_propagator`` on a sharded Newton
+propagator and on every registered method at the N = 1024 sparse
+Hermitian, and traces one sharded Newton step (slab matvec, CGS2 and
+halo exchange).  Its slab matvec is the plain ``torch.einsum``, as the
+JAX class's is, so it launches none of the kernels.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -47,6 +58,7 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -519,26 +531,50 @@ def time_kernels(device, card):
     return times
 
 
-def trace_steps(run, label, n_steps, card, top=8):
+def trace_steps(run, label, n_steps, card, top=8, regions=None):
     """One ``torch.profiler`` trace of ``run()`` (``n_steps`` steps), after
     one untraced call of it.  Prints the device-busy share of the
     device's active window (first kernel start to last kernel end), the
     device time a step of the flip kernels, of copies and of PyTorch's
     elementwise kernels, and the device operations by time; returns the
-    device ms a step of the flip kernels and of everything else."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    device ms a step of the flip kernels and of everything else.
 
+    ``regions`` maps a name to the ``(object, attribute)`` functions
+    whose calls count under it: they are wrapped in
+    ``torch.profiler.record_function(name)`` for the traced call, and
+    the device time of the kernels launched inside each region is
+    printed a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    regions = regions or {}
+    saved = []
+    for name, targets in regions.items():
+        for obj, attr in targets:
+            fn = getattr(obj, attr)
+
+            def wrapped(*args, _fn=fn, _name=name, **kwargs):
+                with record_function(_name):
+                    return _fn(*args, **kwargs)
+
+            saved.append((obj, attr, fn))
+            setattr(obj, attr, wrapped)
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    # a region also shows as a device-side annotation span: not a kernel
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name not in regions)
     if not spans:
         raise AssertionError("the trace holds no device operation")
     busy, end = 0.0, spans[0][0]
@@ -568,6 +604,21 @@ def trace_steps(run, label, n_steps, card, top=8):
         f"{ms(is_copy):.4f}, PyTorch elementwise "
         f"{ms(lambda n: 'elementwise' in n and not is_copy(n)):.4f}, "
         f"all else {other:.4f} [{card}]")
+    if regions:
+        # kernels of the CPU events of each region (children included);
+        # a region nested in another counts in both
+        got = {name: 0.0 for name in regions}
+        for e in prof.events():
+            if e.name in got and e.device_type == DeviceType.CPU:
+                got[e.name] += e.device_time_total
+        rest = kernel_sum - sum(got.values())
+        log(f"{label} device ms/step by region: " + ", ".join(
+            f"{name} {t / 1e3 / n_steps:.4f} ({100 * t / kernel_sum:.2f} %)"
+            for name, t in got.items())
+            + f", the rest {rest / 1e3 / n_steps:.4f} "
+            f"({100 * rest / kernel_sum:.2f} %) [{card}]")
+        if not any(got.values()):
+            raise AssertionError("the trace gives no region device time")
     for name, (t, count) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][0])[:top]:
         log(f"{label} top: {t / 1e3 / n_steps:.4f} ms/step "
@@ -792,7 +843,8 @@ def krylov_phase(device, card, ctx):
     Chebyshev result, its norm, its backward round trip and three steps
     with the plain product on the card; then 5 steps each of ``newton``
     and ``expv`` at ``precision="dd"`` against 5 Chebyshev steps.
-    Returns each path's banded launches."""
+    Returns each path's banded launches and each method's (steps,
+    seconds)."""
     import quantumpropagators_torch as qt
     from quantumpropagators_torch.ops import banded_spmv as bs
     from quantumpropagators_torch.ops.newton_leja import newton_leja_plan
@@ -891,7 +943,7 @@ def krylov_phase(device, card, ctx):
             + list(rates.items()):
         log(f"phase 9 time {method} banded20 2^{L}: {steps / t:.3f} steps/s, "
             f"{1e3 * t / steps:.3f} ms/step [{card}]")
-    return launches
+    return launches, rates
 
 
 def small_configs(device, card):
@@ -899,7 +951,8 @@ def small_configs(device, card):
     registered method on the N = 1024 sparse Hermitian of
     ``bench.py:330-342`` (spectral radius 10, dt = 0.5, 20 steps), and
     fixed-Leja Newton on the N = 10 driven transmon ladder of
-    ``bench.py:142-290`` (100 steps)."""
+    ``bench.py:142-290`` (100 steps).  Returns the sparse Hermitian's
+    operator and state on the card."""
     import scipy.linalg
     import scipy.sparse as sp
     from scipy.sparse.linalg import eigsh
@@ -970,6 +1023,7 @@ def small_configs(device, card):
         raise AssertionError(f"transmon newton_leja vs expm: {err}")
     log(f"phase 9 transmon N={N} newton_leja 100 steps: max|d| vs expm="
         f"{err:.3e} (<= 1e-11), {100 / t:.3f} steps/s [{card}]")
+    return op, psi
 
 
 def free_port() -> int:
@@ -980,17 +1034,16 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def sharded_phase(device, card, chain, finals, ctx, rates):
+def sharded_phase(device, card, chain, finals, ctx, rates, group):
     """Phase 10: the sharded paths on four shard slots of this card, all
-    in this process, over a world-size-1 NCCL group: the L = 24 chain in
-    both tiers against phases 3 and 4 (then a trace of 3 steps of each),
-    one step with a zero-coupling slot bit, banded20 against phase 7
-    (after ``banded_spmv`` on each slot's planes against its plain
-    version), and small checks of the chain, CSR and BSR paths.  Norms go through the mesh's ``psum`` (NCCL
-    ``all_reduce``).  Returns the flip launches of each counted path and
-    the banded launches of the banded20 path."""
-    import torch.distributed as dist
-
+    in this process, over the world-size-1 NCCL ``group``: the L = 24
+    chain in both tiers against phases 3 and 4 (then a trace of 3 steps
+    of each), one step with a zero-coupling slot bit, banded20 against
+    phase 7 (after ``banded_spmv`` on each slot's planes against its
+    plain version), and small checks of the chain, CSR and BSR paths.
+    Norms go through the mesh's ``psum`` (NCCL ``all_reduce``).  Returns
+    the flip launches of each counted path and the banded launches of
+    the banded20 path."""
     from quantumpropagators_torch.models.generators import (
         coeff_table, coeff_table_np)
     from quantumpropagators_torch.ops import banded_spmv as bs
@@ -1000,180 +1053,172 @@ def sharded_phase(device, card, chain, finals, ctx, rates):
         cheby_step_fused_dd, f32_tail_orders)
     from quantumpropagators_torch.parallel import sharded_banded as sbd
     from quantumpropagators_torch.parallel import sharded_fused as sf
-    from quantumpropagators_torch.parallel.distributed import \
-        initialize_multihost
     from quantumpropagators_torch.parallel.mesh import chain_mesh, \
         shard_vector
 
     t_phase = time.perf_counter()
-    group = initialize_multihost(f"localhost:{free_port()}", 1, 0)
-    try:
-        if dist.get_backend() != "nccl":
-            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
-        mesh = chain_mesh(4, group=group, device=device)
+    mesh = chain_mesh(4, group=group, device=device)
 
-        def norm_err(x):
-            return abs(float(mesh.psum((x.abs() ** 2).sum(-1))) - 1.0)
+    def norm_err(x):
+        return abs(float(mesh.psum((x.abs() ** 2).sum(-1))) - 1.0)
 
-        psi0, H, wrk = chain
-        psi_dd, psi_32 = finals
-        L = L_MAIN
-        tlist = np.linspace(0.0, N_STEPS * DT, N_STEPS + 1)
-        diag = H.ops[0].diag.real.to(torch.float64)
-        beta = wrk.delta / 2.0 + wrk.e_min
-        c64 = np.asarray(wrk.coeffs, dtype=np.float64)
-        tail = f32_tail_orders(c64)
-        # the dd main path's per-step, per-bit flip table (fused._dd_path)
-        drive = np.asarray(coeff_table_np(H, tlist))[:, 0]
-        Gbits = torch.as_tensor(np.outer(drive, np.full(L, G_FIELD)),
-                                device=device)
-        kw = dict(delta=wrk.delta, e_min=wrk.e_min, dt=wrk.dt)
-        paths, out = {}, {}
+    psi0, H, wrk = chain
+    psi_dd, psi_32 = finals
+    L = L_MAIN
+    tlist = np.linspace(0.0, N_STEPS * DT, N_STEPS + 1)
+    diag = H.ops[0].diag.real.to(torch.float64)
+    beta = wrk.delta / 2.0 + wrk.e_min
+    c64 = np.asarray(wrk.coeffs, dtype=np.float64)
+    tail = f32_tail_orders(c64)
+    # the dd main path's per-step, per-bit flip table (fused._dd_path)
+    drive = np.asarray(coeff_table_np(H, tlist))[:, 0]
+    Gbits = torch.as_tensor(np.outer(drive, np.full(L, G_FIELD)),
+                            device=device)
+    kw = dict(delta=wrk.delta, e_min=wrk.e_min, dt=wrk.dt)
+    paths, out = {}, {}
 
-        # -- (b) TFIM L = 24 over 4 slots, reference tier -------------------
-        step_dd = sf.make_sharded_fused_cheby_step_dd(mesh, L, 1.0,
-                                                      f32_tail=tail, **kw)
-        dmb = shard_vector(mesh, diag - beta)
+    # -- (b) TFIM L = 24 over 4 slots, reference tier -------------------
+    step_dd = sf.make_sharded_fused_cheby_step_dd(mesh, L, 1.0,
+                                                  f32_tail=tail, **kw)
+    dmb = shard_vector(mesh, diag - beta)
 
-        def run_dd(n=N_STEPS):
-            state = shard_vector(mesh, psi0)
-            for k in range(n):
-                state = step_dd(dmb, state, c64, flip_scale=Gbits[k])
-            return state
+    def run_dd(n=N_STEPS):
+        state = shard_vector(mesh, psi0)
+        for k in range(n):
+            state = step_dd(dmb, state, c64, flip_scale=Gbits[k])
+        return state
 
-        cf.reset_launches()
-        t0 = time.perf_counter()
-        state = run_dd()
-        torch.cuda.synchronize()
-        t_dd = time.perf_counter() - t0
-        paths["phase 10 sharded dd"] = counts = dict(cf.LAUNCHES)
-        if not all(counts[k] > 0 for k in (
-                "cheby_flip_first<double>", "cheby_flip_iter<double>",
-                "cheby_flip_high<double>", "cheby_flip_iter<float>",
-                "cheby_flip_high<float>")):
-            raise AssertionError(f"sharded dd launches: {counts}")
-        err = float((state.reshape(-1) - psi_dd).abs().max())
-        nerr = norm_err(state)
-        if not (err <= 1e-12 and nerr <= 1e-12):
-            raise AssertionError(f"sharded dd vs phase 3: {err}, norm {nerr}")
-        flips = sum(counts.values()) / N_STEPS
-        log(f"phase 10 sharded dd L={L} 4 slots {N_STEPS} steps: max|d| vs "
-            f"phase 3={err:.3e} (<= 1e-12), |psum norm^2-1|={nerr:.2e}, "
-            f"exchange {step_dd.exchange_plan}, flip launches/step "
-            f"{flips:.0f} ok")
-        out["dd"] = (N_STEPS / t_dd, N_STEPS / median_wall(run_dd)[1])
-        del state
-        trace_steps(lambda: run_dd(3), f"phase 10 trace sharded dd L={L} 4 "
-                    f"slots", 3, card, top=6)
+    cf.reset_launches()
+    t0 = time.perf_counter()
+    state = run_dd()
+    torch.cuda.synchronize()
+    t_dd = time.perf_counter() - t0
+    paths["phase 10 sharded dd"] = counts = dict(cf.LAUNCHES)
+    if not all(counts[k] > 0 for k in (
+            "cheby_flip_first<double>", "cheby_flip_iter<double>",
+            "cheby_flip_high<double>", "cheby_flip_iter<float>",
+            "cheby_flip_high<float>")):
+        raise AssertionError(f"sharded dd launches: {counts}")
+    err = float((state.reshape(-1) - psi_dd).abs().max())
+    nerr = norm_err(state)
+    if not (err <= 1e-12 and nerr <= 1e-12):
+        raise AssertionError(f"sharded dd vs phase 3: {err}, norm {nerr}")
+    flips = sum(counts.values()) / N_STEPS
+    log(f"phase 10 sharded dd L={L} 4 slots {N_STEPS} steps: max|d| vs "
+        f"phase 3={err:.3e} (<= 1e-12), |psum norm^2-1|={nerr:.2e}, "
+        f"exchange {step_dd.exchange_plan}, flip launches/step "
+        f"{flips:.0f} ok")
+    out["dd"] = (N_STEPS / t_dd, N_STEPS / median_wall(run_dd)[1])
+    del state
+    trace_steps(lambda: run_dd(3), f"phase 10 trace sharded dd L={L} 4 "
+                f"slots", 3, card, top=6)
 
-        # -- (b) f32 tier -----------------------------------------------------
-        table = coeff_table(H, tlist)
-        table = (table.real if table.is_complex() else table).to(
-            torch.float32)[:, 0]
-        step_32 = sf.make_sharded_fused_cheby_step(mesh, L, G_FIELD, **kw)
-        d32 = shard_vector(mesh, diag)
-        p32 = psi0.to(torch.complex64)
+    # -- (b) f32 tier -----------------------------------------------------
+    table = coeff_table(H, tlist)
+    table = (table.real if table.is_complex() else table).to(
+        torch.float32)[:, 0]
+    step_32 = sf.make_sharded_fused_cheby_step(mesh, L, G_FIELD, **kw)
+    d32 = shard_vector(mesh, diag)
+    p32 = psi0.to(torch.complex64)
 
-        def run_32(n=N_STEPS):
-            re = shard_vector(mesh, p32.real.contiguous())
-            im = shard_vector(mesh, p32.imag.contiguous())
-            for k in range(n):
-                re, im = step_32(d32, re, im, c64, flip_scale=table[k])
-            return torch.complex(re, im)
+    def run_32(n=N_STEPS):
+        re = shard_vector(mesh, p32.real.contiguous())
+        im = shard_vector(mesh, p32.imag.contiguous())
+        for k in range(n):
+            re, im = step_32(d32, re, im, c64, flip_scale=table[k])
+        return torch.complex(re, im)
 
-        cf.reset_launches()
-        t0 = time.perf_counter()
-        state = run_32()
-        torch.cuda.synchronize()
-        t_32 = time.perf_counter() - t0
-        paths["phase 10 sharded f32"] = counts = dict(cf.LAUNCHES)
-        if not all(counts[f"cheby_flip_{k}<float>"] > 0
-                   for k in ("first", "iter", "high")):
-            raise AssertionError(f"sharded f32 launches: {counts}")
-        err = float((state.reshape(-1) - psi_32).abs().max())
-        if not err <= 1e-5:
-            raise AssertionError(f"sharded f32 vs phase 4: {err}")
-        log(f"phase 10 sharded f32 L={L} 4 slots {N_STEPS} steps: max|d| vs "
-            f"phase 4={err:.3e} (<= 1e-5), flip launches/step "
-            f"{sum(counts.values()) / N_STEPS:.0f} ok")
-        out["pallas"] = (N_STEPS / t_32, N_STEPS / median_wall(run_32)[1])
-        del state
-        trace_steps(lambda: run_32(3), f"phase 10 trace sharded f32 L={L} 4 "
-                    f"slots", 3, card, top=6)
-        del d32, p32
+    cf.reset_launches()
+    t0 = time.perf_counter()
+    state = run_32()
+    torch.cuda.synchronize()
+    t_32 = time.perf_counter() - t0
+    paths["phase 10 sharded f32"] = counts = dict(cf.LAUNCHES)
+    if not all(counts[f"cheby_flip_{k}<float>"] > 0
+               for k in ("first", "iter", "high")):
+        raise AssertionError(f"sharded f32 launches: {counts}")
+    err = float((state.reshape(-1) - psi_32).abs().max())
+    if not err <= 1e-5:
+        raise AssertionError(f"sharded f32 vs phase 4: {err}")
+    log(f"phase 10 sharded f32 L={L} 4 slots {N_STEPS} steps: max|d| vs "
+        f"phase 4={err:.3e} (<= 1e-5), flip launches/step "
+        f"{sum(counts.values()) / N_STEPS:.0f} ok")
+    out["pallas"] = (N_STEPS / t_32, N_STEPS / median_wall(run_32)[1])
+    del state
+    trace_steps(lambda: run_32(3), f"phase 10 trace sharded f32 L={L} 4 "
+                f"slots", 3, card, top=6)
+    del d32, p32
 
-        # -- (b) a zero-coupling slot bit: its exchange is skipped -----------
-        g_bits = np.full(L, G_FIELD)
-        g_bits[5] = 0.0
-        order, g_perm = sf.weak_site_permutation(L, g_bits, 4)
-        step_w = sf.make_sharded_fused_cheby_step_dd(mesh, L, g_perm,
-                                                     f32_tail=tail, **kw)
-        if step_w.exchange_plan["skipped_zero_coupling_bits"] != 1:
-            raise AssertionError(f"weak-site plan {step_w.exchange_plan}")
-        got = step_w(sf.permute_index_bits(diag - beta, order),
-                     sf.permute_index_bits(psi0, order), c64)
-        got = sf.permute_index_bits(got, sf.invert_bit_order(order))
-        want = cheby_step_fused_dd(make_flip_plan(L, g_bits), diag - beta,
-                                   psi0, c64, f32_tail=tail, **kw)
-        err = float((got - want).abs().max())
-        if not err <= 1e-12:
-            raise AssertionError(f"weak-site step vs unsharded: {err}")
-        log(f"phase 10 weak-site slot bits {order[-2:]} (g[5] = 0): "
-            f"skipped_zero_coupling_bits=1, one step vs the unsharded dd "
-            f"step max|d|={err:.3e} (<= 1e-12) ok")
-        del got, want, dmb
+    # -- (b) a zero-coupling slot bit: its exchange is skipped -----------
+    g_bits = np.full(L, G_FIELD)
+    g_bits[5] = 0.0
+    order, g_perm = sf.weak_site_permutation(L, g_bits, 4)
+    step_w = sf.make_sharded_fused_cheby_step_dd(mesh, L, g_perm,
+                                                 f32_tail=tail, **kw)
+    if step_w.exchange_plan["skipped_zero_coupling_bits"] != 1:
+        raise AssertionError(f"weak-site plan {step_w.exchange_plan}")
+    got = step_w(sf.permute_index_bits(diag - beta, order),
+                 sf.permute_index_bits(psi0, order), c64)
+    got = sf.permute_index_bits(got, sf.invert_bit_order(order))
+    want = cheby_step_fused_dd(make_flip_plan(L, g_bits), diag - beta,
+                               psi0, c64, f32_tail=tail, **kw)
+    err = float((got - want).abs().max())
+    if not err <= 1e-12:
+        raise AssertionError(f"weak-site step vs unsharded: {err}")
+    log(f"phase 10 weak-site slot bits {order[-2:]} (g[5] = 0): "
+        f"skipped_zero_coupling_bits=1, one step vs the unsharded dd "
+        f"step max|d|={err:.3e} (<= 1e-12) ok")
+    del got, want, dmb
 
-        # -- (c) banded20 over 4 slots ---------------------------------------
-        bw = ctx["wrk"]
-        pb, step_b, kind = sbd.make_sharded_dd_cheby_step(
-            mesh, ctx["banded"], 4, delta=bw.delta, e_min=bw.e_min,
-            dt=bw.dt, tile_rows=8)
-        if kind != "banded_pallas":
-            raise AssertionError(f"banded20 sharded kind {kind}")
-        err_b = slot_planes_check(pb, shard_vector(mesh, ctx["psi0"]))
-        cb = np.asarray(bw.coeffs, dtype=np.float64)
+    # -- (c) banded20 over 4 slots ---------------------------------------
+    bw = ctx["wrk"]
+    pb, step_b, kind = sbd.make_sharded_dd_cheby_step(
+        mesh, ctx["banded"], 4, delta=bw.delta, e_min=bw.e_min,
+        dt=bw.dt, tile_rows=8)
+    if kind != "banded_pallas":
+        raise AssertionError(f"banded20 sharded kind {kind}")
+    err_b = slot_planes_check(pb, shard_vector(mesh, ctx["psi0"]))
+    cb = np.asarray(bw.coeffs, dtype=np.float64)
 
-        def run_b():
-            state = shard_vector(mesh, ctx["psi0"])
-            for _ in range(N_STEPS):
-                state = step_b(pb, state, cb)
-            return state
+    def run_b():
+        state = shard_vector(mesh, ctx["psi0"])
+        for _ in range(N_STEPS):
+            state = step_b(pb, state, cb)
+        return state
 
-        bs.reset_launches()
-        t0 = time.perf_counter()
-        state = run_b()
-        torch.cuda.synchronize()
-        t_b = time.perf_counter() - t0
-        n_banded = bs.LAUNCHES[BANDED]
-        want_n = 4 * N_STEPS * (len(cb) - 1)
-        if n_banded != want_n:
-            raise AssertionError(f"sharded banded launches {n_banded}, "
-                                 f"expected {want_n}")
-        err = float((state.reshape(-1) - ctx["psi_T"]).abs().max())
-        nerr = norm_err(state)
-        if not (err <= 1e-10 and nerr <= 1e-12):
-            raise AssertionError(f"sharded banded20 vs phase 7: {err}, "
-                                 f"norm {nerr}")
-        log(f"phase 10 sharded banded20 2^{N_BANDED.bit_length() - 1} 4 "
-            f"slots (R_local={pb.R_local}, "
-            f"kind={kind}) {N_STEPS} steps: max|d| vs phase 7={err:.3e} "
-            f"(<= 1e-10), |psum norm^2-1|={nerr:.2e}, launches={n_banded} "
-            f"= 4 x {N_STEPS} x ({len(cb)} - 1) ok")
-        del state
-        out["banded20"] = (N_STEPS / t_b, N_STEPS / median_wall(run_b)[1])
-        del pb
+    bs.reset_launches()
+    t0 = time.perf_counter()
+    state = run_b()
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    n_banded = bs.LAUNCHES[BANDED]
+    want_n = 4 * N_STEPS * (len(cb) - 1)
+    if n_banded != want_n:
+        raise AssertionError(f"sharded banded launches {n_banded}, "
+                             f"expected {want_n}")
+    err = float((state.reshape(-1) - ctx["psi_T"]).abs().max())
+    nerr = norm_err(state)
+    if not (err <= 1e-10 and nerr <= 1e-12):
+        raise AssertionError(f"sharded banded20 vs phase 7: {err}, "
+                             f"norm {nerr}")
+    log(f"phase 10 sharded banded20 2^{N_BANDED.bit_length() - 1} 4 "
+        f"slots (R_local={pb.R_local}, "
+        f"kind={kind}) {N_STEPS} steps: max|d| vs phase 7={err:.3e} "
+        f"(<= 1e-10), |psum norm^2-1|={nerr:.2e}, launches={n_banded} "
+        f"= 4 x {N_STEPS} x ({len(cb)} - 1) ok")
+    del state
+    out["banded20"] = (N_STEPS / t_b, N_STEPS / median_wall(run_b)[1])
+    del pb
 
-        small_sharded_checks(mesh, device)
-        for tier, base in (("dd", rates["dd"][0]), ("pallas", rates["pallas"][0]),
-                           ("banded20", ctx["steps_s"])):
-            log(f"phase 10 time {tier}: sharded 4 slots {out[tier][0]:.3f} "
-                f"steps/s (the counted run), {out[tier][1]:.3f} steps/s "
-                f"(median of 3 timed runs after it), unsharded {base:.3f} "
-                f"steps/s (phase "
-                f"{dict(dd=6, pallas=6, banded20=7)[tier]}) [{card}]")
-        log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
-    finally:
-        dist.destroy_process_group()
+    small_sharded_checks(mesh, device)
+    for tier, base in (("dd", rates["dd"][0]), ("pallas", rates["pallas"][0]),
+                       ("banded20", ctx["steps_s"])):
+        log(f"phase 10 time {tier}: sharded 4 slots {out[tier][0]:.3f} "
+            f"steps/s (the counted run), {out[tier][1]:.3f} steps/s "
+            f"(median of 3 timed runs after it), unsharded {base:.3f} "
+            f"steps/s (phase "
+            f"{dict(dd=6, pallas=6, banded20=7)[tier]}) [{card}]")
+    log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
     return paths, n_banded, err_b
 
 
@@ -1261,12 +1306,177 @@ def small_sharded_checks(mesh, device):
         + " (<= 1e-13 rel / 1e-12) ok")
 
 
+class _ErrorLog(logging.Handler):
+    """The messages of the contract checkers' ERROR records."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def sharded_krylov_phase(device, card, ctx, group, rates9, sparse):
+    """Phase 11: the Krylov methods on banded20 sharded over four slots of
+    this card (the world-size-1 NCCL ``group``): phase 7's operator
+    partitioned in halo mode behind ``DistributedBSR``, (a) ``specrange``
+    against the unsharded one on the same state, (b) 5 ``newton`` steps
+    through ``propagate`` against phase 7's 5 Chebyshev steps, (c) the
+    same for ``expv``, (d) (b)'s backward round trip, (e) every result
+    in the ``(4, 2^18)`` layout on the card, (f) ``check_propagator`` on
+    a sharded Newton propagator and on every registered method at the
+    N = 1024 sparse Hermitian (``sparse``), nothing logged.  Then times
+    against phase 9's unsharded ``rates9`` and a trace of one sharded
+    Newton step.  Launches none of the kernels (the slab matvec is the
+    plain einsum), which it checks."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops import arnoldi as arnoldi_mod
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.parallel import sharded_bsr as sbsr
+    from quantumpropagators_torch.parallel.mesh import chain_mesh, \
+        shard_vector
+    from quantumpropagators_torch.propagators import available_methods
+    from quantumpropagators_torch.utils.timings import (disable_timings,
+                                                        enable_timings)
+
+    t_phase = time.perf_counter()
+    mesh = chain_mesh(4, group=group, device=device)
+    op, psi0, tlist = ctx["op"], ctx["psi0"], ctx["tlist"]
+    short = tlist[:6]
+    L = N_BANDED.bit_length() - 1
+    layout = (4, N_BANDED // 4)
+    t0 = time.perf_counter()
+    pbsr = sbsr.partition_bsr(op, 4, mode="banded", device=device)
+    dop = sbsr.DistributedBSR(mesh, pbsr)
+    torch.cuda.synchronize()
+    if pbsr.halo_blocks != 1 or pbsr.blocks.data_ptr() != op.blocks.data_ptr():
+        raise AssertionError(f"banded20 partition: halo {pbsr.halo_blocks}, "
+                             "slabs not a view of the operator's blocks")
+    log(f"phase 11 partition banded20 2^{L} into 4 slots (halo_blocks=1, "
+        f"R_local={pbsr.n_block_rows_local}, slabs a view of phase 7's "
+        f"blocks): {time.perf_counter() - t0:.3f} s")
+    x0 = shard_vector(mesh, psi0)
+    gen = qt.hamiltonian(dop)
+    bs.reset_launches()
+    cf.reset_launches()
+
+    def check_layout(name, x):
+        if tuple(x.shape) != layout or x.device != device \
+                or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: shape {tuple(x.shape)} on "
+                                 f"{x.device}, not a finite {layout} on "
+                                 f"{device}")
+
+    # (a) specrange on the sharded state against the unsharded one
+    t0 = time.perf_counter()
+    lo, hi = qt.specrange(dop, method="arnoldi", state=x0)
+    t_sh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lo_u, hi_u = qt.specrange(op, method="arnoldi", state=psi0)
+    t_un = time.perf_counter() - t0
+    width = hi_u - lo_u
+    d_e = max(abs(lo - lo_u), abs(hi - hi_u))
+    if not d_e <= 1e-10 * width:
+        raise AssertionError(f"sharded specrange: |dE| = {d_e}")
+    log(f"phase 11 (a) specrange arnoldi banded20 4 slots: E = [{lo:.12f}, "
+        f"{hi:.12f}], |dE| vs unsharded={d_e:.3e} (<= 1e-10 x {width:.3f}) "
+        f"ok; sharded {t_sh:.3f} s, unsharded (BSROperator einsum) "
+        f"{t_un:.3f} s [{card}]")
+
+    # (b)-(d) newton and expv, 5 steps, against phase 7's Chebyshev
+    out, rates = {}, {}
+    for method in ("newton", "expv"):
+        out[method] = qt.propagate(x0, gen, short, method=method)
+        torch.cuda.synchronize()
+        check_layout(method, out[method])
+        err = float((out[method].reshape(-1) - ctx["psi_5"]).abs().max())
+        if not err <= 1e-10:
+            raise AssertionError(f"sharded {method} vs cheby: {err}")
+        log(f"phase 11 ({'b' if method == 'newton' else 'c'}) {method} "
+            f"banded20 4 slots 5 steps: max|d| vs 5 phase 7 cheby dd steps="
+            f"{err:.3e} (<= 1e-10), result {layout} on the card ok")
+    back = qt.propagate(out["newton"], gen, short, method="newton",
+                        backward=True)
+    torch.cuda.synchronize()
+    check_layout("newton backward", back)
+    err = float((back - x0).abs().max())
+    if not err <= 1e-10:
+        raise AssertionError(f"sharded newton round trip: {err}")
+    log(f"phase 11 (d) newton backward round trip 4 slots: max|d|={err:.3e} "
+        f"(<= 1e-10) ok; (e) every result {layout} on {device} ok")
+    del back, out
+
+    # (f) the propagator contract, nothing logged
+    handler = _ErrorLog()
+    checks_log = logging.getLogger("quantumpropagators_torch.interfaces")
+    checks_log.addHandler(handler)
+    try:
+        cases = [("newton sharded banded20", qt.init_prop(
+            x0, gen, tlist[:3], method="newton"))]
+        sp_op, sp_psi = sparse
+        for method in available_methods():
+            cases.append((f"{method} N=1024", qt.init_prop(
+                sp_psi, sp_op, np.linspace(0.0, 0.2, 3), method=method)))
+        failed = [name for name, prop in cases
+                  if not qt.check_propagator(prop)]
+        torch.cuda.synchronize()
+    finally:
+        checks_log.removeHandler(handler)
+    if failed or handler.messages:
+        raise AssertionError(f"check_propagator: {failed} failed, logged "
+                             f"{handler.messages}")
+    log(f"phase 11 (f) check_propagator True, nothing logged: "
+        f"{', '.join(name for name, _ in cases)} ok")
+    del cases
+
+    # times: the same calls through their propagators, counting matvecs
+    enable_timings()
+    try:
+        for method in ("newton", "expv"):
+            prop = qt.init_prop(x0, gen, short, method=method)
+            t0 = time.perf_counter()
+            qt.propagate(x0, propagator=prop)
+            torch.cuda.synchronize()
+            rates[method] = (5 / (time.perf_counter() - t0),
+                             prop.timing_data.counters.get("matvec", 0) / 5)
+            check_layout(method, prop.state)
+    finally:
+        disable_timings()
+    launched = {k: v for k, v in {**bs.LAUNCHES, **cf.LAUNCHES}.items() if v}
+    if launched:
+        raise AssertionError(f"phase 11 launched kernels: {launched}")
+    for method, (steps_s, matvecs) in rates.items():
+        steps, t = rates9[method]
+        log(f"phase 11 time {method} banded20 2^{L}: sharded 4 slots "
+            f"(DistributedBSR, slab einsum) {steps_s:.3f} steps/s, "
+            f"{matvecs:.1f} matvecs/step; unsharded (phase 9, precision=dd, "
+            f"{BANDED}) {steps / t:.3f} steps/s [{card}]")
+
+    # one sharded Newton step traced: slab matvec, CGS2 + norms, halos
+    one = tlist[:2]
+    trace_steps(lambda: qt.propagate(x0, gen, one, method="newton",
+                                     check=False),
+                "phase 11 trace sharded newton banded20 4 slots", 1, card,
+                top=6, regions={
+                    "slab matvec": [(sbsr, "_bsr_slab_matvec")],
+                    "CGS2 + norms": [(arnoldi_mod, "_cgs2"),
+                                     (arnoldi_mod, "sharded_norm")],
+                    "halo exchange": [(sbsr, "_halo_extend")]})
+    log(f"phase 11 wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
     from quantumpropagators_torch.ops import _cuda
+    from quantumpropagators_torch.parallel.distributed import \
+        initialize_multihost
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -1293,14 +1503,25 @@ def main() -> int:
     # phase 9 reads each Krylov path's banded launches; phase 7's count
     # stays its own
     banded["launches_by_path"] = {"phase 7 cheby dd": banded["launches"]}
-    for path, n in krylov_phase(device, card, ctx).items():
+    krylov_launches, rates9 = krylov_phase(device, card, ctx)
+    for path, n in krylov_launches.items():
         banded["launches_by_path"][path] = n
         banded["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
-    small_configs(device, card)
-    flip_paths, n, err_b = sharded_phase(device, card, chain, finals, ctx,
-                                         rates)
+    sparse = small_configs(device, card)
+    # phases 10 and 11 share one world-size-1 NCCL group
+    group = initialize_multihost(f"localhost:{free_port()}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        flip_paths, n, err_b = sharded_phase(device, card, chain, finals,
+                                             ctx, rates, group)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded_krylov_phase(device, card, ctx, group, rates9, sparse)
+    finally:
+        dist.destroy_process_group()
     banded["launches_by_path"]["phase 10 sharded banded20"] = n
     banded["launches"] += n
     banded["max_abs_err"] = max(banded["max_abs_err"], err_b)

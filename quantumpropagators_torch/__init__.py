@@ -6,9 +6,10 @@ controls, amplitudes, CRAB functions and pulse shapes, the operator /
 generator algebra, lattice operators, the propagation methods
 ``cheby``, ``newton``, ``krylov``/``expv``, ``expprop`` and ``ode``
 (stepwise through ``propagate``), whole-grid Chebyshev and fixed-Leja
-Newton propagation (``propagate(..., fused=True)``), storage and the
-``check=True`` contract checks.  ``precision="dd"`` and ``kernel="dd"``
-keep the JAX package's names for its reference-accuracy tier, which is
+Newton propagation (``propagate(..., fused=True)``), storage, the
+contract checks (``check_*``, also behind ``check=True``) and sharding
+(:mod:`.parallel`).  ``precision="dd"`` and ``kernel="dd"`` keep the
+JAX package's names for its reference-accuracy tier, which is
 complex128 here.  The TPU Pallas kernels are hand-written CUDA kernels
 for Hopper (``csrc/cheby_flip.cu`` for diagonal-plus-site-flip
 generators, ``csrc/banded_spmv.cu`` for block-banded operators, the
@@ -76,6 +77,21 @@ from .ops.operators import (
 )
 from .ops.specrange import specrange
 from .utils.iddict import IdDict
+from .interfaces import (
+    check_amplitude,
+    check_control,
+    check_generator,
+    check_operator,
+    check_parameterized,
+    check_parameterized_function,
+    check_propagator,
+    check_state,
+    check_state_vector_interface,
+    check_tlist,
+    supports_inplace,
+    supports_matrix_interface,
+    supports_vector_interface,
+)
 from .interop import from_jax, to_numpy
 
 __version__ = "0.1.0"
@@ -138,6 +154,20 @@ __all__ = [
     "csr_from_scipy",
     # methods
     "specrange",
+    # interface checks
+    "check_tlist",
+    "check_state",
+    "check_state_vector_interface",
+    "check_operator",
+    "check_generator",
+    "check_amplitude",
+    "check_control",
+    "check_propagator",
+    "check_parameterized_function",
+    "check_parameterized",
+    "supports_inplace",
+    "supports_vector_interface",
+    "supports_matrix_interface",
     # propagation
     "init_prop",
     "prop_step",

@@ -1,17 +1,20 @@
-"""Interface-contract checkers (PyTorch port of the part of
-:mod:`quantumpropagators.interfaces.checks` that ``propagate(check=True)``
-reaches; reference ``src/interfaces/``).
+"""Interface-contract checkers (PyTorch port of
+:mod:`quantumpropagators.interfaces.checks`; reference
+``src/interfaces/``).
 
 Runtime verification that user-supplied states / operators / amplitudes /
-controls / generators satisfy the contracts the propagation methods rely
-on.  Every checker returns ``bool`` and logs each violated clause through
-the ``quantumpropagators.interfaces`` logger, with the same diagnostic
-strings as the JAX package.
+controls / generators / propagators satisfy the contracts the
+propagation methods rely on.  Every checker returns ``bool`` and logs
+each violated clause through the ``quantumpropagators_torch.interfaces``
+logger, with the same diagnostic strings as the JAX package.  States are
+measured on host copies (:func:`~..ops.operators.host_np`), so tensors
+on any device can be checked.
 """
 
 from __future__ import annotations
 
 import logging
+import warnings
 
 import numpy as np
 import torch
@@ -24,11 +27,11 @@ from ..models.controls import (
     get_parameters,
     substitute,
 )
-from ..models.generators import Generator
+from ..models.generators import Generator, Operator, ScaledOperator
 from ..ops.operators import apply, host_np, op_dot, op_shape, vdot
 from ..utils.iddict import IdDict
 
-logger = logging.getLogger("quantumpropagators.interfaces")
+logger = logging.getLogger("quantumpropagators_torch.interfaces")
 
 __all__ = [
     "check_tlist",
@@ -38,12 +41,61 @@ __all__ = [
     "check_generator",
     "check_amplitude",
     "check_control",
+    "check_propagator",
+    "check_parameterized_function",
+    "check_parameterized",
+    "supports_inplace",
 ]
 
 
 def _err(quiet: bool, msg: str) -> None:
     if not quiet:
         logger.error(msg)
+
+
+def supports_inplace(obj) -> bool:
+    """Mutability trait (reference ``src/interfaces/supports_inplace.jl``).
+
+    ``True`` for a host ``numpy`` array, as in the JAX package.  ``False``
+    for a ``torch.Tensor``: a tensor could be written in place, but the
+    port's propagators never mutate the caller's state (every step
+    returns a new tensor), which is what the trait reports to callers
+    deciding whether to hand over a buffer for reuse."""
+    if isinstance(obj, np.ndarray):
+        return True
+    return False
+
+
+def supports_vector_interface(obj) -> bool:
+    """Trait: does ``obj`` implement the 1D array *read* interface
+    (len / getitem / iteration), as required for states used with
+    vector-interface-dependent observables (reference
+    ``src/interfaces/supports_vector_interface.jl``)."""
+    try:
+        n = len(obj)
+        _ = obj[0]
+        it = iter(obj)
+        next(it)
+        return np.ndim(obj) == 1 and n >= 0
+    except Exception:
+        return False
+
+
+def supports_matrix_interface(obj) -> bool:
+    """Trait: does ``obj`` implement the 2D array *read* interface.
+    Lazy :class:`~..models.generators.Operator` / ``ScaledOperator``
+    forward to their densification (reference
+    ``src/interfaces/supports_matrix_interface.jl:34-36``)."""
+    if isinstance(obj, (Operator, ScaledOperator)):
+        return True
+    try:
+        shape = obj.shape
+        if len(shape) != 2:
+            return False
+        _ = obj[0, 0]
+        return True
+    except Exception:
+        return False
 
 
 def check_tlist(tlist, *, quiet: bool = False) -> bool:
@@ -463,5 +515,198 @@ def check_generator(
         for ampl in generator.amplitudes:
             if not check_amplitude(ampl, tlist=tlist, quiet=quiet):
                 _err(quiet, "every amplitude in the generator must pass check_amplitude")
+                ok = False
+    return ok
+
+
+def check_parameterized_function(func, *, tlist, quiet: bool = False) -> bool:
+    """Verify a :class:`ParameterizedFunction` (reference
+    ``src/interfaces/parameterization.jl``): ``parameters`` array field
+    aliased by ``get_parameters``, callable ``f(t) -> float``."""
+    from ..models.controls import ParameterizedFunction
+
+    ok = True
+    if not isinstance(func, ParameterizedFunction):
+        _err(quiet, "func must be an instance of ParameterizedFunction")
+        ok = False
+    params = getattr(func, "parameters", None)
+    if params is None:
+        _err(quiet, "func must have a `parameters` field")
+        return False
+    collected = get_parameters(func)
+    if collected is not params:
+        _err(quiet, "get_parameters(func) must alias func.parameters")
+        ok = False
+    try:
+        t = float(np.asarray(tlist)[0])
+        float(func(t))
+    except Exception as exc:
+        _err(quiet, f"func(t) must return a float: {exc}")
+        ok = False
+    return ok
+
+
+def check_parameterized(obj, *, quiet: bool = False) -> bool:
+    """Verify that mutating the collected parameters of ``obj`` mutates
+    the object's controls (parameter aliasing contract)."""
+    ok = True
+    params = get_parameters(obj)
+    arrays = params if isinstance(params, tuple) else (params,)
+    for arr in arrays:
+        try:
+            a = host_np(arr)
+            if a.ndim != 1:
+                _err(quiet, "parameter arrays must be 1D")
+                ok = False
+        except Exception as exc:
+            _err(quiet, f"parameters must be array-like: {exc}")
+            ok = False
+    return ok
+
+
+def _distance(x, y) -> float:
+    """``‖x − y‖`` of two states, on host copies."""
+    return float(np.linalg.norm(host_np(x) - host_np(y)))
+
+
+def check_propagator(propagator, *, atol: float = 1e-9, quiet: bool = False) -> bool:
+    """Verify the full behavioral propagator contract (reference
+    ``src/interfaces/propagator.jl:55-337``):
+
+    - required properties (``state``, ``tlist``, ``t``, ``parameters``,
+      ``backward``)
+    - ``prop_step()`` advances ``t`` by exactly one grid point and
+      returns the new state; returns ``None`` past the end of the grid
+    - ``set_state`` replaces the state; ``set_t`` moves on the grid
+    - ``reinit_prop`` restores the initial position idempotently
+
+    States are compared on host copies, so a propagator whose state is a
+    CUDA tensor (or a sharded ``(n_local, N/n)`` tensor) is checked the
+    same way."""
+    from ..propagators.base import reinit_prop
+
+    ok = True
+    for prop_name in ("state", "tlist", "t", "parameters", "backward"):
+        if not hasattr(propagator, prop_name):
+            _err(quiet, f"propagator must have property `{prop_name}`")
+            ok = False
+    if not ok:
+        return False
+    tlist = np.asarray(propagator.tlist)
+    nt = len(tlist)
+    backward = bool(propagator.backward)
+    t_start = tlist[-1] if backward else tlist[0]
+    if not np.isclose(propagator.t, t_start, atol=atol):
+        _err(
+            quiet,
+            f"propagator.t must start at {'tlist[-1]' if backward else 'tlist[0]'}",
+        )
+        ok = False
+    psi0 = propagator.state
+    psi = propagator.prop_step()
+    if psi is None:
+        _err(quiet, "prop_step() must return a state while t is inside the grid")
+        return False
+    expected_t = tlist[-2] if backward else tlist[1]
+    if not np.isclose(propagator.t, expected_t, atol=atol):
+        _err(quiet, "prop_step() must advance t by exactly one grid point")
+        ok = False
+    if not check_state(psi, quiet=quiet):
+        _err(quiet, "prop_step() must return a valid state")
+        ok = False
+    if host_np(psi).shape != host_np(psi0).shape:
+        _err(
+            quiet,
+            "prop_step() must return a state of the same shape as the "
+            "initial state",
+        )
+        ok = False
+    # run to the end of the grid
+    steps = 1
+    while steps < nt - 1:
+        psi = propagator.prop_step()
+        if psi is None:
+            _err(quiet, "prop_step() returned None before the end of the grid")
+            ok = False
+            break
+        steps += 1
+    end = propagator.prop_step()
+    if end is not None:
+        _err(quiet, "prop_step() must return None past the end of the grid")
+        ok = False
+    t_end = tlist[0] if backward else tlist[-1]
+    if not np.isclose(propagator.t, t_end, atol=atol):
+        _err(quiet, "after the last step, t must be at the end of the grid")
+        ok = False
+    # set_t: exact mid-grid jump, and snap-with-warning for off-grid
+    # times (reference src/interfaces/propagator.jl set_t! contract +
+    # src/pwc_utils.jl:48-71 snapping)
+    try:
+        mid = nt // 2
+        propagator.set_t(tlist[mid])
+        if not np.isclose(propagator.t, tlist[mid], atol=atol):
+            _err(quiet, "set_t to a grid point must set t exactly")
+            ok = False
+        if nt >= 3:
+            t_off = 0.5 * (tlist[mid] + tlist[mid + 1])
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                propagator.set_t(t_off)
+            on_grid = bool(np.any(np.isclose(tlist, propagator.t, atol=atol)))
+            if on_grid and not np.isclose(propagator.t, t_off, atol=atol):
+                # piecewise propagators must snap AND warn
+                if not any("Snap" in str(w.message) for w in caught):
+                    _err(
+                        quiet,
+                        "set_t to an off-grid time must warn when "
+                        "snapping to the grid",
+                    )
+                    ok = False
+            elif not on_grid and not np.isclose(
+                propagator.t, t_off, atol=atol
+            ):
+                _err(quiet, "set_t must set t (to the value or a grid snap)")
+                ok = False
+    except Exception as exc:
+        _err(quiet, f"set_t must be defined: {exc}")
+        ok = False
+    # set_state: must take effect even when the current state differs
+    # (probe with a state that is NOT the propagator's current one, so
+    # a no-op set_state cannot pass by accident)
+    try:
+        probe = (1j) * psi0
+        propagator.set_state(probe)
+        if _distance(propagator.state, probe) > atol:
+            _err(quiet, "set_state must replace the propagator's state")
+            ok = False
+        propagator.set_state(psi0)
+        if _distance(propagator.state, psi0) > atol:
+            _err(quiet, "set_state must replace the propagator's state")
+            ok = False
+    except Exception as exc:
+        _err(quiet, f"set_state must be defined: {exc}")
+        ok = False
+    # reinit (idempotency required by contract)
+    try:
+        reinit_prop(propagator, psi0)
+        if not np.isclose(propagator.t, t_start, atol=atol):
+            _err(quiet, "reinit_prop must reset t to the start of the grid")
+            ok = False
+        reinit_prop(propagator, psi0)
+        if not np.isclose(propagator.t, t_start, atol=atol):
+            _err(quiet, "reinit_prop must be idempotent")
+            ok = False
+    except Exception as exc:
+        _err(quiet, f"reinit_prop must be defined: {exc}")
+        ok = False
+    if isinstance(propagator.parameters, IdDict):
+        for c in propagator.parameters:
+            vals = host_np(propagator.parameters[c])
+            if len(vals) != nt - 1:
+                _err(
+                    quiet,
+                    "piecewise propagator parameters must map controls to "
+                    "nt-1 interval values",
+                )
                 ok = False
     return ok

@@ -3,7 +3,8 @@
 :func:`from_jax` turns the JAX package's states, dense arrays, operators
 and generators, its double-float values and operators (as float64
 or complex128 ``hi + lo``), and its sharded partitions (CSR, BSR,
-banded, and ``ShardedSiteSum``) into the port's, through numpy;
+banded, and ``ShardedSiteSum``) and ``DistributedBSR`` into the
+port's, through numpy;
 :func:`to_numpy` is the way back for tensors.  Nothing here imports jax: objects are recognized
 by class name and attributes (``.diag``, ``.site_mats``, ``.L``,
 ``.active``, ``.ops``, ``.coeffs``, ``.amplitudes``), so the same code
@@ -31,7 +32,7 @@ from .ops.operators import (
 )
 from .parallel import sharded_csr
 from .parallel.sharded_banded import PartitionedBandedDD
-from .parallel.sharded_bsr import PartitionedBSR
+from .parallel.sharded_bsr import DistributedBSR, PartitionedBSR
 from .parallel.sharded_chain import ShardedSiteSum
 
 __all__ = ["from_jax", "to_numpy"]
@@ -49,11 +50,13 @@ def _f64(x) -> np.ndarray:
     return np.asarray(host_np(x), dtype=np.float64)
 
 
-def from_jax(obj, device=None):
+def from_jax(obj, device=None, *, mesh=None):
     """The port's counterpart of ``obj`` (a JAX array, a numpy array, an
     operator, an :class:`Operator`/:class:`Generator`, or a tuple/list
     of these), with its tensors on ``device`` (default: the package's
-    :func:`~.ops.operators.default_device`)."""
+    :func:`~.ops.operators.default_device`).  A JAX ``DistributedBSR``
+    becomes the port's on ``mesh``, a :class:`~.parallel.mesh.Mesh` the
+    caller builds (a JAX mesh has no port counterpart)."""
     name = type(obj).__name__
     # the JAX DD / CDD pairs are named tuples: matched before tuples
     if name == "DD":
@@ -62,7 +65,7 @@ def from_jax(obj, device=None):
     if name == "CDD":
         return torch.complex(from_jax(obj.re, device), from_jax(obj.im, device))
     if isinstance(obj, (tuple, list)):
-        return type(obj)(from_jax(o, device) for o in obj)
+        return type(obj)(from_jax(o, device, mesh=mesh) for o in obj)
     if name in ("CSROperator", "StackedCSROperator"):
         cls = CSROperator if name == "CSROperator" else StackedCSROperator
         return cls(
@@ -107,7 +110,7 @@ def from_jax(obj, device=None):
         if c.ndim == 2:  # the JAX (4, n) hi/lo planes
             c = (c[0].astype(np.float64) + c[1]) + 1j * (
                 c[2].astype(np.float64) + c[3])
-        return TermsDDOp(from_jax(tuple(obj.terms), device),
+        return TermsDDOp(from_jax(tuple(obj.terms), device, mesh=mesh),
                          c.astype(np.complex128),
                          tuple(int(n) for n in obj.shape))
     if name == "BSRdd":
@@ -146,6 +149,11 @@ def from_jax(obj, device=None):
             b=int(obj.b), wb=int(obj.wb), tile_rows=int(obj.tile_rows),
             shape=tuple(int(n) for n in obj.shape),
             logical_nnz=int(obj.logical_nnz))
+    if name == "DistributedBSR":
+        if mesh is None:
+            raise ValueError("from_jax: a DistributedBSR needs the port's "
+                             "mesh (mesh=chain_mesh(...))")
+        return DistributedBSR(mesh, from_jax(obj.pbsr, device))
     if name == "ShardedSiteSum":
         return ShardedSiteSum(
             device_mats=_tensor(obj.device_mats, device),
@@ -163,13 +171,14 @@ def from_jax(obj, device=None):
             dims=tuple(int(d) for d in obj.dims),
         )
     if name == "Generator":
-        return Generator([from_jax(op, device) for op in obj.ops],
+        return Generator([from_jax(op, device, mesh=mesh) for op in obj.ops],
                          list(obj.amplitudes))
     if name == "Operator":
-        return Operator([from_jax(op, device) for op in obj.ops],
+        return Operator([from_jax(op, device, mesh=mesh) for op in obj.ops],
                         np.array(host_np(obj.coeffs)))
     if name == "ScaledOperator":
-        return ScaledOperator(obj.coeff, from_jax(obj.operator, device))
+        return ScaledOperator(obj.coeff,
+                              from_jax(obj.operator, device, mesh=mesh))
     if isinstance(obj, torch.Tensor):
         return obj.to(resolve_device(device))
     if isinstance(obj, (int, float, complex, np.number)) or callable(obj):

@@ -13,7 +13,10 @@ reductions are plain ones and the operators are:
   (the JAX ``BSRdd``) or a :class:`~.bsr_dd.BandedDD`, whose product is
   the banded SpMV kernel (:mod:`.banded_spmv`) on the card;
 - :class:`TermsDDOp`: ``Ĥ₀ + Σₗ cₗĤₗ`` over such term operators, with
-  only the coefficients changing from interval to interval.
+  only the coefficients changing from interval to interval;
+- an operator that carries a shard-slot mesh
+  (:func:`~.operators.op_mesh`), applied as it is, so a sharded state
+  runs at reference accuracy too.
 
 :func:`arnoldi_dd` is the port's CGS2 :func:`.arnoldi.arnoldi` over
 :func:`apply_cdd_op`.
@@ -221,6 +224,8 @@ def apply_cdd_op(op, v):
         if op.im is None:
             return y
         return y + 1j * _apply_real_dd(op.im, v)
+    if getattr(op, "mesh", None) is not None:
+        return op.apply(v)
     if callable(op):
         return op(v)
     return _apply_real_dd(op, v)
@@ -234,9 +239,14 @@ def apply_cdd_op(op, v):
 @dataclass(frozen=True)
 class _Applied:
     """Any operator of :func:`apply_cdd_op` behind the ``apply``
-    protocol that :func:`.arnoldi.arnoldi` calls."""
+    protocol that :func:`.arnoldi.arnoldi` calls, with the operator's
+    shape (where it has one) and, through ``op``, its mesh."""
 
     op: Any
+
+    @property
+    def shape(self):
+        return getattr(self.op, "shape", None)
 
     def apply(self, v):
         return apply_cdd_op(self.op, v)

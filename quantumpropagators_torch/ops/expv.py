@@ -12,6 +12,9 @@ Modes (mirroring the reference's ``:happy_breakdown`` vs
 is used (stopping early only on happy breakdown); with a tolerance, the
 generalized-residual error estimate ``β·|dt·h_{m+1,m}·[exp]_{m,1}|`` is
 evaluated and ``m`` is doubled until it passes.
+
+A sharded state under an operator that carries the mesh goes through
+unchanged (see :mod:`.newton`).
 """
 
 from __future__ import annotations
@@ -23,20 +26,22 @@ import scipy.linalg
 import torch
 
 from .arnoldi import arnoldi
+from .operators import sharded_dim, sharded_norm
 
 __all__ = ["expv_apply", "expv_apply_dd"]
 
 
-def _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max):
+def _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max, N, mesh):
     """One Krylov subspace, ``m`` doubled under ``tol`` (see the module
-    docstring), over ``arnoldi_fn(v, m) -> (Hess, q, m_eff)``."""
+    docstring), over ``arnoldi_fn(v, m) -> (Hess, q, m_eff)``, for a
+    state of global dimension ``N`` (sharded over ``mesh`` unless it is
+    ``None``)."""
     if func is None:
         func = lambda M: scipy.linalg.expm(-1j * M)
-    beta = float(torch.linalg.vector_norm(psi))
+    beta = float(sharded_norm(psi, mesh))
     if beta == 0.0:
         return psi
     v = psi / beta
-    N = psi.shape[-1]
     m = min(m, N)
     while True:
         Hess, q, m_eff = arnoldi_fn(v, m)
@@ -50,7 +55,8 @@ def _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max):
                 m = min(2 * m, m_max, N)
                 continue
         weights = torch.as_tensor(beta * np.asarray(E[:, 0], np.complex128))
-        return weights.to(q.device, q.dtype) @ q[:m_eff]
+        return torch.tensordot(weights.to(q.device, q.dtype), q[:m_eff],
+                               dims=1)
 
 
 def expv_apply(
@@ -77,7 +83,9 @@ def expv_apply(
     def arnoldi_fn(v, m):
         return arnoldi(op, v, m, dt, extended=True, norm_min=norm_min)
 
-    return _expv_loop(arnoldi_fn, as_tensor(psi), dt, m, func, tol, m_max)
+    psi = as_tensor(psi)
+    return _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max,
+                      *sharded_dim(op, psi))
 
 
 def expv_apply_dd(
@@ -102,4 +110,5 @@ def expv_apply_dd(
     def arnoldi_fn(v, m):
         return arnoldi_dd(op, v, m, dt, norm_min=norm_min)
 
-    return _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max)
+    return _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max,
+                      *sharded_dim(op, psi))

@@ -13,6 +13,12 @@ Leja ordering, divided differences, the small polynomial recurrences)
 stays on the host in complex128, and the host drives the restarts.
 :func:`newton_apply_dd` is the same loop over a reference-accuracy
 operator (:mod:`.dd_linalg`) with the state in complex128.
+
+A sharded state (this rank's ``(n_local, N/n)`` slots, under an operator
+that carries the mesh) goes through unchanged: the Arnoldi reductions
+and the norms here sum over every slot (:func:`.operators.sharded_norm`),
+so the host Leja logic sees the same numbers on every rank, and the
+result keeps the state's layout.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from .arnoldi import arnoldi, diagonalize_hessenberg_matrix
+from .operators import sharded_dim, sharded_norm
 
 __all__ = [
     "newton_apply",
@@ -116,21 +123,23 @@ class NewtonInfo:
         self.matvecs = 0
 
 
-def _coords(x, q):
-    """Host complex128 coordinates as a tensor on the basis's device."""
-    return torch.as_tensor(np.asarray(x, np.complex128)).to(q.device, q.dtype)
+def _combine(x, q):
+    """``Σᵢ xᵢ qᵢ`` for host complex128 coordinates ``x`` over the leading
+    axis of the basis ``q``."""
+    c = torch.as_tensor(np.asarray(x, np.complex128)).to(q.device, q.dtype)
+    return torch.tensordot(c, q[: len(c)], dims=1)
 
 
 def _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
-                 max_restarts, info):
+                 max_restarts, info, N, mesh):
     """The restart loop of :func:`newton_apply` (reference
     ``src/newton.jl:246-385``) over ``arnoldi_fn(v, m) -> (Hess, q,
-    m_eff)``."""
+    m_eff)``, for a state of global dimension ``N`` (sharded over
+    ``mesh`` unless it is ``None``)."""
     if func is None:
         func = _default_func
     if info is None:
         info = NewtonInfo()
-    N = psi.shape[-1]
     if m_max <= 2:
         raise ValueError("Newton propagation requires m_max > 2")
     if m_max >= N:
@@ -145,7 +154,7 @@ def _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
     a = np.zeros((0,), dtype=np.complex128)
     radius = 0.0
 
-    beta = float(torch.linalg.vector_norm(psi))
+    beta = float(sharded_norm(psi, mesh))
     v = psi / beta
     Psi = None
     m = m_max
@@ -182,7 +191,7 @@ def _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
             R = (Hm @ R - z * R) / radius
             P += a[n_s + k] * R
 
-        delta = _coords(P[:m], q) @ q[:m]
+        delta = _combine(P[:m], q)
         Psi = delta if Psi is None else Psi + delta
 
         # next restart vector: last Newton basis polynomial applied to v
@@ -190,10 +199,10 @@ def _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
         beta = float(np.linalg.norm(R))
         if beta <= norm_min:
             break  # residual vanished: expansion is exact
-        v = _coords(R / beta, q) @ q[: m + 1]
+        v = _combine(R / beta, q)
 
         psi_relerr = beta * abs(a[n_leja - 1]) / (
-            1.0 + float(torch.linalg.vector_norm(Psi)))
+            1.0 + float(sharded_norm(Psi, mesh)))
         if psi_relerr < relerr:
             break
         s += 1
@@ -243,7 +252,7 @@ def newton_apply(
         return arnoldi(op, v, m, dt, extended=True, norm_min=norm_min)
 
     return _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
-                        max_restarts, info)
+                        max_restarts, info, *sharded_dim(op, psi))
 
 
 def _split_c128_planes(w) -> np.ndarray:
@@ -279,4 +288,4 @@ def newton_apply_dd(
         return arnoldi_dd(op, v, m, dt, norm_min=norm_min)
 
     return _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
-                        max_restarts, info)
+                        max_restarts, info, *sharded_dim(op, psi))

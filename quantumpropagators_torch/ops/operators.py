@@ -19,7 +19,12 @@ Operator types:
 - :class:`~..models.generators.Operator` — lazy sum Σ cₗ Ĥₗ
 
 States are tensors with the Hilbert dimension on the *last* axis;
-leading axes are batch dimensions.
+leading axes are batch dimensions.  A *sharded* state is the exception:
+this rank's ``(n_local, N/n)`` slots of a shard-slot mesh
+(:mod:`..parallel.mesh`).  Only an operator that carries the mesh
+(:func:`op_mesh`) takes one, and reductions over it go through
+:func:`sharded_vdot` / :func:`sharded_norm`, which sum per-slot partial
+sums with the mesh's ``psum``.
 
 Tensors built from host data go to the package's default device
 (:func:`default_device`, initially ``cuda``) unless the caller names
@@ -59,6 +64,10 @@ __all__ = [
     "as_tensor",
     "host_np",
     "vdot",
+    "op_mesh",
+    "sharded_dim",
+    "sharded_vdot",
+    "sharded_norm",
     "default_device",
     "set_default_device",
     "resolve_device",
@@ -118,6 +127,86 @@ def vdot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``Σ conj(x)·y`` over all elements (``jnp.vdot`` semantics)."""
     x, y = _promote(x, y)
     return torch.sum(x.conj().reshape(-1) * y.reshape(-1))
+
+
+def op_mesh(op):
+    """The shard-slot mesh ``op`` carries, or ``None``.
+
+    A mesh is any object with ``psum`` (:class:`~..parallel.mesh.Mesh`;
+    ``ops`` does not import ``parallel``).  An operator carries one as
+    its ``mesh`` attribute (:class:`~..parallel.sharded_bsr.DistributedBSR`,
+    :class:`~..parallel.sharded_chain.ShardedChainOperator`); a composite
+    operator carries the one mesh of its parts: the ``ops`` of an
+    ``Operator`` or ``Generator``, the ``operator`` of a
+    ``ScaledOperator``, the ``terms`` of a ``TermsDDOp``.  Raises
+    ``ValueError`` when the parts carry two different meshes."""
+    mesh = getattr(op, "mesh", None)
+    if mesh is not None or isinstance(op, (torch.Tensor, np.ndarray)):
+        return mesh
+    parts = list(getattr(op, "ops", None) or getattr(op, "terms", None) or ())
+    for name in ("operator", "op"):
+        part = getattr(op, name, None)
+        if part is not None:
+            parts.append(part)
+    found = None
+    for part in parts:
+        mesh = op_mesh(part)
+        if mesh is not None:
+            if found is not None and mesh is not found:
+                raise ValueError("the operator's terms carry two different "
+                                 "meshes")
+            found = mesh
+    return found
+
+
+def sharded_dim(op, psi):
+    """``(N, mesh)``: the global dimension of the state ``psi`` under
+    ``op`` and the mesh ``op`` carries (``None`` for a plain operator).
+
+    A plain operator of shape ``(N, N)`` takes a ``(N,)`` state; an
+    operator with a mesh takes this rank's ``(n_local, N/n)`` slots (with
+    one rank, any tensor of all ``N`` entries).  Anything else raises a
+    ``ValueError``, so a sharded state never meets an operator that would
+    apply to its slots as if they were a batch.  An operator without a
+    shape (a callable) is taken at the state's length."""
+    mesh = op_mesh(op)
+    shape = getattr(op, "shape", None)
+    N = int(shape[1]) if shape is not None and len(shape) == 2 else None
+    if mesh is None:
+        if N is not None and tuple(psi.shape) != (N,):
+            raise ValueError(
+                f"a state of shape {tuple(psi.shape)} for an operator of "
+                f"shape {tuple(shape)}: a sharded (n_local, N/n) state "
+                "needs an operator that carries its mesh "
+                "(parallel.sharded_bsr.DistributedBSR, "
+                "parallel.sharded_chain.ShardedChainOperator)")
+        return (psi.shape[-1] if N is None else N), None
+    if N is None or N % mesh.n_devices \
+            or psi.numel() != mesh.n_local * (N // mesh.n_devices):
+        raise ValueError(
+            f"a state of shape {tuple(psi.shape)} is not this rank's "
+            f"({mesh.n_local}, N/{mesh.n_devices}) slots of the operator's "
+            f"mesh (operator shape {shape})")
+    return N, mesh
+
+
+def sharded_vdot(x: torch.Tensor, y: torch.Tensor, mesh=None) -> torch.Tensor:
+    """:func:`vdot` over a whole state; with a ``mesh``, ``x`` and ``y``
+    are this rank's slots and the per-slot partial sums are summed over
+    every slot by ``mesh.psum`` (one ``all_reduce`` when the mesh has a
+    group), the same on every rank."""
+    if mesh is None:
+        return vdot(x, y)
+    x, y = _promote(x, y)
+    return mesh.psum((x.conj() * y).reshape(mesh.n_local, -1).sum(-1))
+
+
+def sharded_norm(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The 2-norm of a whole state (see :func:`sharded_vdot`)."""
+    if mesh is None:
+        return torch.linalg.vector_norm(x)
+    sq = (x.conj() * x).real if x.is_complex() else x * x
+    return torch.sqrt(mesh.psum(sq.reshape(mesh.n_local, -1).sum(-1)))
 
 
 @dataclass(frozen=True)
@@ -466,6 +555,9 @@ def op_device(op) -> torch.device:
         return op.device
     if isinstance(op, np.ndarray):
         return torch.device("cpu")
+    mesh = getattr(op, "mesh", None)
+    if mesh is not None:
+        return mesh.device
     for name in ("diag", "data", "site_mats", "blocks", "planes"):
         t = getattr(op, name, None)
         if isinstance(t, torch.Tensor):

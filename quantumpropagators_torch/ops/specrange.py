@@ -5,7 +5,9 @@ Mirrors reference ``src/specrad.jl``: exact diagonalization for small
 systems, Arnoldi/Ritz values otherwise, with the "enlarge" heuristic
 that over-estimates the spectral radius using the distance to the
 second-extremal Ritz value (``src/specrad.jl:88-112``).  One Arnoldi
-run at ``m_max`` provides all leading sub-factorizations.
+run at ``m_max`` provides all leading sub-factorizations.  With an
+operator that carries a shard-slot mesh, the Arnoldi run takes a sharded
+state (see :mod:`.arnoldi`).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from .arnoldi import arnoldi, diagonalize_hessenberg_matrix
-from .operators import as_tensor, host_np, op_device, op_shape, to_dense
+from .operators import (as_tensor, host_np, op_device, op_mesh, op_shape,
+                        sharded_norm, to_dense)
 
 __all__ = ["specrange", "ritzvals", "random_state"]
 
@@ -24,13 +27,16 @@ __all__ = ["specrange", "ritzvals", "random_state"]
 def random_state(op, *, rng: Optional[np.random.Generator] = None, dtype=np.complex128):
     """Random normalized host state compatible with ``op`` — random
     amplitudes with random phases (reference ``src/specrad.jl:153-158``).
-    Unseeded unless ``rng`` is given."""
+    Unseeded unless ``rng`` is given.  For an operator that carries a
+    mesh, the same host vector sharded on it (this rank's slots)."""
     if rng is None:
         rng = np.random.default_rng()
     N = op_shape(op)[1]
     psi = rng.random(N) * np.exp(2j * np.pi * rng.random(N))
     psi /= np.linalg.norm(psi)
-    return psi.astype(dtype)
+    psi = psi.astype(dtype)
+    mesh = op_mesh(op)
+    return psi if mesh is None else mesh.shard(psi)
 
 
 def ritzvals(
@@ -54,7 +60,7 @@ def ritzvals(
     m = max(5, min(m_min, m_max - 1))
 
     psi0 = as_tensor(state, device=op_device(op))
-    psi0 = psi0 / torch.linalg.vector_norm(psi0)
+    psi0 = psi0 / sharded_norm(psi0, op_mesh(op))
     Hess, _q, m_eff = arnoldi(op, psi0, m_max, 1.0, extended=False,
                               norm_min=norm_min)
     del _q

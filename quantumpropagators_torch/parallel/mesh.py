@@ -61,6 +61,11 @@ class Mesh:
         the same entries (one rank: the full vector)."""
         return x.view(self.n_local, -1)
 
+    def shard(self, x) -> torch.Tensor:
+        """This rank's slots of the whole vector ``x``
+        (:func:`shard_vector`)."""
+        return shard_vector(self, x)
+
     def local_rows(self, x):
         """This rank's rows of a per-slot stack: ``x`` has one leading
         row per slot of the mesh (or per local slot already)."""

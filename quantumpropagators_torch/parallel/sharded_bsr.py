@@ -16,9 +16,13 @@ Block-column ids are remapped on the host when partitioning, and slabs
 are padded to the largest block degree.  The reference-accuracy forms
 (``PartitionedBSRdd`` and the ``*_dd`` functions) keep the JAX names;
 as everywhere in the port, their double-float pairs are float64
-operators and complex128 states.  ``DistributedBSR`` (the operator
-wrapper that lets Newton, Arnoldi and ``expv`` run on a sharded state
-through GSPMD reductions) has no counterpart yet.
+operators and complex128 states.
+
+:class:`DistributedBSR` puts a partition behind the operator protocol
+and carries its mesh, so Newton, Arnoldi, ``specrange`` and ``expv`` run
+on a sharded state unchanged: matvecs are the halo (or all-gather)
+SpMV, inner products per-slot partial sums over the mesh's ``psum``
+(:func:`~..ops.operators.op_mesh`), where the JAX class relies on GSPMD.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import torch
 
 from ..ops.df64_sparse import BSRdd, bsr_dd_from_scipy, cheby_dd_recurrence
 from ..ops.cheby import cheby_apply
-from ..ops.operators import BSROperator, as_tensor, bsr_from_scipy, host_np
+from ..ops.operators import (BSROperator, as_tensor, bsr_from_scipy, host_np,
+                              resolve_device)
 from .mesh import STATE_AXIS, Mesh
 
 __all__ = [
@@ -47,6 +52,7 @@ __all__ = [
     "banded_bsr_apply_dd",
     "allgather_bsr_apply_dd",
     "make_sharded_bsr_cheby_step_dd",
+    "DistributedBSR",
 ]
 
 
@@ -117,7 +123,11 @@ def _partition_cols(nz, cols, n_devices, mode):
 
 
 def _partition(op: BSROperator, n_devices, mode, device) -> PartitionedBSR:
-    blocks = host_np(op.blocks)
+    """The slabs of ``op`` on ``device``.  The block mask is reduced where
+    the blocks live and only it and the column ids visit the host; the
+    slabs are a view of ``op``'s blocks when those are already on
+    ``device``."""
+    blocks = as_tensor(op.blocks)
     cols = host_np(op.cols)
     R, k, b, _ = blocks.shape
     if op.shape[0] != R * b:
@@ -126,11 +136,12 @@ def _partition(op: BSROperator, n_devices, mode, device) -> PartitionedBSR:
             f"(logical dim {op.shape[0]} != {R}x{b}); pad the matrix "
             "to a multiple of the block size first"
         )
-    nz = np.abs(blocks).max(axis=(2, 3)) > 0  # (R, k) real entries
+    nz = host_np(torch.linalg.vector_norm(  # (R, k) nonzero blocks
+        blocks.reshape(R, k, -1), ord=float("inf"), dim=-1) > 0)
     slab_cols, halo, Rl = _partition_cols(nz, cols, n_devices, mode)
     return PartitionedBSR(
-        blocks=as_tensor(blocks.reshape(n_devices, Rl, k, b, b),
-                         device=device),
+        blocks=blocks.reshape(n_devices, Rl, k, b, b).to(
+            resolve_device(device)),
         cols=as_tensor(slab_cols, device=device),
         halo_blocks=halo,
         n_block_rows_local=Rl,
@@ -303,3 +314,28 @@ def make_sharded_bsr_cheby_step_dd(
         return out.reshape(state.shape)
 
     return step
+
+
+@dataclass(frozen=True)
+class DistributedBSR:
+    """Operator-protocol wrapper around a partitioned BSR matrix on a
+    shard-slot mesh (the JAX class's name and fields).
+
+    ``shape`` is the global ``(N, N)``; ``apply(psi)`` takes this rank's
+    ``(n_local, N/n)`` slots of a sharded state (with one rank, any
+    tensor of all ``N`` entries) and returns ``H psi`` in the same
+    layout, through the halo SpMV (``pbsr.halo_blocks >= 0``) or the
+    all-gather one.  The wrapper carries ``mesh``, so the Krylov methods
+    reduce over every slot (:func:`~..ops.operators.op_mesh`)."""
+
+    mesh: Mesh
+    pbsr: PartitionedBSR
+
+    @property
+    def shape(self):
+        return self.pbsr.shape
+
+    def apply(self, psi):
+        inner = _inner_for(self.pbsr)
+        return inner(self.pbsr, self.mesh.local(psi),
+                     mesh=self.mesh).reshape(psi.shape)

@@ -15,6 +15,14 @@ select the slot:
 
 The Chebyshev recurrence needs no reduction, so a sharded step is
 exchanges plus local work (:func:`make_sharded_cheby_step`).
+
+:class:`ShardedChainOperator` (built by :func:`shard_chain_operator`)
+puts such an operator behind the operator protocol together with its
+mesh.  It is the port's counterpart of the JAX package's GSPMD path, in
+which a plain ``Operator`` meets a sharded state and XLA inserts the
+exchanges and reductions: here the operator carries the mesh, its
+``apply`` is :func:`sharded_apply`, and the Krylov methods sum their
+inner products over every slot (:func:`~..ops.operators.op_mesh`).
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import torch
 from ..models.generators import Operator, ScaledOperator, _scalar
 from ..models.lattice import GroupedSiteSum, SiteOperatorSum
 from ..ops.cheby import cheby_apply
-from ..ops.operators import DiagonalOperator
+from ..ops.operators import DiagonalOperator, op_shape
 from .mesh import STATE_AXIS, Mesh, device_bits
 
 __all__ = [
@@ -37,6 +45,8 @@ __all__ = [
     "operator_shard_spec",
     "ShardedSiteSum",
     "prepare_sharded_operator",
+    "ShardedChainOperator",
+    "shard_chain_operator",
 ]
 
 
@@ -210,3 +220,37 @@ def make_sharded_cheby_step(
         return out.reshape(psi.shape)
 
     return step
+
+
+@dataclass(frozen=True)
+class ShardedChainOperator:
+    """A chain operator on a shard-slot mesh behind the operator
+    protocol: ``shape`` is the global ``(2^L, 2^L)`` and ``apply(psi)``
+    takes this rank's ``(n_local, 2^(L−p))`` slots of a sharded state
+    (with one rank, any tensor of all ``2^L`` entries) and returns the
+    product in the same layout.  ``op`` is the whole prepared operator,
+    ``local`` this rank's part of it (:func:`operator_shard_spec`)."""
+
+    mesh: Mesh
+    op: Any
+    local: Any
+
+    @property
+    def shape(self):
+        return op_shape(self.op)
+
+    def apply(self, psi):
+        return sharded_apply(self.local, self.mesh.local(psi),
+                             mesh=self.mesh).reshape(psi.shape)
+
+
+def shard_chain_operator(op, mesh: Mesh, *, group_bits: int = None):
+    """``op`` (:class:`DiagonalOperator` / :class:`SiteOperatorSum` terms
+    and their :class:`Operator` / :class:`ScaledOperator` combinations)
+    as a :class:`ShardedChainOperator` on ``mesh``: its site sums split
+    by :func:`prepare_sharded_operator` (``group_bits`` as there) and its
+    diagonals sliced to this rank's slots."""
+    prepared = prepare_sharded_operator(op, mesh.n_devices,
+                                        group_bits=group_bits)
+    return ShardedChainOperator(mesh, prepared,
+                                operator_shard_spec(prepared, mesh))

@@ -41,12 +41,15 @@ def _dd_term(t, device):
     (:func:`~..ops.bsr_dd.banded_dd_from_bsr`), the choice
     ``fused._static_dd_path`` makes; when that raises (complex entries,
     too many bands) the term, like every other one, goes through a host
-    scipy matrix and :func:`~..ops.dd_linalg.cdd_op_from_matrix`."""
+    scipy matrix and :func:`~..ops.dd_linalg.cdd_op_from_matrix`.  A
+    term that carries a shard-slot mesh applies itself to the sharded
+    complex128 state and passes through."""
     from ..ops.bsr_dd import BandedDD, banded_dd_from_bsr
     from ..ops.dd_linalg import CDDOp, DenseDDOp, cdd_op_from_matrix
     from ..ops.operators import BSROperator, to_scipy_sparse
 
-    if isinstance(t, (CDDOp, DenseDDOp)):
+    if isinstance(t, (CDDOp, DenseDDOp)) \
+            or getattr(t, "mesh", None) is not None:
         return t
     if isinstance(t, BandedDD):
         return CDDOp(t, None, t.shape)

@@ -193,11 +193,14 @@ def _looks_hermitian(generator, state, tlist) -> bool:
     """Cheap probabilistic hermiticity probe for ``method='auto'``:
     compare ``⟨x, H y⟩`` with ``conj(⟨y, H x⟩)`` on random vectors for
     the generator evaluated on the first interval.  Chooses Chebyshev
-    for Hermitian-looking generators, Newton otherwise."""
+    for Hermitian-looking generators, Newton otherwise.  For an
+    operator that carries a shard-slot mesh the vectors are sharded on
+    it and the products summed over every slot."""
     import torch
 
     from ..models.controls import evaluate
-    from ..ops.operators import apply, op_device, op_shape, vdot
+    from ..ops.operators import (apply, op_device, op_mesh, op_shape,
+                                 sharded_vdot)
 
     try:
         op = evaluate(generator, np.asarray(tlist, dtype=np.float64), 0)
@@ -211,8 +214,11 @@ def _looks_hermitian(generator, state, tlist) -> bool:
         y = torch.as_tensor(
             (rng.standard_normal(N) + 1j * rng.standard_normal(N))
         ).to(device=op_device(op), dtype=dtype)
-        a = complex(vdot(x, apply(op, y)))
-        b = complex(vdot(y, apply(op, x)))
+        mesh = op_mesh(op)
+        if mesh is not None:
+            x, y = mesh.shard(x), mesh.shard(y)
+        a = complex(sharded_vdot(x, apply(op, y), mesh))
+        b = complex(sharded_vdot(y, apply(op, x), mesh))
         scale = max(abs(a), abs(b), 1e-300)
         tol = 1e-5 if x.dtype == torch.complex64 else 1e-10
         return abs(a - np.conj(b)) / scale < tol

@@ -201,6 +201,19 @@ def _sharded_runs(mesh):
     y = kstep(pb, shard_vector(mesh, psi), coeffs)
     out["banded_dd"] = gather(y)
     out["norm"] = mesh.psum((y.abs() ** 2).sum(-1)).sqrt()
+
+    # the Krylov methods through DistributedBSR: reductions over psum
+    from quantumpropagators_torch.ops.expv import expv_apply
+    from quantumpropagators_torch.ops.newton import newton_apply
+    from quantumpropagators_torch.ops.specrange import specrange
+
+    dop = sbsr.DistributedBSR(mesh, sbsr.partition_bsr(A, 4, block_size=8,
+                                                       device="cpu"))
+    x = shard_vector(mesh, psi)
+    out["newton"] = gather(newton_apply(dop, x, 0.05, m_max=12))
+    out["expv"] = gather(expv_apply(dop, x, 0.05, m=20))
+    out["specrange"] = torch.tensor(specrange(dop, method="arnoldi",
+                                              state=x, m_max=20))
     return out
 
 
@@ -248,7 +261,9 @@ def _deadline(seconds: int):
 
 def test_two_process_sharded_steps_match_one_process():
     """2 processes × 2 slots over gloo: every sharded step equals the
-    same 4-slot mesh in one process to 1e-14."""
+    same 4-slot mesh in one process to 1e-14, and Newton, expv and
+    specrange through DistributedBSR (whose reductions sum in another
+    order over two ranks) to 1e-12."""
     repo = str(Path(__file__).resolve().parent.parent)
     env = dict(os.environ, PYTHONPATH=repo)
     port = str(_free_port())
@@ -270,9 +285,12 @@ def test_two_process_sharded_steps_match_one_process():
         line = [ln for ln in out.splitlines() if ln.startswith("OK rank=")]
         assert line, out
         errs = json.loads(line[0].split(" ", 2)[2])
+        krylov = {"newton", "expv", "specrange"}
         assert set(errs) == {"fused_dd", "fused", "chain", "bsr_dd",
-                             "banded_dd", "norm"}
-        assert max(errs.values()) <= 1e-14, errs
+                             "banded_dd", "norm"} | krylov
+        assert max(v for k, v in errs.items() if k not in krylov) <= 1e-14, \
+            errs
+        assert max(errs[k] for k in krylov) <= 1e-12, errs
 
 
 if __name__ == "__main__":

@@ -132,7 +132,7 @@ def test_check_rejects_real_state(tls, caplog):
     real = torch.tensor([1.0, 0.0], dtype=torch.float64)
     with pytest.raises(ValueError, match="does not pass check_state"):
         qt.propagate(real, tgen, TLIST, method="cheby")
-    with caplog.at_level(logging.ERROR, logger="quantumpropagators.interfaces"):
+    with caplog.at_level(logging.ERROR, logger="quantumpropagators_torch.interfaces"):
         assert not interfaces.check_state(real)
     assert "the state must have a complex dtype" in caplog.text
     assert interfaces.check_state(torch.tensor([0.6 + 0j, 0.8j]))

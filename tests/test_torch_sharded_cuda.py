@@ -1,7 +1,8 @@
 """The sharded steps on the card against the same calls on CPU tensors:
 the 4-slot sharded reference-tier flip step at L = 20 and the 4-slot
 sharded banded step at 2^16 (b = 128), each ≤ 1e-12, with their kernel
-launch counts.  Needs an NVIDIA GPU with nvcc (``-m cuda``); skips
+launch counts, and Newton through ``DistributedBSR`` on 4 slots at
+2^14 (≤ 1e-12).  Needs an NVIDIA GPU with nvcc (``-m cuda``); skips
 without one.  Imports no jax: run with ``--noconftest``."""
 
 import numpy as np
@@ -126,3 +127,37 @@ def test_sharded_banded_step_on_card_matches_cpu(cuda):
         out[str(dev)] = step(pb, psi.to(dev), coeffs).cpu()
     assert bs.LAUNCHES["banded_spmv<double>"] == 4 * (len(coeffs) - 1)
     assert float((out["cpu"] - out[str(cuda)]).abs().max()) < 1e-12
+
+
+def test_distributed_bsr_newton_on_card_matches_cpu(cuda):
+    """Newton (restarted Arnoldi, reductions over the mesh's psum) through
+    DistributedBSR on 4 slots of a 2^14 block-tridiagonal operator
+    (b = 128, halo mode), the result kept in the (4, 2^12) layout."""
+    from quantumpropagators_torch.ops.newton import newton_apply
+    from quantumpropagators_torch.parallel.mesh import shard_vector
+    from quantumpropagators_torch.parallel.sharded_bsr import (
+        DistributedBSR, partition_bsr)
+
+    b, R = 128, 128
+    g = torch.Generator().manual_seed(5)
+    D = torch.randn((R, b, b), generator=g, dtype=torch.float64)
+    U = torch.randn((R, b, b), generator=g, dtype=torch.float64)
+    blocks = torch.stack([U.transpose(1, 2), 0.5 * (D + D.transpose(1, 2)),
+                          U.roll(-1, 0)], 1) / np.sqrt(3 * b)
+    r = torch.arange(R)
+    cols = torch.stack([r - 1, r, r + 1], 1)
+    blocks[0, 0] = blocks[-1, 2] = 0.0  # no wrap-around coupling
+    cols = cols.clamp(0, R - 1)
+    A = qt.BSROperator(blocks=blocks, cols=cols, shape=(R * b, R * b),
+                       block_size=b)
+    psi = _state(R * b, 21)
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = chain_mesh(4, device=dev)
+        op = DistributedBSR(mesh, partition_bsr(A, 4, device=dev))
+        assert op.pbsr.halo_blocks == 1
+        got = newton_apply(op, shard_vector(mesh, psi), 0.2, m_max=12)
+        assert got.shape == (4, R * b // 4) and got.device.type == \
+            torch.device(dev).type
+        out[str(dev)] = got.cpu()
+    assert float((out["cpu"] - out[str(cuda)]).abs().max()) <= 1e-12
