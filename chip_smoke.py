@@ -41,6 +41,18 @@ Hermitian, and traces one sharded Newton step (slab matvec, CGS2 and
 halo exchange).  Its slab matvec is the plain ``torch.einsum``, as the
 JAX class's is, so it launches none of the kernels.
 
+Phase 12 runs the last modules of the port: (a) 5 planar steps
+(``ops/planar.py``, float32 planes) of the static L = 24 chain against 5
+f32 flip-kernel steps; (b) an ``(8, 2^20)`` batch through ``cheby_apply``
+against single calls, and ``torch.func.vmap`` over 8 drive amplitudes
+against a loop; (c) gradients through ``make_fused_cheby_propagator`` on
+5 intervals of phase 3's chain at L = 24 (the forward against phase 3
+and ``kernel="dd"``, autograd against finite differences, 3 descent
+steps, a trajectory cost through ``observable_fn``, the peak device
+memory); (d) the host assembly library (``native.py``, built with
+``g++``): the 2^20 chain and 4 × 5 lattice assembled on the host, held
+against the lattice operators and the ``kernel="dd"`` path on the card.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -293,13 +305,13 @@ def sz0(L, device):
     return DiagonalOperator(_spin(L, 0, torch.float64, device))
 
 
-def check_launches(tier, counts, ctype):
-    """One 20-step run of ``tier`` at L_MAIN launched the setup's tiled
+def check_launches(tier, counts, ctype, n_steps=N_STEPS):
+    """One ``n_steps``-step run of ``tier`` launched the setup's tiled
     pass once a step in ``ctype``, the iteration's in ``ctype`` (and, in
     the dd tier, the f32 tail's in float), and the high pass once before
     each tiled pass: ``high = first + iter`` in each type."""
     other = "float" if ctype == "double" else "double"
-    want_first = {ctype: N_STEPS, other: 0}
+    want_first = {ctype: n_steps, other: 0}
     iters = ("double", "float") if tier == "dd" else ("float",)
     ok = all(counts[f"cheby_flip_iter<{c}>"] > 0 for c in iters)
     for c in ("float", "double"):
@@ -308,7 +320,7 @@ def check_launches(tier, counts, ctype):
         ok &= first == want_first[c] and high == first + it
     if not ok:
         raise AssertionError(f"{tier} path launches: {counts} (expected "
-                             f"{N_STEPS} setups in {ctype} and one high "
+                             f"{n_steps} setups in {ctype} and one high "
                              f"pass before every tiled pass)")
 
 
@@ -415,7 +427,7 @@ def main_path(device, card):
     rates = {}
     for tier, t in (("dd", t_dd), ("pallas", t_32)):
         rates[tier] = (N_STEPS / t, N_STEPS * matvecs * nnz / t / 1e9)
-    return launches, rates, matvecs, (psi0, H, wrk), (psi_dd, psi_32)
+    return launches, rates, matvecs, (psi0, H, wrk), (psi_dd, psi_32), p_xla
 
 
 def round_trip(device):
@@ -1467,6 +1479,383 @@ def sharded_krylov_phase(device, card, ctx, group, rates9, sparse):
     log(f"phase 11 wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def planar_phase(device, card, wrk, pallas_steps_s, L=L_MAIN):
+    """Phase 12a: 5 steps of ``cheby_apply_planar`` on the static chain
+    (real float32 operators, the state as float32 planes) against 5
+    steps of the f32 flip-kernel path (``kernel="pallas"``) on the same
+    operator, state and envelope (phase 3's).  Returns the flip
+    launches of the pallas run."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.ops.planar import (
+        cheby_apply_planar, is_real_linear)
+
+    n = 5
+    tlist = np.linspace(0.0, n * DT, n + 1)
+    H_diag, H_x = qt.transverse_field_ising(L, J=J, g=G_FIELD, h=H_FIELD,
+                                            dtype=torch.float32,
+                                            device=device)
+    op = qt.Operator([H_diag, H_x], np.array([1.0]))
+    if not is_real_linear(op):
+        raise AssertionError("the float32 chain is not real-linear")
+    psi = random_state(L, torch.complex128, device, SEED + 120)
+    re = psi.real.to(torch.float32).contiguous()
+    im = psi.imag.to(torch.float32).contiguous()
+    psi32 = torch.complex(re, im)
+    del psi
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        re, im = cheby_apply_planar(op, re, im, wrk.coeffs, wrk.delta,
+                                    wrk.e_min, wrk.dt)
+    torch.cuda.synchronize()
+    t_planar = time.perf_counter() - t0
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise AssertionError(f"planar planes became {re.dtype}/{im.dtype}")
+
+    cf.reset_launches()
+    out = qt.propagate(psi32, op, tlist, method="cheby", fused=True,
+                       kernel="pallas", workspace=wrk)
+    torch.cuda.synchronize()
+    counts = dict(cf.LAUNCHES)
+    check_launches("pallas", counts, "float", n_steps=n)
+    diff = torch.linalg.vector_norm(torch.complex(re, im) - out)
+    err = float(diff)
+    norm_err = abs(float(torch.linalg.vector_norm(torch.complex(re, im)))
+                   - 1.0)
+    if not (err <= 1e-5 and norm_err <= 1e-5):
+        raise AssertionError(f"planar vs pallas: |d|_2 = {err}, "
+                             f"norm {norm_err}")
+    log(f"phase 12a planar L={L} float32 planes {n} steps: |d|_2 vs "
+        f"{n} pallas (f32 flip kernel) steps={err:.3e} (<= 1e-5), "
+        f"|norm-1|={norm_err:.2e}; planar {n / t_planar:.3f} steps/s "
+        f"(plain PyTorch, no kernel), pallas main path {pallas_steps_s:.3f} "
+        f"steps/s (phase 6) [{card}]")
+    return counts
+
+
+def batched_phase(device, card, L=L_CHECK, n_batch=8):
+    """Phase 12b: one ``cheby_apply`` on an ``(n_batch, 2^L)`` complex128
+    batch of seeded states against single calls, and ``torch.func.vmap``
+    over ``n_batch`` drive amplitudes in [0, 1] through
+    ``Operator([H_diag, H_x], [amp])`` against a loop (<= 1e-12)."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops.cheby import cheby_apply, cheby_coeffs
+
+    H_diag, H_x = qt.transverse_field_ising(L, J=J, g=G_FIELD, h=H_FIELD,
+                                            dtype=torch.complex128,
+                                            device=device)
+    bound = (L - 1) * J + L * (G_FIELD + H_FIELD)
+    delta, e_min = 2.0 * bound, -bound
+    coeffs = cheby_coeffs(delta, DT)
+    op = qt.Operator([H_diag, H_x], np.array([1.0]))
+    batch = torch.stack([random_state(L, torch.complex128, device,
+                                      SEED + 130 + k)
+                         for k in range(n_batch)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cheby_apply(op, batch, coeffs, delta, e_min, DT)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [cheby_apply(op, batch[k], coeffs, delta, e_min, DT)
+               for k in range(n_batch)]
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    err_b = max(float((out[k] - singles[k]).abs().max())
+                for k in range(n_batch))
+    del out, singles
+
+    psi = batch[0]
+    amps = torch.linspace(0.0, 1.0, n_batch, dtype=torch.float64,
+                          device=device)
+
+    def with_amp(amp):
+        return cheby_apply(qt.Operator([H_diag, H_x], amp.reshape(1)), psi,
+                           coeffs, delta, e_min, DT)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = torch.func.vmap(with_amp)(amps)
+    torch.cuda.synchronize()
+    t_vmap = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop = [with_amp(amps[k]) for k in range(n_batch)]
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    err_v = max(float((outs[k] - loop[k]).abs().max())
+                for k in range(n_batch))
+    if outs.shape != (n_batch, 2 ** L) or not (err_b <= 1e-12
+                                               and err_v <= 1e-12):
+        raise AssertionError(f"batched: {err_b}, vmap: {err_v}, shape "
+                             f"{tuple(outs.shape)}")
+    log(f"phase 12b batched L={L} ({n_batch}, 2^{L}) complex128: batch vs "
+        f"single calls max|d|={err_b:.3e}, vmap over {n_batch} drive "
+        f"amplitudes vs a loop max|d|={err_v:.3e} (<= 1e-12) ok; batch "
+        f"{t_batch:.4f} s vs {n_batch} single calls {t_single:.4f} s, vmap "
+        f"{t_vmap:.4f} s vs loop {t_loop:.4f} s [{card}]")
+
+
+def gradient_phase(device, card, chain, p_xla, L=L_MAIN, n=5):
+    """Phase 12c: gradients through ``make_fused_cheby_propagator`` on the
+    first ``n`` intervals of phase 3's driven chain (complex128, phase
+    3's envelope): (a) the forward against phase 3's plain generic
+    result and ``kernel="dd"``; (b) the autograd gradient of the
+    infidelity to a fixed seeded target against central finite
+    differences at 3 table entries; (c) 3 gradient-descent steps each
+    lower the infidelity; the trajectory cost on ⟨σz₀⟩ through
+    ``observable_fn`` has a finite, nonzero gradient; (d) forward and
+    forward + backward seconds and the peak device memory.  Returns the
+    flip launches of the dd run."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.fused import make_fused_cheby_propagator
+    from quantumpropagators_torch.models.generators import coeff_table
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    psi0, H, wrk = chain
+    tlist = np.linspace(0.0, N_STEPS * DT, N_STEPS + 1)[:n + 1]
+    envelope = dict(E_min=wrk.e_min, E_max=wrk.e_min + wrk.delta,
+                    specrange_method="manual", specrange_buffer=0.0)
+    fn = make_fused_cheby_propagator(psi0, H, tlist, **envelope)
+    table0 = coeff_table(H, tlist).to(device)
+    n_orders = len(wrk.coeffs)
+
+    # (a) the forward, and the reference tier on the flip kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        psi_T, _ = fn(psi0, table0)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    cf.reset_launches()
+    p_dd = qt.propagate(psi0, H, tlist, method="cheby", fused=True,
+                        kernel="dd", workspace=wrk)
+    torch.cuda.synchronize()
+    counts = dict(cf.LAUNCHES)
+    check_launches("dd", counts, "double", n_steps=n)
+    err_xla = float((psi_T - p_xla).abs().max())
+    err_dd = float((psi_T - p_dd).abs().max())
+    if not (err_xla <= 1e-13 and err_dd <= 1e-10):
+        raise AssertionError(f"12c forward: vs plain {err_xla}, vs dd "
+                             f"{err_dd}")
+    del p_dd
+
+    # the target: the state a seeded perturbation of the table reaches
+    rng = np.random.default_rng(SEED + 140)
+    kick = torch.as_tensor(0.05 * rng.standard_normal(tuple(table0.shape)),
+                           device=device)
+    with torch.no_grad():
+        target, _ = fn(psi0, table0 + kick)
+
+    def infidelity(table):
+        psi, _ = fn(psi0, table)
+        return 1.0 - torch.vdot(target, psi).abs() ** 2
+
+    def loss_and_grad(table):
+        table = table.detach().requires_grad_(True)
+        loss = infidelity(table)
+        (g,) = torch.autograd.grad(loss, table)
+        return float(loss.detach()), g
+
+    # (b) and (d): one forward + backward, its time and peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss0, g = loss_and_grad(table0)
+    torch.cuda.synchronize()
+    t_fb = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fd_errs = []
+    base_np = table0.cpu().numpy()
+    for idx in [(0, 0), (2, 0), (4, 0)]:
+        eps = 1e-6
+        tp, tm = base_np.copy(), base_np.copy()
+        tp[idx] += eps
+        tm[idx] -= eps
+        with torch.no_grad():
+            fd = (float(infidelity(torch.as_tensor(tp, device=device)))
+                  - float(infidelity(torch.as_tensor(tm, device=device)))) \
+                / (2 * eps)
+        gi = float(g[idx])
+        if not abs(gi - fd) <= max(1e-5 * abs(fd), 1e-8):
+            raise AssertionError(f"12c gradient at {idx}: {gi} vs finite "
+                                 f"difference {fd}")
+        fd_errs.append(abs(gi - fd) / abs(fd))
+
+    # (c) three gradient-descent steps, each lowering the infidelity (the
+    # last step's loss needs no gradient)
+    losses, table = [loss0], table0
+    for k in range(3):
+        table = (table - 1.0 * g).detach()
+        if k < 2:
+            loss, g = loss_and_grad(table)
+        else:
+            with torch.no_grad():
+                loss = float(infidelity(table))
+        losses.append(loss)
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"12c gradient descent did not lower the "
+                             f"infidelity: {losses}")
+
+    # the trajectory cost on <sz_0> through observable_fn
+    sz = sz0(L, device)
+    fn_obs = make_fused_cheby_propagator(
+        psi0, H, tlist, observable_fn=lambda psi: torch.vdot(
+            psi, sz.apply(psi)).real, **envelope)
+    table = table0.detach().requires_grad_(True)
+    _, vals = fn_obs(psi0, table)
+    (g_obs,) = torch.autograd.grad(torch.mean((vals + 1.0) ** 2), table)
+    g_norm = float(torch.linalg.vector_norm(g_obs))
+    if vals.shape != (n,) or not (bool(torch.isfinite(g_obs).all())
+                                  and g_norm > 1e-6):
+        raise AssertionError(f"12c trajectory gradient: {g_obs}")
+
+    gib = 2.0 ** 30
+    state_gib = psi0.numel() * psi0.element_size() / gib
+    reckoned = 15 * (n_orders / 16) * n * state_gib
+    log(f"phase 12c gradients L={L} complex128, {n} intervals of the driven "
+        f"chain ({n_orders} orders): (a) forward vs phase 3 plain generic "
+        f"max|d|={err_xla:.3e} (<= 1e-13), vs kernel=dd {err_dd:.3e} "
+        f"(<= 1e-10); (b) infidelity {loss0:.6e}, autograd vs central "
+        f"differences (eps=1e-6) rel {max(fd_errs):.2e} (rel 1e-5, abs "
+        f"1e-8) at 3 entries; (c) 3 descent steps lowered it: "
+        f"{', '.join(f'{x:.6e}' for x in losses)}; trajectory cost on "
+        f"<sz_0>: |grad|={g_norm:.3e} finite ok")
+    log(f"phase 12c (d) forward {t_fwd:.3f} s, forward + backward "
+        f"{t_fb:.3f} s; peak device memory {peak / gib:.3f} GiB "
+        f"({(peak - base) / gib:.3f} GiB above the {base / gib:.3f} GiB "
+        f"live before it); reckoned saved tensors 15 x {n_orders}/16 x {n} "
+        f"x {state_gib:.3f} GiB = {reckoned:.3f} GiB [{card}]")
+    return counts
+
+
+def native_phase(device, card, L=L_CHECK, lattice=(4, 5)):
+    """Phase 12d: the host assembly library (``native.py``).  The L-site
+    chain and the lattice assembled on the host, moved to the card as
+    ``CSROperator``s, held against the lattice operators (apply, 1e-12)
+    and against the flip-structure ``kernel="dd"`` path (5 Chebyshev
+    steps of ``propagate(..., method="cheby")``, 1e-10); the host
+    ``csr_spmv`` against the card's apply (1e-12) and
+    ``band_partition_remap`` against its numpy path.  Returns the flip
+    launches of each dd run."""
+    import scipy.sparse as sp
+
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch import native
+    from quantumpropagators_torch.models.lattice import (
+        chain_bonds, lattice2d_bonds)
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    if not native.native_available():
+        raise AssertionError("native library did not build (g++)")
+    Lx, Ly = lattice
+    if Lx * Ly != L:
+        raise AssertionError(f"lattice {Lx}x{Ly} is not 2^{L}")
+    n = 5
+    tlist = np.linspace(0.0, n * DT, n + 1)
+    N = 2 ** L
+    x = random_state(L, torch.complex128, device, SEED + 150)
+    x_host = x.cpu().numpy()
+    counts, lines = {}, []
+    for name, assemble, build in [
+        ("chain", lambda: native.tfim_chain_csr(L, J, G_FIELD, H_FIELD),
+         lambda: qt.transverse_field_ising(L, J=J, g=G_FIELD, h=H_FIELD,
+                                           dtype=torch.complex128,
+                                           device=device)),
+        (f"lattice {Lx}x{Ly}",
+         lambda: native.tfim_lattice2d_csr(Lx, Ly, J, G_FIELD, H_FIELD),
+         lambda: qt.transverse_field_ising_2d(Lx, Ly, J=J, g=G_FIELD,
+                                              h=H_FIELD,
+                                              dtype=torch.complex128,
+                                              device=device)),
+    ]:
+        t0 = time.perf_counter()
+        indptr, cols, vals = assemble()
+        t_host = time.perf_counter() - t0
+        csr = qt.csr_from_scipy(sp.csr_matrix((vals, cols, indptr),
+                                              shape=(N, N)), device=device)
+        H_diag, H_x = build()
+        y = csr.apply(x)
+        err_apply = float((y - H_diag.apply(x) - H_x.apply(x)).abs().max())
+        t0 = time.perf_counter()
+        y_host = native.csr_spmv(indptr, cols, vals, x_host)
+        t_spmv = time.perf_counter() - t0
+        err_host = float(np.abs(y_host - y.cpu().numpy()).max())
+        remap = native.band_partition_remap(indptr, cols, 4)
+        remap_np = native._band_partition_remap_np(indptr, cols, 4)
+        same_remap = remap[0] == remap_np[0] and (
+            remap[1] is None or np.array_equal(remap[1], remap_np[1]))
+        card_ms = time_ms(lambda: csr.apply(x), 10)
+
+        n_bonds = len(chain_bonds(L) if name == "chain"
+                      else lattice2d_bonds(Lx, Ly))
+        bound = n_bonds * J + L * (G_FIELD + H_FIELD)
+        envelope = dict(E_min=-bound, E_max=bound,
+                        specrange_method="manual")
+        out_csr = qt.propagate(x, csr, tlist, method="cheby", **envelope)
+        cf.reset_launches()
+        out_dd = qt.propagate(x, qt.Operator([H_diag, H_x], np.array([1.0])),
+                              tlist, method="cheby", fused=True, kernel="dd",
+                              **envelope)
+        torch.cuda.synchronize()
+        counts[f"phase 12d dd {name}"] = dict(cf.LAUNCHES)
+        check_launches("dd", counts[f"phase 12d dd {name}"], "double",
+                       n_steps=n)
+        err_prop = float((out_csr - out_dd).abs().max())
+        if not (err_apply <= 1e-12 and err_host <= 1e-12 and same_remap
+                and err_prop <= 1e-10):
+            raise AssertionError(f"12d {name}: apply {err_apply}, host "
+                                 f"spmv {err_host}, remap {remap[0]} vs "
+                                 f"{remap_np[0]}, propagate {err_prop}")
+        lines.append(
+            f"phase 12d native {name} 2^{L} ({len(vals)} entries): apply "
+            f"vs lattice operators max|d|={err_apply:.3e} (<= 1e-12), host "
+            f"csr_spmv vs card apply {err_host:.3e} (<= 1e-12), "
+            f"band_partition_remap(4) = numpy path (halo {remap[0]}), 5 "
+            f"cheby steps on the CSR vs kernel=dd {err_prop:.3e} (<= 1e-10) "
+            f"ok; host assembly {t_host:.4f} s (host), host csr_spmv "
+            f"{1e3 * t_spmv:.3f} ms (host), card CSR apply {card_ms:.4f} ms "
+            f"[{card}]")
+        del csr, y, out_csr, out_dd, indptr, cols, vals, y_host
+    # a matrix that is banded for the partition: the remap and its halo
+    A = sp.diags([np.ones(N - 3), np.ones(N), np.ones(N - 3)], [-3, 0, 3],
+                 format="csr")
+    w, ext = native.band_partition_remap(A.indptr, A.indices, 4)
+    w_np, ext_np = native._band_partition_remap_np(A.indptr, A.indices, 4)
+    if not (w == w_np == 3 and np.array_equal(ext, ext_np)):
+        raise AssertionError(f"12d remap of a banded matrix: {w} vs {w_np}")
+    for line in lines:
+        log(line)
+    log(f"phase 12d band_partition_remap(4) of a 2^{L} band (offsets "
+        f"-3, 0, 3): halo {w} = numpy path ok")
+    return counts
+
+
+def final_slice_phase(device, card, chain, p_xla, pallas_steps_s):
+    """Phase 12: the planar path, batching, gradients and the host
+    assembly library (12a-12d).  Returns the flip launches of each
+    counted path."""
+    t_phase = time.perf_counter()
+    paths = {"phase 12a pallas (planar reference)": planar_phase(
+        device, card, chain[2], pallas_steps_s)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    batched_phase(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["phase 12c dd (gradient reference)"] = gradient_phase(
+        device, card, chain, p_xla)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(native_phase(device, card))
+    log(f"phase 12 wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
@@ -1489,7 +1878,7 @@ def main() -> int:
         f"(nvcc {_cuda.build_info['seconds']:.2f} s); ptxas: {regs}")
 
     errs = compare_kernels(device)
-    launches, rates, matvecs, chain, finals = main_path(device, card)
+    launches, rates, matvecs, chain, finals, p_xla = main_path(device, card)
     round_trip(device)
     times = time_kernels(device, card)
     for tier, (steps_s, gnnz) in rates.items():
@@ -1525,7 +1914,12 @@ def main() -> int:
     banded["launches_by_path"]["phase 10 sharded banded20"] = n
     banded["launches"] += n
     banded["max_abs_err"] = max(banded["max_abs_err"], err_b)
-    del chain, finals, ctx
+    del finals, ctx
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 11's buffers go before phase 12
+    flip_paths.update(final_slice_phase(device, card, chain, p_xla,
+                                        rates["pallas"][0]))
+    del chain, p_xla
 
     kernels = []
     for name in REPLACES:

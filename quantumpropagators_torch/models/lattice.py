@@ -74,13 +74,14 @@ class SiteOperatorSum:
 
     def apply(self, psi):
         L = self.L
-        N = 2 ** L
         lead = psi.shape[:-1]
         active = self.active if self.active else (True,) * L
         dtype = torch.promote_types(psi.dtype, self.site_mats.dtype)
         psi = psi.to(dtype)
         mats = self.site_mats.to(dtype)
-        out = torch.zeros(lead + (N,), dtype=dtype, device=psi.device)
+        # zeros_like keeps a vmap batch dimension of psi, so the sums
+        # below may write batched values into it
+        out = torch.zeros_like(psi, memory_format=torch.contiguous_format)
         for i in range(L):
             if not active[i]:
                 continue

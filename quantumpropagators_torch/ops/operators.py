@@ -249,7 +249,9 @@ class CSROperator:
         prod = data * psi[..., self.col]
         out = torch.zeros(psi.shape[:-1] + (self.shape[0],),
                           dtype=prod.dtype, device=prod.device)
-        return out.index_add_(-1, self.row, prod)
+        # out of place: under vmap ``prod`` may carry a batch dimension
+        # that ``out`` lacks
+        return out.index_add(-1, self.row, prod)
 
     def to_dense(self):
         A = torch.zeros(self.shape, dtype=self.data.dtype,

@@ -3,7 +3,7 @@
 ``src/exp_propagator.jl``).
 
 The debug/small-system method: each step forms ``U = f(H·dt)`` by dense
-matrix exponentiation on the state's device (``torch.linalg.matrix_exp``)
+matrix exponentiation on the state's device (:func:`..ops.expprop.expm`)
 and applies it.  ``convert_state`` / ``convert_operator`` escape hatches
 allow densifying unusual types before the exponential (reference
 ``src/exp_propagator.jl:35-39``); a custom ``func`` receives the host

@@ -23,7 +23,9 @@ def test_import_does_not_load_jax():
         "quantumpropagators_torch.ops.cheby_flip, "
         "quantumpropagators_torch.ops.banded_spmv, "
         "quantumpropagators_torch.ops.bsr_dd, "
-        "quantumpropagators_torch.utils.fixtures; "
+        "quantumpropagators_torch.utils.fixtures, "
+        "quantumpropagators_torch.ops.planar, "
+        "quantumpropagators_torch.native; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert 'triton' not in sys.modules, 'triton imported'"
     )
