@@ -53,6 +53,15 @@ memory); (d) the host assembly library (``native.py``, built with
 ``g++``): the 2^20 chain and 4 × 5 lattice assembled on the host, held
 against the lattice operators and the ``kernel="dd"`` path on the card.
 
+Phase 13 runs ``bench_torch.py`` (the port of ``bench.py``) through its
+command line, one process per mode (``BENCH_MODES``): the headline chain
+at 2^20 with each of the four kernels (dd with the f64 host oracle), the
+4 × 6 lattice and northstar (100 steps) at 2^24 without the oracle,
+banded20, multiamp, optomech, newton, transmon and rabi.  Each JSON line
+must hold every key of the ``bench.py`` line it mirrors (read from
+``bench.py``'s source with ``ast``), finite numbers and the modes'
+accuracy bounds; its launches are not counted in the kernels line.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -1856,6 +1865,141 @@ def final_slice_phase(device, card, chain, p_xla, pallas_steps_s):
     return paths
 
 
+# phase 13: bench_torch.py through its command line, one process a mode:
+# (the bench.py function whose JSON line the mode mirrors, arguments,
+# extra keys the line must hold besides bench.py's literal ones).  The
+# 2^24 modes run without the host oracle (minutes at 2^24), northstar at
+# 100 of its 1000 steps.
+TRANSMON_KEYS = tuple(f"{m}_{k}" for m in ("cheby", "newton")
+                      for k in ("matvecs_per_100_steps", "steps_per_s"))
+BENCH_MODES = (  # the longest first
+    ("bench_banded20", ("--config", "banded20"), ()),
+    ("main", ("--lattice2d", "4x6", "--kernel", "dd", "--steps", "5",
+              "--no-oracle"), ()),
+    ("bench_northstar", ("--config", "northstar", "--steps", "100",
+                         "--no-oracle"), ()),
+    ("bench_transmon", ("--config", "transmon"), TRANSMON_KEYS),
+    ("main", ("--L", "20", "--kernel", "dd"), ("per_step_error_vs_f64",)),
+    ("main", ("--L", "20", "--kernel", "fused"), ()),
+    ("main", ("--L", "20", "--kernel", "planar"), ()),
+    ("main", ("--L", "20", "--kernel", "complex"), ()),
+    ("bench_optomech", ("--config", "optomech"), ()),
+    ("bench_newton", ("--config", "newton"), ()),
+    ("bench_multiamp", ("--config", "multiamp"), ()),
+    ("bench_rabi", ("--config", "rabi"), ()),
+)
+
+
+def bench_py_lines(path):
+    """What each function of ``bench.py`` prints, read from its source
+    with ``ast`` (``bench.py`` imports jax and is never imported here):
+    ``{function: (metric regex, unit, keys, extra keys)}``.  An f-string
+    metric's fields match any text; only literal keys are listed (a
+    ``**`` entry of a dict adds keys that depend on the run)."""
+    import ast
+    import re
+
+    out = {}
+    for fn in ast.parse(open(path).read()).body:
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        for node in ast.walk(fn):
+            keys = [k.value if isinstance(k, ast.Constant) else None
+                    for k in getattr(node, "keys", ())]
+            if not isinstance(node, ast.Dict) or "metric" not in keys:
+                continue
+            d = dict(zip(keys, node.values))
+            m = d["metric"]
+            metric = re.escape(m.value) if isinstance(m, ast.Constant) else \
+                "".join(re.escape(v.value) if isinstance(v, ast.Constant)
+                        else ".+" for v in m.values)
+            extra = {k.value for k in d["extra"].keys
+                     if isinstance(k, ast.Constant)}
+            out[fn.name] = (metric, d["unit"].value,
+                            {k for k in keys if k is not None}, extra)
+    return out
+
+
+def _numbers(x):
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _numbers(v)
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield x
+
+
+def check_bench_line(name, line, expected, also=()):
+    """Hold one JSON line of ``bench_torch.py`` against ``bench.py``'s
+    line of the function ``name`` (``expected``, from
+    :func:`bench_py_lines`): the metric and unit, every key and extra
+    key (and the extra keys ``also``), the key ``card``, finite numbers,
+    and the mode's accuracy bounds.  Raises ``AssertionError``."""
+    import math
+    import re
+
+    metric, unit, keys, extra_keys = expected
+    missing = (keys | {"card"}) - set(line)
+    missing |= {f"extra.{k}" for k in (extra_keys | set(also))
+                - set(line["extra"])}
+    if missing or not re.fullmatch(metric, line["metric"]) \
+            or line["unit"] != unit:
+        raise AssertionError(f"{name}: {line['metric']} [{line['unit']}] "
+                             f"against {metric} [{unit}], missing {missing}")
+    bad = [x for x in _numbers(line) if not math.isfinite(x)]
+    if bad:
+        raise AssertionError(f"{name}: non-finite numbers {bad}")
+    ex = line["extra"]
+    bounds = {"per_step_error_vs_f64": 1e-13,   # PERF.md section 2
+              "banded_vs_xla_dd_diff": 1e-12,
+              "round_trip_2000_step_err": 1e-10}
+    for key, limit in bounds.items():
+        if key in ex and not ex[key] <= limit:
+            raise AssertionError(f"{name}: {key} {ex[key]} > {limit}")
+    if name == "bench_transmon":
+        counts = [ex[f"{m}_matvecs_per_100_steps"] for m in ("newton", "cheby")]
+        if not all(isinstance(c, int) and c > 0 for c in counts):
+            raise AssertionError(f"transmon matvec counts {counts}")
+
+
+def bench_phase(card, workers=4):
+    """Phase 13: every mode of ``bench_torch.py`` (the port of
+    ``bench.py``) at ``BENCH_MODES``' sizes, each in its own process
+    through the command line, ``workers`` processes at a time (a process
+    spends most of its time starting up and building its inputs on the
+    host); each JSON line held by :func:`check_bench_line`.  A mode that
+    exits nonzero fails the phase.  The modes share the card, so their
+    rates are not measurements."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    expected = bench_py_lines(os.path.join(root, "bench.py"))
+    t_phase = time.perf_counter()
+
+    def run(args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(root, "bench_torch.py"), *args],
+            cwd=root, capture_output=True, text=True, timeout=300,
+        )
+        return proc, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(workers) as pool:
+        futures = [pool.submit(run, args) for _, args, _ in BENCH_MODES]
+        runs = [f.result() for f in futures]
+    for (name, args, also), (proc, seconds) in zip(BENCH_MODES, runs):
+        cmd = " ".join(args)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench_torch.py {cmd} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        check_bench_line(name, line, expected[name], also)
+        if line["card"] != card:
+            raise AssertionError(f"bench_torch.py {cmd}: card {line['card']}")
+        log(f"phase 13 bench_torch.py {cmd}: {line['metric']} [{line['unit']}]"
+            f" keys held, extra {json.dumps(line['extra'])} ({seconds:.1f} s, "
+            f"{workers} modes at a time) [{card}]")
+    log(f"phase 13 wall {time.perf_counter() - t_phase:.1f} s")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
@@ -1920,6 +2064,9 @@ def main() -> int:
     flip_paths.update(final_slice_phase(device, card, chain, p_xla,
                                         rates["pallas"][0]))
     del chain, p_xla
+    gc.collect()
+    torch.cuda.empty_cache()  # phase 12's buffers go before phase 13
+    bench_phase(card)
 
     kernels = []
     for name in REPLACES:

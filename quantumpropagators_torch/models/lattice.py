@@ -234,18 +234,24 @@ def zz_bonds_diagonal(L: int, bonds, J=1.0, *, dtype=torch.float32,
 
 def ising_diagonal_np(L: int, bonds, J=1.0, h=0.0) -> np.ndarray:
     """Host-side float64 diagonal ``Σ_b J_b σᶻᵢσᶻⱼ + Σᵢ hᵢ σᶻᵢ``
-    (site ``i`` is the MSB-first position)."""
+    (site ``i`` is the MSB-first position).  Each term is one
+    broadcast add of its ±value table over the sites' index bits (no
+    index array), in the JAX function's order, so the sums are the
+    same."""
     J = np.broadcast_to(np.asarray(J, dtype=np.float64), (len(bonds),))
     h = np.broadcast_to(np.asarray(h, dtype=np.float64), (L,))
-    idx = np.arange(2 ** L)
-    diag = np.zeros(2 ** L, dtype=np.float64)
-    spin = lambda i: 1.0 - 2.0 * ((idx >> (L - 1 - i)) & 1)
+    diag = np.zeros((2,) * L, dtype=np.float64)
+    s = np.array([1.0, -1.0])
+
+    def axis(i):  # σᶻ of site i along its index bit, broadcastable
+        return s.reshape((2,) + (1,) * (L - 1 - i))
+
     for (i, j), Jb in zip(bonds, J):
-        diag += Jb * spin(i) * spin(j)
+        diag += Jb * (axis(i) * axis(j))
     for i in range(L):
         if h[i] != 0.0:
-            diag += h[i] * spin(i)
-    return diag
+            diag += h[i] * axis(i)
+    return diag.reshape(-1)
 
 
 def chain_bonds(L: int, periodic: bool = False):
