@@ -121,14 +121,17 @@ def cpu_csr_baseline(L_ref: int) -> float:
 
 def flip_oracle_step(psi, diag, g, L, coeffs, delta, e_min, dt):
     """One forward Chebyshev step of ``H = diag + g·Σ_j X_j`` in float64
-    numpy on the host, every flip an index gather ``v[idx ^ (1 << j)]``."""
-    idx = np.arange(2 ** L)
-
+    numpy on the host: the flip of index bit ``j`` (``v[idx ^ (1 << j)]``)
+    is ``v`` viewed as ``(−1, 2, 2^j)`` with the middle axis reversed,
+    summed in place over the bits."""
     def h_apply(v):
-        out = diag * v
+        flips = np.zeros_like(v)
         for j in range(L):
-            out = out + g * v[idx ^ (1 << j)]
-        return out
+            acc = flips.reshape(-1, 2, 1 << j)
+            acc += v.reshape(-1, 2, 1 << j)[:, ::-1]
+        flips *= g
+        flips += diag * v
+        return flips
 
     beta = delta / 2 + e_min
     c = -2j / delta

@@ -62,6 +62,17 @@ must hold every key of the ``bench.py`` line it mirrors (read from
 ``bench.py``'s source with ``ast``), finite numbers and the modes'
 accuracy bounds; its launches are not counted in the kernels line.
 
+Phase 14 runs the port's entry points: ``scaling_torch.py``'s
+reference-accuracy chain regime (hypercube-dd) in this process at L = 24,
+4 slots against 1 slot and one step against the f64 host oracle, its
+flip launches counted; the four ``examples/*_torch.py`` (GRAPE, Krotov,
+the multi-amplitude dd chain, the sharded chain) as processes, held at
+the numbers the JAX examples reach; and ``scaling_torch.py``'s command
+line through its ``main`` in this process (``--mode all`` and ``--mode
+banded-vs-ag`` on 4 slots, chains 2^22 → 2^24, banded 2^18 → 2^20),
+each run alone on the card, each JSON line held against
+``scaling.py``'s (read with ``ast``).
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -1961,6 +1972,80 @@ def check_bench_line(name, line, expected, also=()):
             raise AssertionError(f"transmon matvec counts {counts}")
 
 
+def _branches(node):
+    """The regexes a string expression of ``scaling.py`` can print: a
+    constant, an f-string (its fields match any text) or either branch
+    of a conditional expression."""
+    import ast
+    import re
+
+    if isinstance(node, ast.IfExp):
+        return _branches(node.body) + _branches(node.orelse)
+    if isinstance(node, ast.Constant):
+        return [re.escape(str(node.value))]
+    return ["".join(re.escape(v.value) if isinstance(v, ast.Constant)
+                    else ".+" for v in node.values)]
+
+
+def scaling_py_lines(path):
+    """What ``scaling.py`` prints, read from its source with ``ast``
+    (it imports jax and is never imported here): one entry per dict
+    literal with a ``metric`` key, ``(metric regexes, unit regexes,
+    pass_criterion regexes or None, keys)``; the strings are
+    conditional expressions, so each lists every branch."""
+    import ast
+
+    out = []
+    for node in ast.walk(ast.parse(open(path).read())):
+        if not isinstance(node, ast.Dict):
+            continue
+        keys = [k.value if isinstance(k, ast.Constant) else None
+                for k in node.keys]
+        if "metric" not in keys:
+            continue
+        d = dict(zip(keys, node.values))
+        out.append((_branches(d["metric"]), _branches(d["unit"]),
+                    _branches(d["pass_criterion"])
+                    if "pass_criterion" in d else None,
+                    {k for k in keys if k is not None}))
+    return out
+
+
+def check_scaling_line(line, expected, card):
+    """Hold one JSON line of ``scaling_torch.py`` against the
+    ``scaling.py`` line whose metric it prints (``expected`` from
+    :func:`scaling_py_lines`): the unit and pass criterion among that
+    line's branches, every key, ``card``, finite positive throughputs;
+    a shared-slot line says that it does not measure weak scaling.
+    Raises ``AssertionError``."""
+    import math
+    import re
+
+    match = [e for e in expected
+             if any(re.fullmatch(m, line["metric"]) for m in e[0])]
+    if len(match) != 1:
+        raise AssertionError(f"scaling line metric {line['metric']}")
+    _, units, criteria, keys = match[0]
+    missing = (keys | {"card"}) - set(line)
+    if missing or line["card"] != card \
+            or not any(re.fullmatch(u, line["unit"]) for u in units) \
+            or (criteria is not None and not any(
+                re.fullmatch(c, line["pass_criterion"]) for c in criteria)):
+        raise AssertionError(f"scaling line {line['metric']} "
+                             f"[{line['unit']}], card {line['card']}, "
+                             f"missing {missing}")
+    nums = list(_numbers(line))
+    rates = [x for t in line["tables"].values() if isinstance(t, dict)
+             for x in (r["gnnz_total"] for r in t.values())] \
+        if "regime" in line else [line["tables"][k] for k in
+                                  ("banded", "allgather", "no_comm")]
+    if not all(math.isfinite(x) for x in nums) or not all(
+            x > 0 for x in rates):
+        raise AssertionError(f"scaling line numbers {nums}")
+    if "shared" in line["metric"] and "not weak scaling" not in line["note"]:
+        raise AssertionError(f"shared line note: {line['note']}")
+
+
 def bench_phase(card, workers=4):
     """Phase 13: every mode of ``bench_torch.py`` (the port of
     ``bench.py``) at ``BENCH_MODES``' sizes, each in its own process
@@ -1999,6 +2084,167 @@ def bench_phase(card, workers=4):
             f" keys held, extra {json.dumps(line['extra'])} ({seconds:.1f} s, "
             f"{workers} modes at a time) [{card}]")
     log(f"phase 13 wall {time.perf_counter() - t_phase:.1f} s")
+
+# phase 14: the port's entry points.  scaling_torch.py's command lines
+# (chain regimes 2^22 -> 2^24, banded 2^18 -> 2^20, banded20's size), each
+# alone on the card, after the four examples, EXAMPLE_WORKERS at a time.
+SCALING_SIZES = ("--slots", "4", "--L-base", "22", "--R-local", "2048",
+                 "--block", "128", "--steps", "5")
+SCALING_RUNS = (("--mode", "all"), ("--mode", "banded-vs-ag"))
+EXAMPLE_WORKERS = 4
+
+
+def _example_numbers(name, out):
+    """The numbers an example prints, by name (the JAX example's lines)."""
+    import re
+
+    def last(pattern):
+        found = re.findall(pattern, out)
+        if not found:
+            raise AssertionError(f"{name}: no line matching {pattern!r}:\n"
+                                 f"{out[-2000:]}")
+        return found[-1]
+
+    num = r"([-+0-9.e]+)"
+    if name == "grape_state_transfer":
+        return {"iteration": int(last(r"iter +(\d+) +infidelity")),
+                "infidelity": float(last(r"final infidelity: " + num)),
+                "area": float(last(r"pulse area: " + num))}
+    if name == "krotov_state_transfer":
+        return {"iteration": int(last(r"iter +(\d+): fidelity")),
+                "fidelity": float(last(r"final fidelity: " + num))}
+    if name == "multi_amplitude_dd":
+        return {"err": float(last(r"max\|Δ\| = " + num)),
+                "norm": float(last(r"‖Ψ‖ = " + num))}
+    return {"norm": float(last(r"‖Ψ‖ = " + num))}
+
+
+def _example_ok(name, v):
+    """The values the JAX examples reach (GRAPE stops at iteration 63
+    with infidelity 8.396e-09, Krotov at 21 with fidelity 0.99999930)."""
+    if name == "grape_state_transfer":
+        return (v["iteration"] == 63
+                and abs(v["infidelity"] - 8.396e-09) <= 1e-11
+                and abs(v["area"] - 1.5707) <= 5e-5)
+    if name == "krotov_state_transfer":
+        return v["iteration"] == 21 and abs(v["fidelity"] - 0.99999930) <= 1e-8
+    if name == "multi_amplitude_dd":
+        return v["err"] < 1e-12 and abs(v["norm"] - 1.0) <= 1e-12
+    return abs(v["norm"] - 1.0) <= 1e-5
+
+
+def entry_points_phase(device, card, L=L_MAIN, n_steps=3):
+    """Phase 14: (c) the four ``examples/*_torch.py`` as processes,
+    ``EXAMPLE_WORKERS`` at a time, held at the numbers the JAX examples
+    reach, while (a) runs ``scaling_torch.py``'s hypercube-dd builder in
+    this process at L = 24: 4 slots against 1 slot over ``n_steps`` steps
+    (≤ 1e-12), its flip launches counted, and one 4-slot step against the
+    f64 host oracle (≤ 1e-13, computed in a thread while the rest of the
+    phase runs); then (b) ``scaling_torch.py``'s command line, parsed and
+    run by its ``main`` in this process (no process start-up), each run
+    alone on the card, each printed JSON line held against
+    ``scaling.py``'s.  Returns the flip launches of (a)."""
+    import contextlib
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import scaling_torch as st
+    from bench_torch import flip_oracle_step
+    from quantumpropagators_torch.models.lattice import (chain_bonds,
+                                                         ising_diagonal_np)
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.ops.cheby import cheby_coeffs
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+
+    def run(script):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, script], cwd=root,
+                              capture_output=True, text=True, timeout=400)
+        if proc.returncode != 0:
+            raise AssertionError(f"{script} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        return proc.stdout, time.perf_counter() - t0
+
+    # -- (c) the examples, started first -----------------------------------
+    names = ("grape_state_transfer", "krotov_state_transfer",
+             "multi_amplitude_dd", "sharded_spin_chain")
+    pool = ThreadPoolExecutor(EXAMPLE_WORKERS)
+    examples = [pool.submit(run, os.path.join("examples", f"{n}_torch.py"))
+                for n in names]
+
+    # -- (a) hypercube-dd, 4 slots against 1 and against the host oracle --
+    dt = 0.05  # scaling.py's default
+    p4 = st.build_hypercube_dd(4, L, dt, device=device)
+    psi0 = p4.state.reshape(-1).cpu().numpy()
+    one = p4.step(p4.state).reshape(-1).cpu().numpy()
+    e_min, delta = st._chain_envelope(L)
+    oracle_pool = ThreadPoolExecutor(1)
+    oracle = oracle_pool.submit(
+        flip_oracle_step, psi0, ising_diagonal_np(L, chain_bonds(L), st.J,
+                                                  st.H_FIELD),
+        st.G, L, cheby_coeffs(delta, dt), delta, e_min, dt)
+    cf.reset_launches()
+    state = p4.state
+    for _ in range(n_steps):
+        state = p4.step(state)
+    torch.cuda.synchronize()
+    counts = dict(cf.LAUNCHES)
+    check_launches("dd", counts, "double", n_steps=n_steps * 4)
+    p1 = st.build_hypercube_dd(1, L, dt, device=device)
+    ref = p1.state
+    for _ in range(n_steps):
+        ref = p1.step(ref)
+    err = float((state.reshape(-1) - ref.reshape(-1)).abs().max())
+    if not err <= 1e-12:
+        raise AssertionError(f"14a hypercube-dd 4 slots vs 1: {err}")
+    del p4, p1, state, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14a scaling_torch hypercube-dd L={L} 4 slots {n_steps} "
+        f"steps: max|d| vs 1 slot={err:.3e} (<= 1e-12), flip launches "
+        f"{sum(counts.values())} ok")
+
+    for name, future in zip(names, examples):
+        out, seconds = future.result()
+        values = _example_numbers(name, out)
+        if not _example_ok(name, values):
+            raise AssertionError(f"examples/{name}_torch.py: {values}")
+        log(f"phase 14c examples/{name}_torch.py: {values} ({seconds:.1f} s, "
+            f"{EXAMPLE_WORKERS} at a time, beside 14a) [{card}]")
+    pool.shutdown()
+
+    # -- (b) the scaling command lines, each alone on the card -------------
+    expected = scaling_py_lines(os.path.join(root, "scaling.py"))
+    for args in SCALING_RUNS:
+        cmd = " ".join((*args, *SCALING_SIZES))
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            st.main([*args, *SCALING_SIZES])
+        seconds = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        check_scaling_line(line, expected, card)
+        if "regime" in line and not all(
+                sorted(t) == ["1", "2", "4"] for t in line["tables"].values()):
+            raise AssertionError(f"scaling tables {line['tables']}")
+        log(f"phase 14b scaling_torch.py {cmd}: {json.dumps(line)} "
+            f"({seconds:.1f} s) [{card}]")
+
+    t0 = time.perf_counter()
+    err_o = float(np.abs(one - oracle.result()).max())
+    oracle_pool.shutdown()
+    if not err_o <= 1e-13:
+        raise AssertionError(f"14a hypercube-dd 4 slots vs f64 oracle: "
+                             f"{err_o}")
+    log(f"phase 14a hypercube-dd L={L} 4 slots, one step: max|d| vs f64 host "
+        f"oracle={err_o:.3e} (<= 1e-13; waited {time.perf_counter() - t0:.1f}"
+        f" s for the oracle)")
+    log(f"phase 14 wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2067,6 +2313,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()  # phase 12's buffers go before phase 13
     bench_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flip_paths["phase 14 scaling hypercube-dd"] = entry_points_phase(device,
+                                                                     card)
 
     kernels = []
     for name in REPLACES:

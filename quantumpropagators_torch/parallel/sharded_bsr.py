@@ -234,9 +234,20 @@ def allgather_bsr_apply(pbsr: PartitionedBSR, psi_local, *, mesh: Mesh,
     return y.reshape(mesh.n_local, -1)
 
 
-#: complex128 states over float64 blocks: the same products
-banded_bsr_apply_dd = banded_bsr_apply
-allgather_bsr_apply_dd = allgather_bsr_apply
+def banded_bsr_apply_dd(pb: PartitionedBSRdd, x, *, mesh: Mesh,
+                        axis_name=STATE_AXIS):
+    """Reference-accuracy :func:`banded_bsr_apply` under the JAX names:
+    ``pb`` a float64 partition, ``x`` this rank's float64 or complex128
+    slots ``(n_local, Rl·b)`` (the JAX function takes one double-float
+    plane pair)."""
+    return banded_bsr_apply(pb, x, mesh=mesh)
+
+
+def allgather_bsr_apply_dd(pb: PartitionedBSRdd, x, *, mesh: Mesh,
+                           axis_name=STATE_AXIS):
+    """Reference-accuracy :func:`allgather_bsr_apply` under the JAX
+    names (see :func:`banded_bsr_apply_dd`)."""
+    return allgather_bsr_apply(pb, x, mesh=mesh)
 
 
 def _inner_for(pbsr: PartitionedBSR):
