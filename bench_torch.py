@@ -26,7 +26,14 @@ records ``"variant": "n/a (one kernel)"``).
 
 Timing follows ``bench.py``: a headline run is timed as ``t(3n) − t(n)``
 after one warm-up of each length, every timed call ending in
-``torch.cuda.synchronize()`` and one scalar read.  The per-step error
+``torch.cuda.synchronize()`` and one scalar read.  Every step loop that
+``bench.py`` runs as a jitted ``lax.scan`` (the headline kernels,
+northstar's chunks, banded20, and multiamp through
+``cheby_propagate_fused``) runs through the port's scan
+(``quantumpropagators_torch.utils.scan``): on the card one CUDA graph of
+a step, replayed per step.  As ``bench.py`` jits its scans with a static
+length, :func:`length_scans` keeps one graph per length: the warm-up
+run of a length captures it, and the timed runs replay it.  The per-step error
 of the reference tier is taken against a float64 numpy oracle on the
 host (``v[idx ^ (1 << j)]`` flips), independent of the code under test.
 """
@@ -72,6 +79,24 @@ def finish(device, x) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return float(x.item())
+
+
+def length_scans(step):
+    """``run(carry, n)``: the final carry of the port's scan of
+    ``step(carry, None) -> (carry, None)`` over ``n`` steps, with one
+    :class:`~quantumpropagators_torch.utils.scan.GraphedScan` per length
+    (``bench.py``'s ``jax.jit`` with a static length): a length's first
+    run captures, later runs replay."""
+    from quantumpropagators_torch.utils.scan import GraphedScan
+
+    graphs = {}
+
+    def run(carry, n):
+        if n not in graphs:
+            graphs[n] = GraphedScan(step)
+        return graphs[n](carry, None, n)[0]
+
+    return run
 
 
 def result(metric, value, unit, vs_baseline, extra, device):
@@ -762,14 +787,15 @@ def bench_banded20(device, L_dim: int = 20, tile_rows: int = 8, dt=None):
 
     z0 = torch.as_tensor(x64 + 1j * y64, device=device)
 
+    scans = length_scans(lambda z, _: (cheby_apply_dd_banded(
+        op, z, c64, delta, e_min, dt, tile_rows=tile_rows), None))
+
     def run(z, n_steps):
-        for _ in range(n_steps):
-            z = cheby_apply_dd_banded(op, z, c64, delta, e_min, dt,
-                                      tile_rows=tile_rows)
-        return finish(device, z[0].real)
+        return finish(device, scans(z, n_steps)[0].real)
 
     na, nb_ = (3, 9) if device.type == "cuda" else (1, 3)
-    run(z0, 1)  # warm
+    for n in sorted({1, na, nb_}):
+        run(z0, n)  # warm: capture each length
     t0 = time.perf_counter()
     run(z0, na)
     ta = time.perf_counter() - t0
@@ -829,16 +855,15 @@ def bench_banded20(device, L_dim: int = 20, tile_rows: int = 8, dt=None):
          "platform": device.type}, device)
 
 
-def bench_multiamp(device, L: int = 20, n_steps: int = 20):
-    """Per-bit f32 tail A/B on a DRIVEN multi-amplitude workload: the
-    reference-shaped ``Ĥ₀ + Σₗ aₗ(t)Ĥₗ`` (two independently driven flip
-    groups + driven diagonal) at 2^L, tail=auto vs tail=0."""
+def multiamp_problem(device, L: int = 20):
+    """``bench.py``'s multiamp workload at 2^L: the reference-shaped
+    ``Ĥ₀ + Σₗ aₗ(t)Ĥₗ`` (a driven diagonal and two independently driven
+    flip groups with per-site weights).  Returns ``(generator, psi0,
+    envelope kwargs)``, ``psi0`` complex64 from seed 29."""
     import quantumpropagators_torch as qt
-    from quantumpropagators_torch.fused import cheby_propagate_fused
     from quantumpropagators_torch.models.lattice import (
         SiteOperatorSum, transverse_field_ising,
     )
-    from quantumpropagators_torch.propagators.cheby import ChebyPropagator
 
     J, h = 1.0, 0.3
     H_diag, _ = transverse_field_ising(L, J=J, g=1.0, h=h,
@@ -865,11 +890,21 @@ def bench_multiamp(device, L: int = 20, n_steps: int = 20):
     psi0 = rng.standard_normal(2 ** L) + 1j * rng.standard_normal(2 ** L)
     psi0 = torch.as_tensor((psi0 / np.linalg.norm(psi0)).astype(np.complex64),
                            device=device)
-    dt = 0.05
     bound = 1.3 * (J * (L - 1) + abs(h) * L) + 1.6 * float(
         np.abs(g_site).sum()
     )
-    kw = dict(specrange_method="manual", E_min=-bound, E_max=bound)
+    return gen, psi0, dict(specrange_method="manual", E_min=-bound,
+                           E_max=bound)
+
+
+def bench_multiamp(device, L: int = 20, n_steps: int = 20):
+    """Per-bit f32 tail A/B on a DRIVEN multi-amplitude workload
+    (:func:`multiamp_problem`) at 2^L, tail=auto vs tail=0."""
+    from quantumpropagators_torch.fused import cheby_propagate_fused
+    from quantumpropagators_torch.propagators.cheby import ChebyPropagator
+
+    gen, psi0, kw = multiamp_problem(device, L)
+    dt = 0.05
     nnz = (L + 1) * 2 ** L
     n_coeffs = int(ChebyPropagator(
         psi0, gen, np.linspace(0, n_steps * dt, n_steps + 1), **kw
@@ -947,13 +982,13 @@ def bench_northstar(device, n_steps: int = 1000, L: int = 24,
     del re0, im0
     state0 = torch.as_tensor(psi, device=device)
 
+    chunks = {sign: length_scans(lambda s, _, sign=sign: (
+        cheby_step_fused_dd(plan, dmb, s, c64, delta, e_min, sign * dt,
+                            forward=(sign > 0), f32_tail=tail), None))
+        for sign in (1, -1)}
+
     def run_chunk(state, n, sign):
-        for _ in range(n):
-            state = cheby_step_fused_dd(
-                plan, dmb, state, c64, delta, e_min, sign * dt,
-                forward=(sign > 0), f32_tail=tail,
-            )
-        return state
+        return chunks[sign](state, n)
 
     def norm(state):
         return finish(device, torch.linalg.vector_norm(state))
@@ -1152,22 +1187,23 @@ def bench_headline(device, *, L=20, lattice2d=None, kernel="dd", steps=20,
             log(f"A/B: {nrb} self-copy remote planes through the sharded "
                 f"hook (result non-physical, cost-accurate)")
 
+        scans = length_scans(lambda psi, _: (dd_step(psi, **hooks), None))
+
         def run(n):
-            psi = psi_start
-            for _ in range(n):
-                psi = dd_step(psi, **hooks)
-            return finish(device, torch.linalg.vector_norm(psi))
+            return finish(device,
+                          torch.linalg.vector_norm(scans(psi_start, n)))
     elif kernel not in ("fused", "planar", "complex"):
         raise ValueError(f"unknown kernel={kernel!r}")
     elif kernel == "complex":
         psi_c64 = torch.complex(torch.as_tensor(p.re32, device=device),
                                 torch.as_tensor(p.im32, device=device))
 
+        scans = length_scans(lambda psi, _: (cheby_apply(
+            op, psi, coeffs, p.delta, p.e_min, dt), None))
+
         def run(n):
-            psi = psi_c64
-            for _ in range(n):
-                psi = cheby_apply(op, psi, coeffs, p.delta, p.e_min, dt)
-            return finish(device, torch.linalg.vector_norm(psi))
+            return finish(device,
+                          torch.linalg.vector_norm(scans(psi_c64, n)))
     else:
         if kernel == "fused":
             plan = make_flip_plan(L, G_TFIM, tile_rows=tile_rows)
@@ -1180,11 +1216,11 @@ def bench_headline(device, *, L=20, lattice2d=None, kernel="dd", steps=20,
                 return cheby_apply_planar(op, r, i, coeffs, p.delta, p.e_min,
                                           dt)
 
+        scans = length_scans(lambda ri, _: (step(*ri), None))
+
         def run(n):
-            r = torch.as_tensor(p.re32, device=device)
-            i = torch.as_tensor(p.im32, device=device)
-            for _ in range(n):
-                r, i = step(r, i)
+            r, i = scans((torch.as_tensor(p.re32, device=device),
+                          torch.as_tensor(p.im32, device=device)), n)
             return finish(device, torch.sqrt(torch.sum(r ** 2 + i ** 2)))
 
     n1, n2 = steps, 3 * steps

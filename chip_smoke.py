@@ -73,6 +73,18 @@ banded-vs-ag`` on 4 slots, chains 2^22 → 2^24, banded 2^18 → 2^20),
 each run alone on the card, each JSON line held against
 ``scaling.py``'s (read with ``ast``).
 
+Phase 15 (after phase 9, while its operators live) runs the fused
+layer's one-program scan (``quantumpropagators_torch.utils.scan``): each
+routed path's own step (the L = 24 dd and f32 main path,
+``bench_torch.py``'s 2^20 dd chain, multiamp at 2^20, banded20 dd and
+fixed-Leja Newton on banded20) as the eager loop and as a replayed CUDA
+graph, bit for bit and with equal launches a step, with steps/s and host
+µs a step both ways; traces of 5 dd steps at 2^20 and 2^24 both ways;
+``make_fused_cheby_propagator`` on three tables with one capture; and an
+observable that reads the host, which must raise at capture.  Every
+fused path of the other phases (3, 4, 5, 7, 8, 9, 12, 13) runs through
+the same graphs.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -575,7 +587,7 @@ def trace_steps(run, label, n_steps, card, top=8, regions=None):
     whose calls count under it: they are wrapped in
     ``torch.profiler.record_function(name)`` for the traced call, and
     the device time of the kernels launched inside each region is
-    printed a step."""
+    printed a step.  Also returns the busy share of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -656,12 +668,14 @@ def trace_steps(run, label, n_steps, card, top=8, regions=None):
         log(f"{label} top: {t / 1e3 / n_steps:.4f} ms/step "
             f"{100 * t / kernel_sum:.2f} % x{count // n_steps}/step "
             f"{name[:110]}")
-    return flip, other
+    return flip, other, busy / window
 
 
 def trace_phase(psi0, H, wrk, card, n_steps=5, top=8):
     """Phase 8: one trace of ``n_steps`` dd steps of the main path at
-    L_MAIN (:func:`trace_steps`)."""
+    L_MAIN (:func:`trace_steps`): one ``propagate`` call, so its first
+    interval runs eagerly and the graph is captured inside the window
+    (phase 15 traces the replays alone)."""
     import quantumpropagators_torch as qt
 
     tlist = np.linspace(0.0, n_steps * DT, n_steps + 1)
@@ -2246,6 +2260,241 @@ def entry_points_phase(device, card, L=L_MAIN, n_steps=3):
     return counts
 
 
+class ScanRecorder:
+    """While active, records the ``(step, carry, xs, length)`` of every
+    scan that ``fused.py`` and ``ops/newton_leja.py`` start (and runs
+    it), so that phase 15 can run a path's own step both ways."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from quantumpropagators_torch import fused
+        from quantumpropagators_torch.ops import newton_leja
+        from quantumpropagators_torch.utils import scan as sc
+
+        self.mods = (fused, newton_leja)
+
+        def recorded(step, carry, xs=None, length=None):
+            self.calls.append((step, carry, xs, length))
+            return sc.scan(step, carry, xs, length)
+
+        for mod in self.mods:
+            mod.scan = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from quantumpropagators_torch.utils import scan as sc
+
+        for mod in self.mods:
+            mod.scan = sc.scan
+
+
+def _launch_counts():
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    return {**cf.LAUNCHES, **bs.LAUNCHES}
+
+
+def _reset_launches():
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    cf.reset_launches()
+    bs.reset_launches()
+
+
+def _max_diff(a, b):
+    """max|a − b| over the tensors of two scan results (carry, ys)."""
+    from quantumpropagators_torch.utils.scan import _leaves
+
+    la, lb = _leaves(a), _leaves(b)
+    if [t.shape for t in la] != [t.shape for t in lb]:
+        raise AssertionError(f"graph and eager shapes differ: "
+                             f"{[t.shape for t in la]}, "
+                             f"{[t.shape for t in lb]}")
+    return max(float((x - y).abs().max()) for x, y in zip(la, lb))
+
+
+def graph_vs_eager(label, step, carry, xs, n, card, paths, tol=0.0):
+    """One routed path both ways: the eager loop of ``step`` and its
+    :class:`GraphedScan` (the first call captures after one eager
+    interval, as every routed scan does; the second replays all ``n``
+    intervals).  Holds both graph results against the eager one (max|Δ|
+    ≤ ``tol``) and the launches a step equal; prints steps/s and host µs
+    a step both ways (host: until the call returns, before the
+    synchronize).  Records the first graph call's launches in
+    ``paths``; returns ``(graph steps/s, eager steps/s, host µs)``."""
+    from quantumpropagators_torch.utils.scan import GraphedScan, _loop
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return out, t_host, time.perf_counter() - t0
+
+    _reset_launches()
+    eager, _, _ = timed(lambda: _loop(step, carry, xs, n))
+    n_eager = _launch_counts()
+    _, host_e, wall_e = timed(lambda: _loop(step, carry, xs, n))
+    graphed = GraphedScan(step)
+    _reset_launches()
+    first, _, wall_c = timed(lambda: graphed(carry, xs, n))
+    n_graph = _launch_counts()
+    second, host_g, wall_g = timed(lambda: graphed(carry, xs, n))
+    err = max(_max_diff(first, eager), _max_diff(second, eager))
+    per_e = {k: v / n for k, v in n_eager.items() if v}
+    per_g = {k: v / n for k, v in n_graph.items() if v}
+    if not err <= tol or per_e != per_g:
+        raise AssertionError(f"phase 15 {label}: graph vs eager max|d| "
+                             f"{err} (<= {tol}), launches/step graph "
+                             f"{per_g}, eager {per_e}")
+    paths[f"phase 15 {label} graph"] = n_graph
+    log(f"phase 15 {label} {n} steps: graph vs eager max|d|={err:.3e} "
+        f"(<= {tol:g}), launches/step equal {per_g}; graph "
+        f"{n / wall_g:.3f} steps/s (host {1e6 * host_g / n:.1f} us/step, "
+        f"first call with the capture {wall_c:.3f} s), eager "
+        f"{n / wall_e:.3f} steps/s (host {1e6 * host_e / n:.1f} us/step) "
+        f"[{card}]")
+    del graphed, first, second, eager
+    return n / wall_g, n / wall_e, 1e6 * host_g / n
+
+
+def graph_phase(device, card, chain, ctx):
+    """Phase 15: the fused layer's one-program scan.  Each routed path's
+    own step (recorded from its entry point) runs as the eager loop and
+    as a replayed CUDA graph (:func:`graph_vs_eager`): the L = 24 dd and
+    f32 main path (20 steps, with observables), ``bench_torch.py``'s
+    2^20 dd chain, multiamp at 2^20, banded20 dd and fixed-Leja Newton
+    on banded20; then ``torch.profiler`` traces of 5 dd steps at 2^20
+    and 2^24 both ways (busy share), ``make_fused_cheby_propagator`` on
+    three tables against the eager loop with its capture count, and an
+    observable that reads the host, which must raise at capture.
+    Returns the graph runs' launches by path and the summary numbers."""
+    import bench_torch
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.fused import (cheby_propagate_fused,
+                                                make_fused_cheby_propagator)
+    from quantumpropagators_torch.utils.scan import (GraphedScan, _length,
+                                                     _loop)
+
+    t_phase = time.perf_counter()
+    paths, summary = {}, {}
+    psi0, H, wrk = chain
+    tlist = np.linspace(0.0, N_STEPS * DT, N_STEPS + 1)
+    obs = (sz0(L_MAIN, device), lambda psi: torch.linalg.vector_norm(psi))
+    recorded = {}
+    with ScanRecorder() as rec:
+        qt.propagate(psi0, H, tlist, method="cheby", fused=True, kernel="dd",
+                     workspace=wrk, observables=obs, storage=True)
+        recorded[f"L={L_MAIN} dd"] = rec.calls[-1]
+        qt.propagate(psi0.to(torch.complex64), H, tlist, method="cheby",
+                     fused=True, kernel="pallas", workspace=wrk)
+        recorded[f"L={L_MAIN} f32"] = rec.calls[-1]
+        gen, psi_m, kw = bench_torch.multiamp_problem(device, L_CHECK)
+        cheby_propagate_fused(psi_m, gen, tlist, kernel="dd", **kw)
+        recorded[f"multiamp 2^{L_CHECK}"] = rec.calls[-1]
+        cheby_propagate_fused(ctx["psi0"], ctx["op"], ctx["tlist"],
+                              workspace=ctx["wrk"], kernel="dd")
+        recorded["banded20 dd"] = rec.calls[-1]
+        env = ctx["env"]
+        qt.propagate(ctx["psi0"], ctx["op"], ctx["tlist"],
+                     method="newton_leja", fused=True, e_min=env.e_min,
+                     e_max=env.e_min + env.delta,
+                     dd_operator_terms=(ctx["banded"],))
+        recorded["banded20 newton_leja"] = rec.calls[-1]
+    p20 = bench_torch.tfim_problem(device, L_CHECK)
+    dd20, psi20, _ = bench_torch.dd_stepper(p20, device)
+
+    def step20(psi, _):
+        return dd20(psi), None
+
+    recorded[f"bench_torch 2^{L_CHECK} dd"] = (step20, psi20, None, N_STEPS)
+    torch.cuda.synchronize()
+    for label, (step, carry, xs, length) in recorded.items():
+        summary[label] = graph_vs_eager(label, step, carry, xs,
+                                        _length(xs, length), card, paths)
+
+    # traces: 5 dd steps at 2^20 and 2^24, graph and eager
+    step24, carry24, xs24, _ = recorded[f"L={L_MAIN} dd"]
+    xs24 = xs24[:5] if not isinstance(xs24, tuple) \
+        else tuple(t[:5] for t in xs24)
+    for label, step, carry, xs in ((f"2^{L_CHECK}", step20, psi20, None),
+                                   (f"2^{L_MAIN}", step24, carry24, xs24)):
+        g5 = GraphedScan(step)
+        for how, run in (("graph", lambda: g5(carry, xs, 5)),
+                         ("eager", lambda: _loop(step, carry, xs, 5))):
+            *_, busy = trace_steps(run, f"phase 15 trace {how} dd {label}",
+                                   5, card, top=4)
+            summary[f"busy {how} {label}"] = busy
+        del g5
+
+    # make_fused_cheby_propagator: one capture for three tables
+    _, H20 = tfim_generator(L_CHECK, device)
+    psi_c = random_state(L_CHECK, torch.complex128, device, SEED + 150)
+    short = tlist[:6]
+    bound20 = J * (L_CHECK - 1) + H_FIELD * L_CHECK + G_FIELD * L_CHECK
+    fn = make_fused_cheby_propagator(
+        psi_c, H20, short, specrange_method="manual", E_min=-bound20,
+        E_max=bound20, observable_fn=lambda p: torch.vdot(p, p).real)
+    real_graph = torch.cuda.CUDAGraph
+    made = []
+
+    def counted_graph(*args, **kwargs):
+        made.append(1)
+        return real_graph(*args, **kwargs)
+
+    rng = np.random.default_rng(SEED + 160)
+    errs = []
+    torch.cuda.CUDAGraph = counted_graph
+    try:
+        for _ in range(3):
+            table = torch.as_tensor(rng.uniform(0.5, 1.5, (5, 1)),
+                                    device=device)
+            with torch.no_grad():
+                got = fn(psi_c, table)
+            want = fn(psi_c, table.clone().requires_grad_(True))  # the loop
+            errs.append(_max_diff(got, tuple(t.detach() for t in want)))
+    finally:
+        torch.cuda.CUDAGraph = real_graph
+    if len(made) != 1 or max(errs) != 0.0:
+        raise AssertionError(f"phase 15 make_fused_cheby_propagator: "
+                             f"{len(made)} captures, max|d| {errs}")
+    summary["captures for 3 tables"] = len(made)
+    log(f"phase 15 make_fused_cheby_propagator L={L_CHECK} 5 intervals, 3 "
+        f"tables: {len(made)} capture, graph vs eager loop max|d| "
+        f"{max(errs):.3e} (= 0) ok")
+
+    # a step that reads the host raises at capture, and the card goes on
+    try:
+        cheby_propagate_fused(psi20, H20, tlist[:3], kernel="dd",
+                              specrange_method="manual", E_min=-bound20,
+                              E_max=bound20,
+                              observable_fn=lambda p: torch.tensor(
+                                  p.abs().max().item(), device=p.device))
+    except RuntimeError as exc:
+        if "cannot be captured" not in str(exc):
+            raise
+        log(f"phase 15 an observable calling .item() raises at capture: "
+            f"{str(exc).splitlines()[0][:160]}")
+    else:
+        raise AssertionError("phase 15: a host read inside the scan did "
+                             "not raise")
+    again, _ = cheby_propagate_fused(
+        psi20, H20, tlist[:3], kernel="dd", specrange_method="manual",
+        E_min=-bound20, E_max=bound20)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(torch.view_as_real(again)).all()):
+        raise AssertionError("phase 15: the card failed after a refused "
+                             "capture")
+    del again, fn, recorded
+    log(f"phase 15 wall {time.perf_counter() - t_phase:.1f} s")
+    return paths, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
@@ -2289,6 +2538,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sparse = small_configs(device, card)
+    scan_paths, _ = graph_phase(device, card, chain, ctx)
+    gc.collect()
+    torch.cuda.empty_cache()
     # phases 10 and 11 share one world-size-1 NCCL group
     group = initialize_multihost(f"localhost:{free_port()}", 1, 0)
     try:
@@ -2303,6 +2555,12 @@ def main() -> int:
         dist.destroy_process_group()
     banded["launches_by_path"]["phase 10 sharded banded20"] = n
     banded["launches"] += n
+    for path, counts in scan_paths.items():
+        if counts[BANDED]:
+            banded["launches_by_path"][path] = counts[BANDED]
+            banded["launches"] += counts[BANDED]
+        else:
+            flip_paths[path] = counts
     banded["max_abs_err"] = max(banded["max_abs_err"], err_b)
     del finals, ctx
     gc.collect()

@@ -1,12 +1,24 @@
 """Whole-grid propagation on the device: PyTorch port of
 :mod:`quantumpropagators.fused`.
 
-The generic :func:`~quantumpropagators_torch.propagate` entry point steps the
-time grid through a propagator object.  :func:`cheby_propagate_fused`
-instead runs the whole grid as one loop over a per-interval coefficient
-table, with observables evaluated after every step (the device-side
-realization of the reference's ``propagate`` + ``Storage`` pipeline,
-``src/propagate.jl:322-337``).
+The generic :func:`~quantumpropagators_torch.propagate` entry point steps
+the time grid from the host (needed for arbitrary callbacks).  For long
+time grids, optimal-control inner loops and benchmarking the whole
+propagation is instead ONE device program: a scan over the per-interval
+coefficient table (:func:`.utils.scan.scan`, the port's ``lax.scan``),
+with observables evaluated in-scan into a preallocated output array (the
+device-side realization of the reference's ``propagate`` + ``Storage``
+pipeline, ``src/propagate.jl:322-337``).  On the card the scan is one
+CUDA graph of a step, captured once and replayed per interval, with no
+host work per interval beyond the replay call; on the CPU it is a loop
+of the same step.  Every step here therefore reads nothing from the
+host: per-interval values (table rows, folded diagonals, flip weights)
+are device tensors, and only values fixed for the whole propagation
+(Chebyshev coefficients, the phase ``exp(-iβdt)``, the f32 tail length)
+are Python constants.  On the card ``observable_fn(psi)`` must return a
+device tensor without reading the host, as the JAX one must be
+traceable.  :func:`make_fused_cheby_propagator` keeps its graph, so an
+optimal-control loop replays one capture with new tables.
 
 ``kernel`` selects the step:
 
@@ -40,35 +52,52 @@ from .ops.operators import (
     host_np,
     to_scipy_sparse,
 )
+from .utils.scan import GraphedScan, scan
 
 __all__ = ["cheby_propagate_fused", "make_fused_cheby_propagator"]
 
 
-def _scan(step, state, n_steps, observable_fn, store_states):
-    """Run ``state = step(k, state)`` for ``k < n_steps``; returns the
-    final state and the stacked per-step outputs (or ``None``)."""
-    outputs = []
-    for k in range(n_steps):
-        state = step(k, state)
+def _with_outputs(step, observable_fn, store_states, view=None):
+    """The scan step of ``step(psi, x) -> psi``: the new state and its
+    output, ``observable_fn`` of it, the state itself with
+    ``store_states``, or ``None`` (``view`` picks what both see)."""
+
+    def scan_step(psi, x):
+        psi = step(psi, x)
+        seen = psi if view is None else view(psi)
         if observable_fn is not None:
-            outputs.append(torch.as_tensor(observable_fn(state)))
-        elif store_states:
-            outputs.append(state.clone())
-    return state, (torch.stack(outputs) if outputs else None)
+            return psi, torch.as_tensor(observable_fn(seen))
+        return psi, (seen if store_states else None)
+
+    return scan_step
+
+
+def _scan(step, psi, xs, n_steps, observable_fn, store_states, view=None):
+    """:func:`.utils.scan.scan` of ``step(psi, x) -> psi`` over ``xs``
+    (or ``n_steps`` intervals); returns the final state and the stacked
+    per-step outputs (or ``None``)."""
+    return scan(_with_outputs(step, observable_fn, store_states, view), psi,
+                xs, None if xs is not None else n_steps)
+
+
+def _generic_step(ops, cheby_coeffs, delta, e_min, dt, forward, apply_fn):
+    """One :func:`cheby_apply` over ``Operator(ops, row)`` for the row of
+    the coefficient table."""
+
+    def step(psi, row):
+        return cheby_apply(Operator(ops, row), psi, cheby_coeffs, delta,
+                           e_min, dt, forward=forward, apply_fn=apply_fn)
+
+    return step
 
 
 def _fused_scan(ops, coeffs_table, psi0, cheby_coeffs, delta, e_min, dt,
                 forward, observable_fn, store_states, apply_fn):
     """The generic path behind ``kernel="xla"``: one
     :func:`cheby_apply` per row of the coefficient table."""
-
-    def step(k, psi):
-        return cheby_apply(
-            Operator(ops, coeffs_table[k]), psi, cheby_coeffs, delta, e_min,
-            dt, forward=forward, apply_fn=apply_fn,
-        )
-
-    return _scan(step, psi0, coeffs_table.shape[0], observable_fn,
+    step = _generic_step(ops, cheby_coeffs, delta, e_min, dt, forward,
+                         apply_fn)
+    return _scan(step, psi0, coeffs_table, None, observable_fn,
                  store_states)
 
 
@@ -84,15 +113,14 @@ def _fused_scan_flip(plan, diag, diag_col, flip_col, coeffs_table, psi0,
     diag = diag.to(rdtype)
     static_dmb = (diag - beta).contiguous() if diag_col is None else None
 
-    def step(k, psi):
-        row = coeffs_table[k]
+    def step(psi, row):
         dmb = static_dmb if diag_col is None \
             else (row[diag_col] * diag - beta).contiguous()
         G = gs if flip_col is None else gs * row[flip_col]
         return flip_cheby_step(psi, dmb, G, cheby_coeffs, delta, e_min, dt,
                                forward=forward)
 
-    return _scan(step, psi0.reshape(-1).contiguous(), coeffs_table.shape[0],
+    return _scan(step, psi0.reshape(-1).contiguous(), coeffs_table, None,
                  observable_fn, store_states)
 
 
@@ -101,9 +129,11 @@ def _dd_path(fsm, generator, ops, psi0, tlist, workspace, backward,
     """``kernel="dd"``: the complex128 loop for every
     diagonal-plus-site-flip generator, single or multi amplitude.
 
-    Per interval ``k`` it folds, on the host in float64 and on the
+    The driven diagonals' amplitudes ``c_l(t_k)`` and the per-bit flip
+    table ``G_j(t_k) = Σ_l c_l(t_k)·g_{l,j}`` are made once, on the host
+    in float64, as the scan's ``xs``; per interval the step folds, on the
     device, ``dmb(t_k) = Σ_static diag − β + Σ_l c_l(t_k)·diag_l`` and
-    the per-bit flip table ``G_j(t_k) = Σ_l c_l(t_k)·g_{l,j}``, and runs
+    runs
     :func:`~.ops.fused_cheby_dd.cheby_step_fused_dd` with ``G`` as its
     per-bit ``flip_scale`` (the JAX package's ``_fused_scan_pallas_dd``
     and ``_fused_scan_pallas_dd_multi`` in one)."""
@@ -155,23 +185,27 @@ def _dd_path(fsm, generator, ops, psi0, tlist, workspace, backward,
     Gbits = np.zeros((n_steps, L), dtype=np.float64)
     for pos, gs_bits in flip_terms:
         Gbits = Gbits + np.outer(series(pos), gs_bits)
-    Gbits = torch.as_tensor(Gbits, device=device)
+    dyn = np.stack(dyn_cols, axis=1) if dyn_cols \
+        else np.zeros((n_steps, 0), dtype=np.float64)
+    xs = (torch.as_tensor(dyn, device=device),
+          torch.as_tensor(Gbits, device=device))
 
     plan = make_flip_plan(L, 1.0)
     c64 = np.asarray(workspace.coeffs, dtype=np.float64)
     dd_tail = f32_tail_orders(c64) if f32_tail == "auto" else int(f32_tail)
 
-    def step(k, psi):
+    def step(psi, x):
+        amps, G = x
         dmb = dmb_static
-        for diag64, col in zip(dyn_diags, dyn_cols):
-            dmb = dmb + float(col[k]) * diag64
+        for j, diag64 in enumerate(dyn_diags):
+            dmb = dmb + amps[j] * diag64
         return cheby_step_fused_dd(
             plan, dmb, psi, c64, workspace.delta, workspace.e_min, dt,
-            forward=not backward, flip_scale=Gbits[k], f32_tail=dd_tail,
+            forward=not backward, flip_scale=G, f32_tail=dd_tail,
         )
 
     psi = psi0.reshape(-1).to(torch.complex128).contiguous()
-    return _scan(step, psi, n_steps, observable_fn, store_states)
+    return _scan(step, psi, xs, None, observable_fn, store_states)
 
 
 _REAL_ONLY = ("kernel='dd' supports real operator entries; propagate "
@@ -251,30 +285,25 @@ def _static_dd_path(generator, psi0, tlist, workspace, backward,
                           device=device)
         psi[:n_logical] = psi0.reshape(-1)
 
-        def step(k, psi):
+        def step(psi, _):
             return cheby_apply_dd_banded(banded, psi, c64, workspace.delta,
                                          workspace.e_min, dt)
 
         # observables and stored states see the unpadded state
-        obs = observable_fn
-        if obs is None and store_states:
-            obs = torch.clone
-        psi, outputs = _scan(
-            step, psi, n_steps,
-            None if obs is None else (lambda s: obs(s[:n_logical])), False,
-        )
+        psi, outputs = _scan(step, psi, None, n_steps, observable_fn,
+                             store_states, view=lambda s: s[:n_logical])
         return psi[:n_logical], outputs
 
     if A is None:
         A = _real_matrix(generator)  # raises for complex entries
     op = bsr_from_scipy(A, block_size=None if on_card else 8, device=device)
 
-    def step(k, psi):
+    def step(psi, _):
         return cheby_apply(op, psi, c64, workspace.delta, workspace.e_min, dt,
                            forward=not backward)
 
     psi = psi0.reshape(-1).to(torch.complex128)
-    return _scan(step, psi, n_steps, observable_fn, store_states)
+    return _scan(step, psi, None, n_steps, observable_fn, store_states)
 
 
 def cheby_propagate_fused(
@@ -396,7 +425,13 @@ def make_fused_cheby_propagator(
 ):
     """Build a reusable propagation function for optimal control:
     ``fn(psi0, coeffs_table) -> (psi_final, outputs)`` over the generic
-    path, with the workspace fixed once."""
+    path, with the workspace fixed once.
+
+    On the card, while autograd does not record, the first call captures
+    the scan's graph and every later call with a table of the same shape
+    copies the table into its static buffer and replays: one capture
+    for every control update (:class:`.utils.scan.GraphedScan`).  While
+    autograd records (gradients, GRAPE), the step runs as a loop."""
     tlist = np.asarray(tlist, dtype=np.float64)
     if isinstance(generator, tuple):
         from .models.generators import hamiltonian
@@ -411,11 +446,13 @@ def make_fused_cheby_propagator(
     else:
         ops = [generator]
 
+    run = GraphedScan(_with_outputs(
+        _generic_step(ops, np.asarray(ws.coeffs), ws.delta, ws.e_min, ws.dt,
+                      True, None),
+        observable_fn, store_states))
+
     def fn(psi0, coeffs_table):
-        return _fused_scan(
-            ops, torch.as_tensor(coeffs_table), as_tensor(psi0),
-            np.asarray(ws.coeffs), ws.delta, ws.e_min, ws.dt, True,
-            observable_fn, store_states, None,
-        )
+        psi0 = as_tensor(psi0)
+        return run(psi0, torch.as_tensor(coeffs_table).to(psi0.device))
 
     return fn

@@ -170,10 +170,11 @@ class TermsDDOp:
     """``Ĥ₀ + Σₗ cₗĤₗ`` as term operators plus coefficients: the leading
     ``len(terms) − len(coeffs4)`` terms are drift (coefficient 1).
 
-    ``coeffs4`` keeps the JAX field's name; here it is a host complex128
-    array of the ``n_amp`` coefficients (the JAX field holds their
-    ``(4, n_amp)`` f32 hi/lo planes).  Coefficients stay on the host, so
-    applying the operator never waits on the device."""
+    ``coeffs4`` keeps the JAX field's name; here it holds the ``n_amp``
+    complex128 coefficients (the JAX field holds their ``(4, n_amp)``
+    f32 hi/lo planes): a host array, or a tensor on the state's device
+    (a scan's row, read on the device).  Either way applying the
+    operator never waits on the device."""
 
     terms: Any
     coeffs4: Any
@@ -208,13 +209,18 @@ def apply_cdd_op(op, v):
     """``op @ v`` for any operator container of this module (or a
     callable, or a bare real operator) on a complex128 state."""
     if isinstance(op, TermsDDOp):
-        coeffs = np.asarray(op.coeffs4, dtype=np.complex128).reshape(-1)
+        coeffs = op.coeffs4
+        if isinstance(coeffs, torch.Tensor):
+            coeffs = coeffs.reshape(-1)
+        else:
+            coeffs = [complex(c) for c in
+                      np.asarray(coeffs, dtype=np.complex128).reshape(-1)]
         n_drift = len(op.terms) - len(coeffs)
         out = None
         for i, t in enumerate(op.terms):
             y = apply_cdd_op(t, v)
             if i >= n_drift:
-                y = complex(coeffs[i - n_drift]) * y
+                y = coeffs[i - n_drift] * y
             out = y if out is None else out + y
         return out
     if isinstance(op, DenseDDOp):

@@ -17,6 +17,7 @@ counterpart, every flip is an index XOR.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ __all__ = [
     "flip_structure",
     "flip_structure_multi",
     "flip_cheby_step",
+    "plan_coeffs",
 ]
 
 _LANE_BITS = 7
@@ -100,6 +102,15 @@ def make_flip_plan(L: int, g, tile_rows: int = 512) -> FlipPlan:
         n_cross=n_cross,
         gs=tuple(float(v) for v in gs),
     )
+
+
+@lru_cache(maxsize=64)
+def plan_coeffs(gs: tuple, dtype, device) -> torch.Tensor:
+    """The per-bit flip coefficients ``gs`` as a ``dtype`` tensor on
+    ``device``, made once (a host-to-device copy) and shared by every
+    later step; callers must not write to it.  A step that reads it
+    after its first call reads nothing from the host."""
+    return torch.as_tensor(gs, dtype=dtype, device=device)
 
 
 def _xtype_site_gs(op) -> "np.ndarray | None":
@@ -259,9 +270,8 @@ def cheby_step_fused(
     # one row per state: several rows are the shard slots of one process
     psi = torch.complex(re, im).reshape(-1, 1 << plan.L)
     rdtype = re.dtype
-    scale = torch.as_tensor(1.0 if flip_scale is None else flip_scale,
-                            dtype=rdtype, device=re.device)
-    G = torch.as_tensor(plan.gs, dtype=rdtype, device=re.device) * scale
+    scale = 1.0 if flip_scale is None else flip_scale
+    G = plan_coeffs(plan.gs, rdtype, re.device) * scale
     beta = float(delta) / 2.0 + float(e_min)
     dmb = (diag.reshape(psi.shape).to(rdtype) - beta).contiguous()
     w_fn = None

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .cheby_flip import cheby_flip_first, cheby_flip_iter
-from .fused_cheby import FlipPlan, make_flip_plan
+from .fused_cheby import FlipPlan, make_flip_plan, plan_coeffs
 
 __all__ = [
     "cheby_step_fused_dd", "make_flip_plan", "dd_tile_rows",
@@ -80,11 +80,16 @@ def dd_tile_rows(L: int, budget_bytes: int = 100 * 2 ** 20) -> int:
 
 def _flip_coeffs(plan: FlipPlan, flip_scale, extra_gs, device):
     """Per-bit float64 flip coefficients ``g_j·flip_scale_j`` for the L
-    local bits and the extra (remote) bits."""
-    base = torch.as_tensor(list(plan.gs) + [float(g) for g in extra_gs],
-                           dtype=torch.float64, device=device)
+    local bits and the extra (remote) bits.  The ``g_j`` vector is made
+    once per plan and device; a tensor ``flip_scale`` on the device and a
+    Python number read nothing from the host, so a scan can capture the
+    step."""
+    base = plan_coeffs(plan.gs + tuple(float(g) for g in extra_gs),
+                       torch.float64, device)
     if flip_scale is None:
         return base
+    if isinstance(flip_scale, (int, float)):
+        return base * float(flip_scale)
     fs = torch.as_tensor(flip_scale, dtype=torch.float64, device=device)
     if fs.ndim > 0 and tuple(fs.shape) != tuple(base.shape):
         raise ValueError(

@@ -14,9 +14,9 @@ instead of per step:
 2. Step (device, complex128): the fixed recurrence
    ``p ← (H·dt − zₖ)p / radius``, ``Ψ += dₖ₊₁ p``: one operator apply
    and two vector updates per node, no reductions and no host
-   round trip.  The JAX package runs the whole grid as one ``lax.scan``;
-   here it is a loop over steps and nodes that only enqueues device
-   work.
+   round trip.  The whole grid is ONE scan (:func:`..utils.scan.scan`,
+   the JAX package's ``lax.scan``): on the card one captured CUDA graph
+   of a step, replayed per interval.
 
 The plan is the real-Leja-points method (Caliari, Vianello and
 Bergamaschi's ReLPM); :func:`~.newton.newton_apply_dd` stays the general
@@ -29,6 +29,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..utils.scan import scan
 
 __all__ = ["NewtonLejaPlan", "newton_leja_plan", "newton_leja_propagate_dd"]
 
@@ -166,18 +168,20 @@ def _banded_rows(terms):
 
 def _leja_loop(terms, ctab, points, d, psi, radius, dt, observable_fn,
                store_states, n_logical):
-    """All PWC intervals, each the fixed Newton recurrence over the
-    interval's :class:`~.dd_linalg.TermsDDOp`.  ``ctab`` is the
-    ``(n_steps, n_amp)`` host complex128 amplitude table, ``points`` and
-    ``d`` the plan's nodes and divided differences; observables and
-    stored states see the first ``n_logical`` entries of the state."""
+    """All PWC intervals as one :func:`~..utils.scan.scan`, each the fixed
+    Newton recurrence over the interval's
+    :class:`~.dd_linalg.TermsDDOp`.  ``ctab`` is the ``(n_steps, n_amp)``
+    host complex128 amplitude table (the scan's ``xs``, on the state's
+    device), ``points`` and ``d`` the plan's nodes and divided
+    differences; observables and stored states see the first
+    ``n_logical`` entries of the state."""
     from .dd_linalg import TermsDDOp, apply_cdd_op
 
     scale = float(dt) / float(radius)
     z_scaled = [float(z) / float(radius) for z in points]
     d = [complex(c) for c in d]
-    outputs = []
-    for row in ctab:
+
+    def step(psi, row):
         op = TermsDDOp(terms=terms, coeffs4=row, shape=())
         phi = d[0] * psi
         p = psi
@@ -186,12 +190,14 @@ def _leja_loop(terms, ctab, points, d, psi, radius, dt, observable_fn,
             w = apply_cdd_op(op, p)
             p = torch.add(w.mul_(scale), p, alpha=-zk)
             phi.add_(p, alpha=d[k + 1])
-        psi = phi
+        seen = phi[:n_logical]
         if observable_fn is not None:
-            outputs.append(torch.as_tensor(observable_fn(psi[:n_logical])))
-        elif store_states:
-            outputs.append(psi[:n_logical].clone())
-    return psi, (torch.stack(outputs) if outputs else None)
+            return phi, torch.as_tensor(observable_fn(seen))
+        return phi, (seen if store_states else None)
+
+    table = torch.as_tensor(np.ascontiguousarray(ctab), dtype=torch.complex128,
+                            device=psi.device)
+    return scan(step, psi, table)
 
 
 def newton_leja_propagate_dd(

@@ -66,6 +66,10 @@ def propagate(
       :func:`~.ops.newton_leja.newton_leja_propagate_dd` (complex128).
       Observables must then be functions of the state tensor (or
       operators → expectation values); host callbacks are unsupported.
+      On the card the grid is one replayed CUDA graph
+      (:mod:`.utils.scan`), so a function observable must return a
+      device tensor without reading the host (no ``.item()``,
+      ``float(t)`` or ``.cpu()``): one that does raises.
 
     Returns the final state, or the storage if ``storage=True``.
     """
