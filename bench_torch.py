@@ -31,9 +31,9 @@ after one warm-up of each length, every timed call ending in
 northstar's chunks, banded20, and multiamp through
 ``cheby_propagate_fused``) runs through the port's scan
 (``quantumpropagators_torch.utils.scan``): on the card one CUDA graph of
-a step, replayed per step.  As ``bench.py`` jits its scans with a static
-length, :func:`length_scans` keeps one graph per length: the warm-up
-run of a length captures it, and the timed runs replay it.  The per-step error
+a step, replayed per step.  Each loop keeps its graph
+(:func:`step_scan`): the warm-up run captures it, and the timed runs of
+every length replay it.  The per-step error
 of the reference tier is taken against a float64 numpy oracle on the
 host (``v[idx ^ (1 << j)]`` flips), independent of the code under test.
 """
@@ -81,22 +81,16 @@ def finish(device, x) -> float:
     return float(x.item())
 
 
-def length_scans(step):
+def step_scan(step):
     """``run(carry, n)``: the final carry of the port's scan of
-    ``step(carry, None) -> (carry, None)`` over ``n`` steps, with one
-    :class:`~quantumpropagators_torch.utils.scan.GraphedScan` per length
-    (``bench.py``'s ``jax.jit`` with a static length): a length's first
-    run captures, later runs replay."""
+    ``step(carry, None) -> (carry, None)`` over ``n`` steps, through one
+    :class:`~quantumpropagators_torch.utils.scan.GraphedScan`: the first
+    run captures, and every later run replays, whatever its length (the
+    step reads no per-step input and writes no per-step output)."""
     from quantumpropagators_torch.utils.scan import GraphedScan
 
-    graphs = {}
-
-    def run(carry, n):
-        if n not in graphs:
-            graphs[n] = GraphedScan(step)
-        return graphs[n](carry, None, n)[0]
-
-    return run
+    scan = GraphedScan(step)
+    return lambda carry, n: scan(carry, None, n)[0]
 
 
 def result(metric, value, unit, vs_baseline, extra, device):
@@ -787,15 +781,14 @@ def bench_banded20(device, L_dim: int = 20, tile_rows: int = 8, dt=None):
 
     z0 = torch.as_tensor(x64 + 1j * y64, device=device)
 
-    scans = length_scans(lambda z, _: (cheby_apply_dd_banded(
+    scans = step_scan(lambda z, _: (cheby_apply_dd_banded(
         op, z, c64, delta, e_min, dt, tile_rows=tile_rows), None))
 
     def run(z, n_steps):
         return finish(device, scans(z, n_steps)[0].real)
 
     na, nb_ = (3, 9) if device.type == "cuda" else (1, 3)
-    for n in sorted({1, na, nb_}):
-        run(z0, n)  # warm: capture each length
+    run(z0, 1)  # warm: capture
     t0 = time.perf_counter()
     run(z0, na)
     ta = time.perf_counter() - t0
@@ -982,7 +975,7 @@ def bench_northstar(device, n_steps: int = 1000, L: int = 24,
     del re0, im0
     state0 = torch.as_tensor(psi, device=device)
 
-    chunks = {sign: length_scans(lambda s, _, sign=sign: (
+    chunks = {sign: step_scan(lambda s, _, sign=sign: (
         cheby_step_fused_dd(plan, dmb, s, c64, delta, e_min, sign * dt,
                             forward=(sign > 0), f32_tail=tail), None))
         for sign in (1, -1)}
@@ -1187,7 +1180,7 @@ def bench_headline(device, *, L=20, lattice2d=None, kernel="dd", steps=20,
             log(f"A/B: {nrb} self-copy remote planes through the sharded "
                 f"hook (result non-physical, cost-accurate)")
 
-        scans = length_scans(lambda psi, _: (dd_step(psi, **hooks), None))
+        scans = step_scan(lambda psi, _: (dd_step(psi, **hooks), None))
 
         def run(n):
             return finish(device,
@@ -1198,7 +1191,7 @@ def bench_headline(device, *, L=20, lattice2d=None, kernel="dd", steps=20,
         psi_c64 = torch.complex(torch.as_tensor(p.re32, device=device),
                                 torch.as_tensor(p.im32, device=device))
 
-        scans = length_scans(lambda psi, _: (cheby_apply(
+        scans = step_scan(lambda psi, _: (cheby_apply(
             op, psi, coeffs, p.delta, p.e_min, dt), None))
 
         def run(n):
@@ -1216,7 +1209,7 @@ def bench_headline(device, *, L=20, lattice2d=None, kernel="dd", steps=20,
                 return cheby_apply_planar(op, r, i, coeffs, p.delta, p.e_min,
                                           dt)
 
-        scans = length_scans(lambda ri, _: (step(*ri), None))
+        scans = step_scan(lambda ri, _: (step(*ri), None))
 
         def run(n):
             r, i = scans((torch.as_tensor(p.re32, device=device),

@@ -16,8 +16,7 @@ counterpart, every flip is an index XOR.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from functools import lru_cache
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -58,6 +57,10 @@ class FlipPlan:
     n_row_bits: int
     n_cross: int
     gs: tuple               # per-bit flip coefficient, length L
+    # plan_coeffs's device vectors, owned by the plan: a captured step
+    # reads them for as long as its graph (which holds the plan) lives
+    device_gs: dict = field(default_factory=dict, init=False, repr=False,
+                            compare=False)
 
     @property
     def lane_mat(self) -> np.ndarray:
@@ -104,13 +107,17 @@ def make_flip_plan(L: int, g, tile_rows: int = 512) -> FlipPlan:
     )
 
 
-@lru_cache(maxsize=64)
-def plan_coeffs(gs: tuple, dtype, device) -> torch.Tensor:
-    """The per-bit flip coefficients ``gs`` as a ``dtype`` tensor on
-    ``device``, made once (a host-to-device copy) and shared by every
-    later step; callers must not write to it.  A step that reads it
-    after its first call reads nothing from the host."""
-    return torch.as_tensor(gs, dtype=dtype, device=device)
+def plan_coeffs(plan: FlipPlan, dtype, device, extra_gs=()) -> torch.Tensor:
+    """``plan.gs`` followed by ``extra_gs`` as a ``dtype`` tensor on
+    ``device``, made once (a host-to-device copy), kept by the plan and
+    shared by every later step; callers must not write to it.  A step
+    that reads it after its first call reads nothing from the host."""
+    extra_gs = tuple(float(g) for g in extra_gs)
+    key = (extra_gs, dtype, torch.device(device))
+    if key not in plan.device_gs:
+        plan.device_gs[key] = torch.as_tensor(plan.gs + extra_gs,
+                                              dtype=dtype, device=device)
+    return plan.device_gs[key]
 
 
 def _xtype_site_gs(op) -> "np.ndarray | None":
@@ -271,7 +278,7 @@ def cheby_step_fused(
     psi = torch.complex(re, im).reshape(-1, 1 << plan.L)
     rdtype = re.dtype
     scale = 1.0 if flip_scale is None else flip_scale
-    G = plan_coeffs(plan.gs, rdtype, re.device) * scale
+    G = plan_coeffs(plan, rdtype, re.device) * scale
     beta = float(delta) / 2.0 + float(e_min)
     dmb = (diag.reshape(psi.shape).to(rdtype) - beta).contiguous()
     w_fn = None

@@ -84,8 +84,7 @@ def _flip_coeffs(plan: FlipPlan, flip_scale, extra_gs, device):
     once per plan and device; a tensor ``flip_scale`` on the device and a
     Python number read nothing from the host, so a scan can capture the
     step."""
-    base = plan_coeffs(plan.gs + tuple(float(g) for g in extra_gs),
-                       torch.float64, device)
+    base = plan_coeffs(plan, torch.float64, device, extra_gs)
     if flip_scale is None:
         return base
     if isinstance(flip_scale, (int, float)):

@@ -15,14 +15,14 @@ the counterpart of ``jax.jit(lax.scan(step))`` is a
   (``index_select`` on the counter) and the ``(length, ...)`` outputs
   written inside it (``index_copy_``); the graph increments the counter
   and ends by copying the new carry into the carry buffer (one read and
-  one write of the carry: about 1 % of a 2^24 complex128 step);
+  one write of the carry: about 2 % of a 2^24 complex128 step);
 - the graph is replayed ``length − 1`` times, with no host work per
   interval beyond the replay call.
 
-A graph of ``_CHUNK`` intervals would copy the carry once per chunk but
-needs a second graph for the remainder; on an H100 chunks of 4 gained
-about 1 % over single intervals (``tools/scan_chunk_sweep.py``,
-PERF.md §6), so one interval is captured.
+Every graph on a device captures into one memory pool kept for the
+process (:func:`_graph_pool`), so that a propagation's capture reuses
+the blocks of the ones before it.  Replays run on the caller's current
+stream; two scans must not replay at once on different streams.
 
 A step that reads the host (``.item()``, ``float(t)``, ``.tolist()``,
 ``.cpu()``, a pageable host-to-device copy such as a tensor made from a
@@ -36,11 +36,15 @@ The kernel wrappers' launch counters (``ops/cheby_flip.py`` and
 captured, once; the scan takes that delta back and adds it on every
 replay, so ``LAUNCHES`` stays "launches issued to the device".
 
-On the CPU, and while autograd records through the carry or ``xs``,
-:func:`scan` is the plain loop of the same step (the graphed backward is
-not ported).  :class:`GraphedScan` keeps its graph between calls: every
-call with inputs of the captured shapes copies them into the static
-buffers and replays, one capture for every control update.
+On the CPU, and while autograd records, :func:`scan` is the plain loop
+of the same step (the graphed backward is not ported).  Autograd
+records when the carry or ``xs`` requires grad, or when the first
+interval's results do: the step closes over a tensor that requires
+grad.  A graph's saved tensors would be overwritten by every replay, so
+such a scan finishes as the loop after its eager first interval.
+:class:`GraphedScan` keeps its graph between calls: every call with
+inputs of the captured shapes copies them into the static buffers and
+replays, one capture for every control update.
 """
 
 from __future__ import annotations
@@ -54,8 +58,7 @@ __all__ = ["scan", "GraphedScan"]
 
 _COUNTERS = (_flip.LAUNCHES, _banded.LAUNCHES)
 _SIDE_STREAMS: dict = {}
-# intervals per captured graph (module docstring)
-_CHUNK = 1
+_POOLS: dict = {}
 
 
 def _leaves(tree) -> list:
@@ -111,10 +114,11 @@ def _on_card(carry, xs) -> bool:
     return leaves[0].device.type == "cuda"
 
 
-def _loop(step, carry, xs, n):
-    """The plain loop: ``step`` per interval, outputs stacked."""
-    ys = []
-    for k in range(n):
+def _loop(step, carry, xs, n, k0=0, ys=()):
+    """The plain loop: ``step`` per interval from ``k0`` on (after the
+    outputs ``ys`` of the intervals before it), outputs stacked."""
+    ys = list(ys)
+    for k in range(k0, n):
         carry, y = step(carry, _map(lambda t: t[k], xs))
         ys.append(y)
     if n == 0 or ys[0] is None:
@@ -132,10 +136,7 @@ def scan(step, carry, xs=None, length=None):
     On the card the step runs as a replayed CUDA graph (module
     docstring); its carry must keep its shapes and dtypes from the
     second interval on, and ``xs`` must lie on the carry's device."""
-    n = _length(xs, length)
-    if n == 0 or not _on_card(carry, xs) or _records_grad(carry, xs):
-        return _loop(step, carry, xs, n)
-    return _Graph(step).run(carry, xs, n, xs_is_static=True)
+    return GraphedScan(step)._run(carry, xs, length)[0]
 
 
 class GraphedScan:
@@ -144,42 +145,80 @@ class GraphedScan:
     ``xs`` have the captured shapes and dtypes copies them into the
     static buffers and replays (``length`` times from interval 0, or,
     when the carry's type changes at the first interval, the first
-    interval eagerly and ``length − 1`` replays).  Other shapes capture
-    anew.  On the CPU, or while autograd records, it is :func:`scan`.
-    The results are returned as new tensors: the next call overwrites
-    the static buffers."""
+    interval eagerly and ``length − 1`` replays).  A step without ``xs``
+    and outputs replays for any ``length``; other shapes capture anew.
+    On the CPU, or while autograd records, it is :func:`scan`.  The
+    graph reads the tensors the step closes over as they were at its
+    capture: one that comes to require grad later needs a new
+    :class:`GraphedScan`.  The results are returned as new tensors: the
+    next call overwrites the static buffers."""
 
     def __init__(self, step):
         self.step = step
         self._graph = None
-        self._key = None
 
     def __call__(self, carry, xs=None, length=None):
+        out, static = self._run(carry, xs, length)
+        if not static:
+            return out
+        return _map(torch.clone, out[0]), _map(torch.clone, out[1])
+
+    def _run(self, carry, xs, length):
+        """``(carry, ys)`` and whether they are the graph's static
+        buffers."""
         n = _length(xs, length)
         if n == 0 or not _on_card(carry, xs) or _records_grad(carry, xs):
-            return _loop(self.step, carry, xs, n)
-        key = (n, _signature(carry), _signature(xs))
-        if self._key != key:
-            self._graph = None  # free the old graph's pool first
-            self._graph = _Graph(self.step)
-            self._key = key
-            out = self._graph.run(carry, xs, n, xs_is_static=False)
-        else:
-            out = self._graph.rerun(carry, xs, n)
-        return _map(torch.clone, out[0]), _map(torch.clone, out[1])
+            return _loop(self.step, carry, xs, n), False
+        key = (_signature(carry), _signature(xs))
+        graph = self._graph
+        if graph is not None and graph.key == key and (
+                graph.n == n or not _leaves(graph.ys)):
+            return graph.rerun(carry, xs, n), True
+        self._graph = None  # its blocks go back to the pool first
+        graph = _Graph(self.step, key)
+        out = graph.run(carry, xs, n)
+        if graph.graph is None:  # autograd recorded: the loop ran
+            return out, False
+        self._graph = graph
+        return out, True
 
 
 def _signature(tree):
     return tuple((tuple(t.shape), t.dtype, t.device) for t in _leaves(tree))
 
 
-def _side_stream(device) -> torch.cuda.Stream:
+def _index(device) -> int:
     index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
+    return torch.cuda.current_device() if index is None else index
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    index = _index(device)
     if index not in _SIDE_STREAMS:
         _SIDE_STREAMS[index] = torch.cuda.Stream(index)
     return _SIDE_STREAMS[index]
+
+
+def _graph_pool(device):
+    """The memory pool every scan's graph on ``device`` captures into,
+    kept for the process by a one-node graph captured into it first.  A
+    graph's own pool would hold its step's temporaries after the graph
+    is gone, until an allocation fails and the allocator frees every
+    cached block at once; one pool serves each new capture from the
+    blocks of the graphs before it.  Graphs may share it because nothing
+    of a step outlives its replay in the pool: the carry, ``xs``,
+    outputs and counter are static buffers outside it, and replays run
+    in order on the caller's stream."""
+    index = _index(device)
+    if index not in _POOLS:
+        handle = torch.cuda.graph_pool_handle()
+        keeper = torch.cuda.CUDAGraph()
+        with torch.cuda.device(index), torch.cuda.stream(_side_stream(index)):
+            keeper.capture_begin(pool=handle)
+            torch.zeros(1, device=torch.device("cuda", index))
+            keeper.capture_end()
+        _POOLS[index] = (handle, keeper)
+    return _POOLS[index][0]
 
 
 def _refused(step, why) -> str:
@@ -189,22 +228,25 @@ def _refused(step, why) -> str:
 
 
 class _Graph:
-    """Captured runs of ``step`` over its static buffers: one graph of
-    :data:`_CHUNK` intervals and, for the remainder, one of a single
-    interval, each captured when first needed."""
+    """One interval of ``step`` captured over its static buffers."""
 
-    def __init__(self, step):
+    def __init__(self, step, key):
         self.step = step
-        self.graphs = {}         # intervals → (graph, launches it issues)
+        self.key = key           # the carry's and xs's shapes and dtypes
+        self.graph = None        # the CUDAGraph, once captured
+        self.delta = ()          # launches one replay issues
+        self.n = None            # intervals of the capturing call
         self.carry = None        # static carry buffers
-        self.xs = None           # static xs (the caller's, or copies)
-        self.ys = None           # (length, ...) outputs
+        self.xs = None           # static xs
+        self.ys = None           # (n, ...) outputs
         self.counter = None      # (1,) int64: the interval being run
         self.first_eager = False
         self.device = None
 
-    def run(self, carry, xs, n, *, xs_is_static):
-        """Interval 0 eagerly, then ``n − 1`` intervals replayed."""
+    def run(self, carry, xs, n):
+        """Interval 0 eagerly, the capture, then ``n − 1`` intervals
+        replayed.  Where the first interval's results require grad, the
+        loop from interval 1 instead, and nothing is captured."""
         leaves = _leaves(carry) + _leaves(xs)
         device = self.device = leaves[0].device
         for t in leaves:
@@ -216,21 +258,24 @@ class _Graph:
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             carry1, y0 = self.step(carry, _map(lambda t: t[0], xs))
-            for t in _leaves(carry1) + _leaves(y0):
-                if t.device != device:
-                    raise RuntimeError(_refused(
-                        self.step, f"it returns a tensor on {t.device}"))
-            self.first_eager = _signature(carry1) != _signature(carry)
-            self.carry = _map(torch.clone, carry1)
-            self.xs = xs if xs_is_static else _map(torch.clone, xs)
-            self.ys = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), y0)
-            _map(lambda buf, t: buf[0].copy_(t), self.ys, y0)
-            self.counter = torch.ones(1, dtype=torch.int64, device=device)
-            del carry1, y0
         cur.wait_stream(side)
-        for t in (_leaves(self.carry) + _leaves(self.xs)
-                  + _leaves(self.ys) + [self.counter]):
+        for t in _leaves(carry1) + _leaves(y0):
+            if t.device != device:
+                raise RuntimeError(_refused(
+                    self.step, f"it returns a tensor on {t.device}"))
             t.record_stream(cur)
+        if _records_grad(carry1, y0):
+            # the step closes over a tensor that requires grad
+            return _loop(self.step, carry1, xs, n, 1, [y0])
+        self.first_eager = _signature(carry1) != _signature(carry)
+        self.n = n
+        self.carry = _map(torch.clone, carry1)
+        self.xs = _map(torch.clone, xs)
+        self.ys = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), y0)
+        _map(lambda buf, t: buf[0].copy_(t), self.ys, y0)
+        self.counter = torch.ones(1, dtype=torch.int64, device=device)
+        del carry1, y0
+        self._capture()
         self._replay(n - 1)
         return self.carry, self.ys
 
@@ -252,59 +297,55 @@ class _Graph:
         return self.carry, self.ys
 
     def _replay(self, times):
-        """``times`` more intervals: whole chunks, then single ones."""
-        chunks, rest = divmod(times, _CHUNK)
-        for size, count in ((_CHUNK, chunks), (1, rest)):
-            if count and size not in self.graphs:
-                self.graphs[size] = self._capture(size)
-            graph, delta = self.graphs.get(size, (None, ()))
-            for _ in range(count):
-                graph.replay()
-                for counts, key, d in delta:
-                    counts[key] += d
+        for _ in range(times):
+            self.graph.replay()
+            for counts, key, d in self.delta:
+                counts[key] += d
 
-    def _capture(self, size):
-        """One graph of ``size`` intervals from the static buffers: each
-        selects its ``xs`` row and writes its outputs at the counter and
-        increments it; the last copies its carry into the carry buffer.
-        Capturing runs nothing on the device.  Returns the graph and the
-        launches one replay issues."""
+    def _capture(self):
+        """The graph of one interval from the static buffers: it selects
+        its ``xs`` row and writes its outputs at the counter, increments
+        it and copies its carry into the carry buffer.  Capturing runs
+        nothing on the device.  Keeps the launches one replay issues."""
         cur = torch.cuda.current_stream(self.device)
         side = _side_stream(self.device)
         side.wait_stream(cur)
         before = [dict(c) for c in _COUNTERS]
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            graph.capture_begin()
+            graph.capture_begin(pool=_graph_pool(self.device))
             try:
-                state = self.carry
-                for _ in range(size):
-                    x = _map(lambda t: t.index_select(0, self.counter)[0],
-                             self.xs)
-                    state, y = self.step(state, x)
-                    if _signature(state) != _signature(self.carry):
-                        raise ValueError(
-                            f"the carry changed from "
-                            f"{_signature(self.carry)} to "
-                            f"{_signature(state)}")
-                    _map(lambda buf, t: buf.index_copy_(0, self.counter,
-                                                        t[None]),
-                         self.ys, y)
-                    self.counter.add_(1)
+                x = _map(lambda t: t.index_select(0, self.counter)[0],
+                         self.xs)
+                state, y = self.step(self.carry, x)
+                if _signature(state) != _signature(self.carry):
+                    raise ValueError(
+                        f"the carry changed from {_signature(self.carry)} "
+                        f"to {_signature(state)}")
+                _map(lambda buf, t: buf.index_copy_(0, self.counter, t[None]),
+                     self.ys, y)
+                self.counter.add_(1)
                 _map(lambda buf, t: buf.copy_(t), self.carry, state)
                 del state, y, x
             except Exception as exc:
                 try:
                     graph.capture_end()
                 except RuntimeError:
-                    pass  # the capture was already invalidated by exc
+                    # the capture was already invalidated by exc, and the
+                    # allocator still routes this stream's allocations
+                    # to the pool: capture on a new stream into a new
+                    # pool from now on
+                    index = _index(self.device)
+                    _SIDE_STREAMS.pop(index, None)
+                    _POOLS.pop(index, None)
                 for c, b in zip(_COUNTERS, before):
                     c.update(b)
                 raise RuntimeError(_refused(self.step, exc)) from exc
             graph.capture_end()
         cur.wait_stream(side)
-        delta = tuple((c, k, c[k] - b[k]) for c, b in zip(_COUNTERS, before)
-                      for k in c if c[k] != b[k])
+        self.delta = tuple((c, k, c[k] - b[k])
+                           for c, b in zip(_COUNTERS, before)
+                           for k in c if c[k] != b[k])
         for c, b in zip(_COUNTERS, before):
             c.update(b)
-        return graph, delta
+        self.graph = graph

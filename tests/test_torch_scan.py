@@ -163,13 +163,14 @@ def test_guard_passes_device_work():
 @pytest.fixture
 def guarded(monkeypatch):
     """Every scan (and :class:`GraphedScan`) of the fused layer, the Leja
-    loop and ``bench_torch.py`` runs its steps under :class:`HostReadGuard`, all but the first: that
-    one is the eager warm-up on the card too, where the kernels are built
-    and one-time device constants made.  Returns, per scan run, the
+    loop and ``bench_torch.py`` runs its steps under
+    :class:`HostReadGuard`, all but the first: that one is the eager
+    warm-up on the card too, where the kernels are built and one-time
+    device constants made.  Returns, per scan run, the
     number of intervals run under the guard."""
     runs = []
 
-    def guarded_scan(step, carry, xs=None, length=None):
+    def guard(step):
         runs.append(0)
         first = [True]
 
@@ -181,17 +182,18 @@ def guarded(monkeypatch):
             with HostReadGuard():
                 return step(c, x)
 
-        return scan(checked, carry, xs, length)
+        return checked
 
-    class GuardedGraphedScan:
-        def __init__(self, step):
-            self.step = step
+    class GuardedGraphedScan(GraphedScan):
+        def _run(self, carry, xs, length):
+            step = self.step
+            self.step = guard(step)
+            try:
+                return super()._run(carry, xs, length)
+            finally:
+                self.step = step
 
-        def __call__(self, carry, xs=None, length=None):
-            return guarded_scan(self.step, carry, xs, length)
-
-    for mod in (scan_mod, fused, newton_leja):
-        monkeypatch.setattr(mod, "scan", guarded_scan)
+    # scan and bench_torch.py's loops make theirs through scan_mod
     for mod in (scan_mod, fused):
         monkeypatch.setattr(mod, "GraphedScan", GuardedGraphedScan)
     return runs
@@ -446,3 +448,56 @@ def test_graphed_scan_on_the_cpu_is_the_loop():
         got = run(torch.as_tensor(c0), xs)
         assert torch.equal(got[0], want[0])
         assert all(torch.equal(g, w) for g, w in zip(got[1], want[1]))
+
+
+def test_loop_resumed_after_the_first_interval_equals_the_loop():
+    """The scan's autograd branch (the first interval's results require
+    grad) finishes as the loop from interval 1: equal to the whole loop,
+    gradient included."""
+    c0, a, b = _toy_inputs()
+    w = torch.tensor(0.7, dtype=torch.float64, requires_grad=True)
+    toy = _toy_step(torch.cos, torch.sin)
+
+    def step(c, x):
+        return toy(w * c, x)
+
+    xs = (torch.as_tensor(a), torch.as_tensor(b))
+    c = torch.as_tensor(c0)
+    carry1, y0 = step(c, scan_mod._map(lambda t: t[0], xs))
+    got = scan_mod._loop(step, carry1, xs, 6, 1, [y0])
+    want = scan_mod._loop(step, c, xs, 6)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(g, v) for g, v in zip(got[1], want[1]))
+    g_got, = torch.autograd.grad(got[0].sum() + got[1][0].sum(), w)
+    g_want, = torch.autograd.grad(want[0].sum() + want[1][0].sum(), w)
+    assert torch.equal(g_got, g_want)
+
+
+def test_graphed_scan_without_xs_on_the_cpu_any_length():
+    """A step without ``xs`` and outputs: one :class:`GraphedScan` runs
+    every length, each equal to the loop of that length."""
+    step = lambda c, _: (0.9 * c + 0.1 * c.sum(), None)  # noqa: E731
+    c0 = torch.as_tensor(_toy_inputs()[0])
+    run = GraphedScan(step)
+    for n in (2, 5, 3):
+        got, ys = run(c0, None, n)
+        assert ys is None
+        assert torch.equal(got, scan_mod._loop(step, c0, None, n)[0])
+
+
+def test_flip_coefficients_are_owned_by_the_plan():
+    """The flip vector a captured step reads lives as long as its plan:
+    made once per (extra bits, dtype, device) and kept on the plan, not
+    in a cache that could free it under a live graph."""
+    from quantumpropagators_torch.ops.fused_cheby import (make_flip_plan,
+                                                          plan_coeffs)
+
+    plan = make_flip_plan(L, np.linspace(0.5, 1.5, L))
+    a = plan_coeffs(plan, torch.float64, "cpu")
+    assert plan_coeffs(plan, torch.float64, torch.device("cpu")) is a
+    assert plan_coeffs(plan, torch.float32, "cpu") is not a
+    ext = plan_coeffs(plan, torch.float64, "cpu", (0.25,))
+    assert ext.tolist() == list(plan.gs) + [0.25]
+    assert a.tolist() == list(plan.gs)
+    assert set(plan.device_gs.values()) >= {a, ext}
+    assert plan == make_flip_plan(L, np.linspace(0.5, 1.5, L))

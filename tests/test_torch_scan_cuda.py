@@ -1,9 +1,12 @@
 """The port's scan on the card: each routed path as a replayed CUDA graph
 against the eager loop of the same step, bit for bit and with equal
 kernel launches; one capture for three control tables through
-``make_fused_cheby_propagator``; a step that reads the host raises at
-capture.  Needs an NVIDIA GPU with nvcc (``-m cuda``); skips without
-one.  Imports no jax: run with ``--noconftest``."""
+``make_fused_cheby_propagator`` and for every length of a step without
+per-step inputs; a step that closes over a tensor requiring grad runs
+as the loop, with the loop's gradient; a step that reads the host
+raises at capture; repeated captures stay in one memory pool.  Needs
+an NVIDIA GPU with nvcc (``-m cuda``); skips without one.  Imports no
+jax: run with ``--noconftest``."""
 
 import numpy as np
 import pytest
@@ -31,7 +34,11 @@ ENVELOPE = dict(specrange_method="manual", E_min=-BOUND - 0.5, E_max=BOUND)
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda", 0)
+    device = torch.device("cuda", 0)
+    # the process's graph pool and its one-node keeper graph, made before
+    # the tests count captures
+    scan_mod._graph_pool(device)
+    return device
 
 
 def _state(n, seed, device, dtype=torch.complex128):
@@ -209,3 +216,85 @@ def test_host_read_raises_at_capture(cuda, where):
                                           observable_fn=_obs, **ENVELOPE)
     torch.cuda.synchronize()
     assert torch.isfinite(ys).all() and abs(float(ys[-1]) - 1.0) < 1e-12
+
+
+def _counting_graphs(monkeypatch):
+    made = []
+    real = torch.cuda.CUDAGraph
+
+    def counted(*args, **kwargs):
+        made.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", counted)
+    return made
+
+
+def test_closed_over_grad_runs_the_loop(cuda, monkeypatch):
+    """A step that closes over a parameter requiring grad (the operator
+    matrix a user differentiates through): no capture, the loop's
+    results and the loop's gradient, bit for bit."""
+    made = _counting_graphs(monkeypatch)
+    rng = np.random.default_rng(8)
+    m = torch.as_tensor(rng.standard_normal((64, 64)) / 8, device=cuda)
+    w = m.clone().requires_grad_(True)
+    xs = torch.as_tensor(rng.uniform(0.5, 1.5, 7), device=cuda)
+    c0 = torch.as_tensor(rng.standard_normal(64), device=cuda)
+
+    def step(c, x):
+        c = torch.tanh(x * (w @ c))
+        return c, c.sum()
+
+    got = scan_mod.scan(step, c0, xs)
+    want = scan_mod._loop(step, c0, xs, 7)
+    assert not made
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    g_got, = torch.autograd.grad(got[0].sum() + got[1].sum(), w)
+    g_want, = torch.autograd.grad(want[0].sum() + want[1].sum(), w)
+    assert torch.equal(g_got, g_want)
+    with torch.no_grad():
+        graphed = scan_mod.scan(step, c0, xs)
+    assert len(made) == 1 and torch.equal(graphed[0], want[0].detach())
+
+
+def test_one_capture_for_every_length(cuda, monkeypatch):
+    """A step without ``xs`` and outputs (``bench_torch.py``'s loops):
+    one :class:`GraphedScan` captures once and replays each length,
+    equal to the loop of that length."""
+    from quantumpropagators_torch.ops.fused_cheby_dd import (
+        cheby_step_fused_dd, make_flip_plan)
+
+    made = _counting_graphs(monkeypatch)
+    # H = β + Σ_j 1.1 X_j (dmb = 0): spectrum ±13.2 inside [−15, 15]
+    plan = make_flip_plan(L, 1.1)
+    c64 = np.asarray(ChebyWorkspace.create(30.0, -15.0, 0.05).coeffs)
+    dmb = torch.zeros(2 ** L, dtype=torch.float64, device=cuda)
+
+    def step(psi, _):
+        return cheby_step_fused_dd(plan, dmb, psi, c64, 30.0, -15.0,
+                                   0.05), None
+
+    run = scan_mod.GraphedScan(step)
+    psi = _state(2 ** L, 9, cuda)
+    for n in (2, 6, 3):
+        cf.reset_launches()
+        got, _ = run(psi, None, n)
+        graph_counts = dict(cf.LAUNCHES)
+        cf.reset_launches()
+        want, _ = scan_mod._loop(step, psi, None, n)
+        assert graph_counts == dict(cf.LAUNCHES)
+        assert torch.equal(got, want)
+    assert len(made) == 1
+
+
+def test_captures_share_one_pool(cuda):
+    """Each propagation captures anew, into the process's one graph pool:
+    the memory the card holds stops growing after the first call (a
+    pool per graph grew by the step's temporaries every call)."""
+    reserved = []
+    for _ in range(4):
+        fused.cheby_propagate_fused(_state(2 ** L, 7, cuda), _chain(cuda),
+                                    TLIST, kernel="dd", **ENVELOPE)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(cuda))
+    assert reserved[1] == reserved[2] == reserved[3]
