@@ -85,6 +85,19 @@ observable that reads the host, which must raise at capture.  Every
 fused path of the other phases (3, 4, 5, 7, 8, 9, 12, 13) runs through
 the same graphs.
 
+Phase 16 (after phase 15, before phase 10's NCCL group) runs the port
+of the TPU probes under ``docs/profiling/``
+(``quantumpropagators_torch/profiling/`` on ``csrc/probes.cu``): every
+probe kernel against its plain version (bit for bit where the kernel
+adds in the plain version's order), each timed beside its plain
+version, its bound and the library call that computes the same function
+(``copy_``, ``addcmul``, ``torch.matmul`` with TF32 on and off), then
+each probe module's command line at 5 repetitions with the launch
+counts set to 0 before and read after (stream rates, XOR-scattered
+streaming, four flip formulations, the flip order's stages at L = 24,
+FMA contraction, σ-extraction and tensor-core exactness).  Its kernels
+join the kernels line.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -127,7 +140,9 @@ B_BANDED = 128       # 128-level units, dense blocks
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and FP64 / FP32 FLOP/s
 # outside the tensor cores
 HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"double": 34e12, "float": 67e12}
+PEAK_FLOPS = {"double": 34e12, "float": 67e12,
+              # dense tensor-core rates: TF32 and FP64 (probe phase 16)
+              "tf32": 495e12, "fp64 mma": 67e12}
 # file:line of the pl.pallas_call each instantiation replaces
 REPLACES = {
     "cheby_flip_first<float>": "quantumpropagators/ops/fused_cheby.py:440",
@@ -143,7 +158,8 @@ ALSO_REPLACES = {
     "cheby_flip_iter<float>": "quantumpropagators/ops/fused_cheby_dd.py:1165",
     "cheby_flip_high<float>": "quantumpropagators/ops/fused_cheby_dd.py:1165"
                               ", quantumpropagators/ops/fused_cheby.py:440",
-    "cheby_flip_high<double>": "quantumpropagators/ops/fused_cheby_dd.py:1063",
+    "cheby_flip_high<double>": "quantumpropagators/ops/fused_cheby_dd.py:1063"
+                               ", docs/profiling/scratch_prof_dd.py:68",
 }
 
 
@@ -2494,6 +2510,345 @@ def graph_phase(device, card, chain, ctx):
     log(f"phase 15 wall {time.perf_counter() - t_phase:.1f} s")
     return paths, summary
 
+# phase 16: the TPU probes of docs/profiling/, ported as
+# quantumpropagators_torch/profiling/ on csrc/probes.cu.  Each module's
+# command line at 5 repetitions a measurement (chain and scatter probes at
+# their JAX sizes, stream and flip probes also at planes of 2^26).
+PROBE_SOURCE = "quantumpropagators_torch/csrc/probes.cu"
+PROBE_N = 1 << 26    # phase 16b's planes: 256 MB, a 2^24 complex128 state
+PROBE_MAINS = (
+    ("roofline", ["--reps", "5"]),
+    ("scatter", ["--flops", "0", "400", "--reps", "5"]),
+    ("scatter", ["--manual", "--flops", "0", "400", "--reps", "5"]),
+    ("flips", ["--reps", "5"]),
+    ("dd_stages", ["--L", str(L_MAIN), "--reps", "5"]),
+    ("exactness", []),
+)
+# name: (op, planes, chain, mul, scale, tolerance relative to max|plain|;
+# 0 = bit for bit: the kernel adds in the plain version's order)
+PROBE_STREAM_CHECKS = {
+    "copy": ("sum", 1, 0, 1.0, 1.0, 0),
+    "copy*1.0000001": ("sum", 1, 0, 1.0, 1.0000001, 0),
+    "add": ("sum", 2, 0, 1.0, 1.0, 0),
+    "sum7": ("sum", 7, 0, 1.0, 1.0, 0),
+    "triad": ("triad", 3, 0, 1.0, 1.0, 2e-6),     # x + y*z contracted
+    "fma16": ("chain", 2, 16, 1.0000001, 1.0, 1e-5),
+    "fma64": ("chain", 2, 64, 1.0000001, 1.0, 1e-5),
+}
+
+
+def _hold(errs, key, got, want, rel, what):
+    """Holds ``got`` against ``want`` for kernel ``key``: bit for bit
+    (``rel = 0``) or within ``rel·max|want|``; records the max abs
+    difference in ``errs[key]``."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    if not (torch.equal(got, want) if rel == 0 else err <= rel * scale):
+        raise AssertionError(f"phase 16 {key} {what}: max|d| {err:.3e} "
+                             f"against {rel} x {scale:.3e}")
+    errs[key] = max(errs.get(key, 0.0), err)
+
+
+def probe_checks(device):
+    """Phase 16a: every probe kernel against its plain version on the
+    card (f32 planes of 2^20, the flip order at L_CHECK); returns the
+    max abs difference per kernel."""
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.ops import probes
+    from quantumpropagators_torch.profiling import exactness, planes, scatter
+    from quantumpropagators_torch.profiling.dd_stages import order_inputs
+    from quantumpropagators_torch.profiling.flips import VARIANTS
+    from quantumpropagators_torch.profiling.roofline import smem_limit
+
+    errs = {}
+    n = 1 << 20
+    xs = planes(n, scatter.N_IN, device, SEED)
+    for name, (op, n_in, chain, mul, scale, rel) in \
+            PROBE_STREAM_CHECKS.items():
+        kw = dict(chain=chain, mul=mul, scale=scale)
+        _hold(errs, f"probe_stream<{op}>",
+              probes.probe_stream(xs[:n_in], op, **kw)[0],
+              probes.probe_stream_plain(xs[:n_in], op, **kw)[0], rel, name)
+    tile_bits = 17  # tiles of 1024 rows, as probe_scatter_r4.py
+    for mode in scatter.MODES:
+        for flops in (0, 400):
+            kw = dict(maps=scatter.maps(mode, n >> tile_bits),
+                      tile_bits=tile_bits, chain=scatter.chain_of(flops),
+                      mul=0.9999, n_out=2)
+            got = probes.probe_stream(xs, "sum", **kw)
+            want = probes.probe_stream_plain(xs, "sum", **kw)
+            what = f"scatter {mode} flops={flops}"
+            _hold(errs, "probe_stream<sum>", got[0], want[0],
+                  1e-5 if flops else 0, what)
+            _hold(errs, "probe_stream<sum>", got[1], want[1], 0, what)
+        kw = dict(chain=scatter.chain_of(400 if mode == "xor" else 0),
+                  mul=0.9999)
+        _hold(errs, "probe_stream_pipelined",
+              probes.probe_stream_pipelined(xs, **kw),
+              probes.probe_stream_pipelined_plain(xs, **kw),
+              1e-5 if kw["chain"] else 0, f"chain {kw['chain']}")
+    for variant, tb in VARIANTS.items():
+        for lo, hi in ((0, 9), (0, 12), (7, 17)):
+            if variant == "mma" and lo:
+                continue  # the mma variant sums bits 0-6 on the tensor cores
+            _hold(errs, f"probe_flipsum<{variant}>",
+                  probes.probe_flipsum(xs[0], lo, hi, variant, tb),
+                  probes.probe_flipsum_plain(xs[0], lo, hi, variant, tb),
+                  2e-6 if variant == "mma" else 0, f"bits [{lo}, {hi})")
+    for mode in probes.MMA_MODES:
+        dtype = torch.float64 if mode == "f64" else torch.float32
+        x = xs[0][:512 * 128].view(512, 128).to(dtype)
+        key = f"probe_tile_mma<{mode}>"
+        for bit in range(7):  # every fragment position, bit for bit
+            P = torch.from_numpy(exactness.permutation(bit)).to(device, dtype)
+            _hold(errs, key, probes.probe_tile_mma(x, P, mode),
+                  probes.probe_tile_mma_plain(x, P, mode), 0,
+                  f"flip of lane bit {bit}")
+        M = xs[1][:128 * 128].view(128, 128).to(dtype)
+        _hold(errs, key, probes.probe_tile_mma(x, M, mode),
+              probes.probe_tile_mma_plain(x, M, mode),
+              1e-14 if mode == "f64" else 2e-6, "random (128, 128)")
+    smem = smem_limit(device)  # each launch's output held bit for bit
+    if not smem[227] or smem[228]:
+        raise AssertionError(f"phase 16 probe_smem: {smem} (227 KB must "
+                             f"launch, 228 KB be refused)")
+    errs["probe_smem"] = 0.0
+    v0, v1, phi, dmb, G = order_inputs(L_CHECK, device, SEED)
+    tile_bits, h = cf.flip_split(L_CHECK, torch.complex128)
+    w = cf.cheby_flip_high(v1, G, h)
+    for body in probes.ORDER_BODIES:
+        for nb in probes.ORDER_NBS:
+            k0, kphi, p0, pphi = v0.clone(), phi.clone(), v0.clone(), \
+                phi.clone()
+            args = (dmb, G, -0.14, 0.13, tile_bits, L_CHECK - h, body, nb, w)
+            probes.probe_flip_order(k0, v1, kphi, *args)
+            probes.probe_flip_order_plain(p0, v1, pphi, *args)
+            key = f"probe_flip_order<double,{body},{nb}>"
+            for got, want in ((k0, p0), (kphi, pphi)):
+                err = float((got - want).abs().max())
+                if err > 1e-14:
+                    raise AssertionError(f"phase 16 {key}: max|d| {err:.3e}")
+                errs[key] = max(errs.get(key, 0.0), err)
+            if (body, nb) == ("full", "xor"):  # the production pass's copy
+                b0, bphi = v0.clone(), phi.clone()
+                cf.cheby_flip_iter_low(b0, v1, bphi, dmb, G, -0.14, 0.13,
+                                       L_CHECK - h, w)
+                if not (torch.equal(k0, b0) and torch.equal(kphi, bphi)):
+                    raise AssertionError("phase 16 probe_flip_order full/xor "
+                                         "differs from cheby_flip_iter_low")
+    rng = np.random.default_rng(SEED)
+    for dtype, ctype in ((torch.float32, "float"), (torch.float64, "double")):
+        a, b = (torch.from_numpy(rng.standard_normal(n)).to(device, dtype)
+                for _ in range(2))
+        p, r = probes.probe_fma_residual(a, b)
+        outcome = probes.fma_outcome(a, b, p, r)
+        if outcome not in ("FUSED", "separate"):
+            raise AssertionError(f"phase 16 FMA {ctype}: {outcome}")
+        key = f"probe_fma_residual<{ctype}>"
+        want = probes.exact_product_residual(a, b) if outcome == "FUSED" \
+            else torch.zeros_like(r)
+        _hold(errs, key, r, want, 0, f"as compiled ({outcome})")
+        for got, want in zip(probes.probe_fma_residual(a, b, True),
+                             probes.probe_fma_residual_plain(a, b, True)):
+            _hold(errs, key, got, want, 0, "separately rounded")
+    x = xs[2][:1024].view(8, 128) * torch.exp(xs[3][:1024].view(8, 128))
+    for got, want in zip(probes.probe_extract(x), probes.probe_extract_plain(x)):
+        _hold(errs, "probe_extract", got, want, 0, "(8, 128)")
+    for variant, bits in (("shfl", range(5)), ("smem", range(12))):
+        for bit in bits:
+            _hold(errs, f"probe_xor_permute<{variant}>",
+                  probes.probe_xor_permute(xs[4], bit, variant),
+                  probes.probe_xor_permute_plain(xs[4], bit, variant), 0,
+                  f"bit {bit}")
+    missing = set(probes.LAUNCHES) - set(errs)
+    if missing:
+        raise AssertionError(f"phase 16: no check of {sorted(missing)}")
+    inexact = ", ".join(f"{k} {v:.2e}" for k, v in errs.items() if v)
+    log(f"phase 16a every probe kernel against its plain version: "
+        f"{len(errs)} kernels, max|d| {inexact or 'none'}, the rest bit for "
+        f"bit; 227 KB of shared memory launches, 228 KB is refused ok")
+    return errs
+
+
+def probe_times(device, card):
+    """Phase 16b: each probe kernel at its probe's size (stream and flip
+    bodies on planes of 2^26, the pipelined sum on the scatter probe's 16
+    planes of 2^22, the flip order at L_MAIN, the exactness bodies at
+    theirs), its plain version, the one PyTorch call that computes the
+    same function where there is one, and the bound; returns ``{kernel:
+    (ms, plain_ms, bound_ms, bound_by, library_ms)}``."""
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.ops import probes
+    from quantumpropagators_torch.profiling import planes
+    from quantumpropagators_torch.profiling import time_ms as graph_ms
+    from quantumpropagators_torch.profiling.dd_stages import AK, S2, \
+        order_inputs
+    from quantumpropagators_torch.profiling.flips import VARIANTS
+
+    n = PROBE_N
+    xs = planes(n, 3, device, SEED)
+    out = torch.empty_like(xs[0])
+    s16 = planes(1 << 22, 16, device, SEED)
+    x2, M2 = xs[0].view(-1, 128), xs[1][:128 * 128].view(128, 128)
+    x64, M64 = x2[: n // 256].double(), M2.double()
+    out64 = torch.empty_like(x64)
+    tiny = xs[2][:1024].view(8, 128)
+    r32 = xs[2][:32 * 128].view(32, 128)
+    small = tiny.double()
+
+    def matmul(a, b, o, tf32):
+        def run():
+            saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                torch.matmul(a, b, out=o)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = saved
+        return run
+
+    P, K = probes, {}
+    # key: (kernel, plain, library or None, bytes, operations, peak, what)
+    K["probe_stream<sum>"] = (
+        lambda: P.probe_stream(xs[:1]), lambda: P.probe_stream_plain(xs[:1]),
+        lambda: out.copy_(xs[0]), 8 * n, 0, "float", f"copy 2^{n.bit_length() - 1}")
+    K["probe_stream<triad>"] = (
+        lambda: P.probe_stream(xs, "triad"),
+        lambda: P.probe_stream_plain(xs, "triad"),
+        lambda: torch.addcmul(xs[0], xs[1], xs[2], out=out), 16 * n, 2 * n,
+        "float", f"triad 2^{n.bit_length() - 1}")
+    chain = dict(chain=64, mul=1.0000001)
+    K["probe_stream<chain>"] = (
+        lambda: P.probe_stream(xs[:2], "chain", **chain),
+        lambda: P.probe_stream_plain(xs[:2], "chain", **chain), None,
+        12 * n, 128 * n, "float", f"fma64 2^{n.bit_length() - 1}")
+    K["probe_stream_pipelined"] = (
+        lambda: P.probe_stream_pipelined(s16),
+        lambda: P.probe_stream_pipelined_plain(s16), None,
+        17 * 4 << 22, 15 << 22, "float", "16 planes of 2^22, flops=0")
+    for variant, tb in VARIANTS.items():
+        K[f"probe_flipsum<{variant}>"] = (
+            lambda v=variant, t=tb: P.probe_flipsum(xs[0], 0, 9, v, t),
+            lambda v=variant, t=tb: P.probe_flipsum_plain(xs[0], 0, 9, v, t),
+            None, 8 * n, 9 * n, "float",
+            f"9-bit flip sum 2^{n.bit_length() - 1}")
+    K["probe_tile_mma<tf32>"] = (
+        lambda: P.probe_tile_mma(x2, M2, "tf32"),
+        lambda: P.probe_tile_mma_plain(x2, M2, "tf32"),
+        matmul(x2, M2, out.view(-1, 128), True), 8 * n, 256 * n, "tf32",
+        f"({x2.shape[0]}, 128) x (128, 128), library TF32")
+    K["probe_tile_mma<3xtf32>"] = (
+        lambda: P.probe_tile_mma(x2, M2, "3xtf32"),
+        lambda: P.probe_tile_mma_plain(x2, M2, "3xtf32"),
+        matmul(x2, M2, out.view(-1, 128), False), 8 * n, 3 * 256 * n,
+        "tf32", f"({x2.shape[0]}, 128) x (128, 128), library full f32")
+    K["probe_tile_mma<f64>"] = (
+        lambda: P.probe_tile_mma(x64, M64, "f64"),
+        lambda: P.probe_tile_mma_plain(x64, M64, "f64"),
+        matmul(x64, M64, out64, False), 16 * x64.numel(),
+        256 * x64.numel(), "fp64 mma", f"({x64.shape[0]}, 128) f64")
+    K["probe_smem"] = (
+        lambda: P.probe_smem(tiny, 227 * 1024),
+        lambda: P.probe_smem_plain(tiny, 227 * 1024), None, 8 * 1024, 0,
+        "float", "(8, 128) through 227 KB")
+    v0, v1, phi, dmb, G = order_inputs(L_MAIN, device, SEED)
+    tile_bits, h = cf.flip_split(L_MAIN, torch.complex128)
+    w = cf.cheby_flip_high(v1, G, h)
+    N = 1 << L_MAIN
+    for body in P.ORDER_BODIES:
+        for nb in P.ORDER_NBS:
+            args = (v0, v1, phi, dmb, G, S2, AK, tile_bits, L_MAIN - h, body,
+                    nb, w)
+            K[f"probe_flip_order<double,{body},{nb}>"] = (
+                lambda a=args: P.probe_flip_order(*a),
+                lambda a=args: P.probe_flip_order_plain(*a), None,
+                104 * N, (4 * (L_MAIN - h) + 12) * N, "double",
+                f"L={L_MAIN} bits < {L_MAIN - h}")
+    for ctype, a in (("float", tiny), ("double", small)):
+        K[f"probe_fma_residual<{ctype}>"] = (
+            lambda a=a: P.probe_fma_residual(a, a),
+            lambda a=a: P.probe_fma_residual_plain(a, a), None,
+            4 * a.numel() * a.element_size(), 3 * a.numel(), ctype,
+            "(8, 128)")
+    K["probe_extract"] = (lambda: P.probe_extract(tiny),
+                          lambda: P.probe_extract_plain(tiny), None,
+                          12 * 1024, 4 * 1024, "float", "(8, 128)")
+    for variant, bit in (("shfl", 2), ("smem", 8)):
+        K[f"probe_xor_permute<{variant}>"] = (
+            lambda v=variant, b=bit: P.probe_xor_permute(r32, b, v),
+            lambda v=variant, b=bit: P.probe_xor_permute_plain(r32, b, v),
+            None, 8 * r32.numel(), 0, "float", f"(32, 128), bit {bit}")
+    times = {}
+    for key, (kernel, plain, library, n_bytes, ops, peak, what) in K.items():
+        # kernel and library call as the probe modules time them (a CUDA
+        # graph of the launches: no host cost); the plain version, which
+        # copies its scalars to the card, eagerly
+        ms = graph_ms(kernel, 10)
+        plain_ms = time_ms(plain, 3)
+        lib_ms = None if library is None else graph_ms(library, 10)
+        bound_ms, bound_by = bound(n_bytes, ops, peak)
+        times[key] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
+        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        log(f"phase 16b time {key} {what}: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.1f} % of it reached){lib} [{card}]")
+    return times
+
+
+def probe_phase(device, card):
+    """Phase 16: the TPU probes of ``docs/profiling/`` on the card.
+    (a) every kernel of ``csrc/probes.cu`` against its plain version;
+    (b) each timed beside its plain version, bound and library call;
+    (c) the launch counts set to 0, each probe module's command line
+    (``PROBE_MAINS``) run in this process, the counts read: every probe
+    kernel must have launched, and the exactness probe must read one of
+    its named outcomes.  Returns the kernels line's probe entries and the
+    flip kernels' launches of (c) (``dd_stages`` times the high pass and
+    the production order)."""
+    import importlib
+
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.ops import probes
+
+    t_phase = time.perf_counter()
+    errs = probe_checks(device)
+    times = probe_times(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    probes.reset_launches()
+    cf.reset_launches()
+    runs = {}
+    for module, argv in PROBE_MAINS:
+        log(f"phase 16c python -m quantumpropagators_torch.profiling.{module} "
+            f"{' '.join(argv)}:")
+        runs.setdefault(module, []).append(importlib.import_module(
+            f"quantumpropagators_torch.profiling.{module}").main(argv))
+    counts, flip_counts = dict(probes.LAUNCHES), dict(cf.LAUNCHES)
+    idle = [k for k, v in counts.items() if not v]
+    if idle or not flip_counts["cheby_flip_high<double>"]:
+        raise AssertionError(f"phase 16: not launched by the probes' "
+                             f"command lines: {idle}")
+    ex = runs["exactness"][0]
+    log(f"phase 16 exactness: FMA as compiled float "
+        f"{ex['fma']['float']['as compiled']}, double "
+        f"{ex['fma']['double']['as compiled']}; σ-extraction "
+        f"{ex['sigma']['extract']}; permutation exact "
+        f"{ {m: r['perm_exact'] for m, r in ex['permutation'].items()} }; "
+        f"mantissa bits exact "
+        f"{ {m: [k for k, r in ex['grid'].items() if r[m] == 0.0] for m in ('tf32', '3xtf32', 'f64')} } "
+        f"[{card}]")
+    entries = []
+    for key, launched in counts.items():
+        ms, plain_ms, bound_ms, bound_by, lib_ms = times[key]
+        entries.append({
+            "name": key, "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": probes.REPLACES[key], "launches": launched,
+            "launches_by_path": {"phase 16 profiling": launched},
+            "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+    log(f"phase 16 wall {time.perf_counter() - t_phase:.1f} s")
+    return entries, flip_counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2541,6 +2896,9 @@ def main() -> int:
     scan_paths, _ = graph_phase(device, card, chain, ctx)
     gc.collect()
     torch.cuda.empty_cache()
+    probe_kernels, probe_flips = probe_phase(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     # phases 10 and 11 share one world-size-1 NCCL group
     group = initialize_multihost(f"localhost:{free_port()}", 1, 0)
     try:
@@ -2553,6 +2911,7 @@ def main() -> int:
         sharded_krylov_phase(device, card, ctx, group, rates9, sparse)
     finally:
         dist.destroy_process_group()
+    flip_paths["phase 16 profiling dd_stages"] = probe_flips
     banded["launches_by_path"]["phase 10 sharded banded20"] = n
     banded["launches"] += n
     for path, counts in scan_paths.items():
@@ -2602,6 +2961,7 @@ def main() -> int:
         kernels.append(entry)
     kernels.append({"name": BANDED, "route": "cuda", "source": BANDED_SOURCE,
                     "replaces": BANDED_REPLACES, **banded})
+    kernels.extend(probe_kernels)
     log(f"total {time.perf_counter() - T_START:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))

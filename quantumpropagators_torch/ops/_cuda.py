@@ -49,6 +49,31 @@ _SIGNATURES = {
     # planes, x, y, offsets, n_bands, R, b, halo, stream
     "banded_spmv_f64": [_P] * 3 + [ctypes.POINTER(ctypes.c_int), _I, _L, _I,
                                    _I, _P],
+    # csrc/probes.cu (ops/probes.py)
+    # planes, o1, o2, op, n_in, n, tile_bits, chain, mul, scale, stream
+    "probe_stream": [_P] * 3 + [_I, _I, _L, _I, _I] + [ctypes.c_float] * 2
+                    + [_P],
+    # planes, out, n_in, n, chunk, chain, mul, stream
+    "probe_stream_pipelined": [_P, _P, _I, _L, _I, _I, ctypes.c_float, _P],
+    # x, out, variant, n, lo, hi, tile_bits, stream
+    "probe_flipsum": [_P, _P, _I, _L, _I, _I, _I, _P],
+    # x, m, out, mode, rows, stream
+    "probe_tile_mma_f32": [_P] * 3 + [_I, _L, _P],
+    # x, m, out, rows, stream
+    "probe_tile_mma_f64": [_P] * 3 + [_L, _P],
+    # x, out, n, bytes, stream
+    "probe_smem": [_P, _P, _I, _I, _P],
+    # v0, out, v1, phi, dmb, G, w, body, nb, L, n, tile_bits, bits, s2, ak,
+    # stream
+    "probe_flip_order_f64": [_P] * 7 + [_I, _I, _I, _L, _I, _I]
+                            + [ctypes.c_double] * 2 + [_P],
+    # a, b, p, r, separate, n, stream
+    "probe_fma_residual_f32": [_P] * 4 + [_I, _L, _P],
+    "probe_fma_residual_f64": [_P] * 4 + [_I, _L, _P],
+    # x, q, r, n, stream
+    "probe_extract": [_P] * 3 + [_I, _P],
+    # x, out, variant, n, bit, stream
+    "probe_xor_permute": [_P, _P, _I, _L, _I, _P],
 }
 
 _lib = None
@@ -115,15 +140,17 @@ def build() -> Path:
     return so
 
 
-def launch(fn_name: str, args, device) -> None:
+def launch(fn_name: str, args, device, accept=()) -> int:
     """Call the library's ``fn_name(*args, stream)`` on ``device``'s
-    current stream; raises if the launch returned a CUDA error."""
+    current stream; raises if the launch returned a CUDA error other than
+    those in ``accept``, and returns the error (0: launched)."""
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, fn_name)(*args, stream)
-    if rc != 0:
+    if rc != 0 and rc not in accept:
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc}")
+    return rc
 
 
 def load():

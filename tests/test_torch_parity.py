@@ -115,3 +115,56 @@ def test_mapped_names_exist_in_the_jax_package():
     for key in MAPPED:
         module, name = key.rsplit(".", 1)
         assert module in MODULES and name in _public_names(module), key
+
+
+# Every pl.pallas_call in the repo (the package and the TPU probes under
+# docs/profiling/) maps to a named Hopper kernel: the kernels line of
+# chip_smoke.py names the site(s) each kernel replaces.
+PALLAS_ROOTS = (JAX_PKG, ROOT / "docs" / "profiling")
+
+
+def _pallas_sites():
+    sites = []
+    for top in PALLAS_ROOTS:
+        for path in sorted(top.rglob("*.py")):
+            for node in ast.walk(ast.parse(path.read_text())):
+                if isinstance(node, ast.Call) \
+                        and isinstance(node.func, ast.Attribute) \
+                        and node.func.attr == "pallas_call":
+                    sites.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    return sorted(sites)
+
+
+def _hopper_kernels():
+    """site -> the Hopper kernels that replace it."""
+    import chip_smoke
+    from quantumpropagators_torch.ops import probes
+
+    tables = [chip_smoke.REPLACES, chip_smoke.ALSO_REPLACES,
+              {chip_smoke.BANDED: chip_smoke.BANDED_REPLACES},
+              probes.REPLACES]
+    out = {}
+    for table in tables:
+        for kernel, sites in table.items():
+            for site in sites.split(", "):
+                out.setdefault(site, set()).add(kernel)
+    return out
+
+
+PALLAS_SITES = _pallas_sites()
+
+
+@pytest.mark.parametrize("site", PALLAS_SITES)
+def test_pallas_call_has_a_hopper_kernel(site):
+    from quantumpropagators_torch.ops import banded_spmv, cheby_flip, probes
+
+    kernels = _hopper_kernels().get(site)
+    assert kernels, f"{site}: no Hopper kernel replaces this pl.pallas_call"
+    counted = set(cheby_flip.LAUNCHES) | set(banded_spmv.LAUNCHES) \
+        | set(probes.LAUNCHES)
+    assert kernels <= counted, kernels - counted
+
+
+def test_replaced_sites_are_pallas_calls():
+    assert len(PALLAS_SITES) >= 24  # the walk finds the known sites
+    assert set(_hopper_kernels()) <= set(PALLAS_SITES)
