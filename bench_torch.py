@@ -51,10 +51,10 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from quantumpropagators_torch import profiling
+from quantumpropagators_torch.profiling import HBM_BYTES_S
+
 VARIANT = "n/a (one kernel)"
-# H100 SXM HBM rate (NVIDIA data sheet): banded20's roofline reads the
-# float64 band planes (8 B per stored entry) once per order
-HBM_BYTES_S = 3.35e12
 
 
 def log(*args):
@@ -64,14 +64,7 @@ def log(*args):
 def card_line(device):
     """The card's name and power limit as ``nvidia-smi`` reports them, or
     None on the CPU."""
-    if device.type != "cuda":
-        return None
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+    return profiling.card_line() if device.type == "cuda" else None
 
 
 def finish(device, x) -> float:

@@ -124,6 +124,8 @@ import time
 import numpy as np
 import torch
 
+from quantumpropagators_torch.profiling import HBM_BYTES_S, card_line
+
 T_START = time.perf_counter()
 SEED = 20240611
 L_MAIN = 24          # 2^24 states: the BASELINE north-star size
@@ -137,9 +139,8 @@ BANDED = "banded_spmv<double>"
 BANDED_REPLACES = "quantumpropagators/ops/bsr_dd_pallas.py:267"
 N_BANDED = 2 ** 20   # bench.py --config banded20: 2^20 amplitudes
 B_BANDED = 128       # 128-level units, dense blocks
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and FP64 / FP32 FLOP/s
-# outside the tensor cores
-HBM_BYTES_S = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet): FP64 / FP32 FLOP/s outside the
+# tensor cores (the HBM rate is profiling.HBM_BYTES_S)
 PEAK_FLOPS = {"double": 34e12, "float": 67e12,
               # dense tensor-core rates: TF32 and FP64 (probe phase 16)
               "tf32": 495e12, "fp64 mma": 67e12}
@@ -165,15 +166,6 @@ ALSO_REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound(n_bytes, flops, ctype):
@@ -498,6 +490,11 @@ def round_trip(device):
 
 
 def time_ms(fn, reps):
+    """Milliseconds a call of ``fn``: ``reps`` eager calls back to back
+    between two CUDA events after two warm-ups, the host's cost of a call
+    included where it exceeds the device's.  The package kernels (phase 6)
+    and every plain version are timed so; the probe kernels and library
+    calls of phase 16 by ``profiling.time_ms``, a replayed CUDA graph."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -2515,7 +2512,7 @@ def graph_phase(device, card, chain, ctx):
 # command line at 5 repetitions a measurement (chain and scatter probes at
 # their JAX sizes, stream and flip probes also at planes of 2^26).
 PROBE_SOURCE = "quantumpropagators_torch/csrc/probes.cu"
-PROBE_N = 1 << 26    # phase 16b's planes: 256 MB, a 2^24 complex128 state
+PROBE_N = 1 << 26    # phase 16's large planes: 256 MB, a 2^24 complex128 state
 PROBE_MAINS = (
     ("roofline", ["--reps", "5"]),
     ("scatter", ["--flops", "0", "400", "--reps", "5"]),
@@ -2540,7 +2537,12 @@ PROBE_STREAM_CHECKS = {
 def _hold(errs, key, got, want, rel, what):
     """Holds ``got`` against ``want`` for kernel ``key``: bit for bit
     (``rel = 0``) or within ``rel·max|want|``; records the max abs
-    difference in ``errs[key]``."""
+    difference in ``errs[key]``.  Tuples and lists are held element by
+    element."""
+    if isinstance(got, (tuple, list)):
+        for g, w in zip(got, want, strict=True):
+            _hold(errs, key, g, w, rel, what)
+        return
     err = float((got.double() - want.double()).abs().max())
     scale = float(want.double().abs().max())
     if not (torch.equal(got, want) if rel == 0 else err <= rel * scale):
@@ -2549,116 +2551,144 @@ def _hold(errs, key, got, want, rel, what):
     errs[key] = max(errs.get(key, 0.0), err)
 
 
-def probe_checks(device):
-    """Phase 16a: every probe kernel against its plain version on the
-    card (f32 planes of 2^20, the flip order at L_CHECK); returns the
-    max abs difference per kernel."""
+def _hold_orders(errs, inputs):
+    """Every ``probe_flip_order`` case on ``inputs`` (``dd_stages``'s
+    ``order_inputs``) against its plain version (float64 within 1e-14 on
+    unit-norm states), and ``full/xor`` bit for bit against the
+    production pass ``cheby_flip_iter_low``."""
     from quantumpropagators_torch.ops import cheby_flip as cf
     from quantumpropagators_torch.ops import probes
-    from quantumpropagators_torch.profiling import exactness, planes, scatter
-    from quantumpropagators_torch.profiling.dd_stages import order_inputs
-    from quantumpropagators_torch.profiling.flips import VARIANTS
-    from quantumpropagators_torch.profiling.roofline import smem_limit
+    from quantumpropagators_torch.profiling.dd_stages import AK, S2
 
-    errs = {}
-    n = 1 << 20
-    xs = planes(n, scatter.N_IN, device, SEED)
-    for name, (op, n_in, chain, mul, scale, rel) in \
-            PROBE_STREAM_CHECKS.items():
-        kw = dict(chain=chain, mul=mul, scale=scale)
-        _hold(errs, f"probe_stream<{op}>",
-              probes.probe_stream(xs[:n_in], op, **kw)[0],
-              probes.probe_stream_plain(xs[:n_in], op, **kw)[0], rel, name)
-    tile_bits = 17  # tiles of 1024 rows, as probe_scatter_r4.py
-    for mode in scatter.MODES:
-        for flops in (0, 400):
-            kw = dict(maps=scatter.maps(mode, n >> tile_bits),
-                      tile_bits=tile_bits, chain=scatter.chain_of(flops),
-                      mul=0.9999, n_out=2)
-            got = probes.probe_stream(xs, "sum", **kw)
-            want = probes.probe_stream_plain(xs, "sum", **kw)
-            what = f"scatter {mode} flops={flops}"
-            _hold(errs, "probe_stream<sum>", got[0], want[0],
-                  1e-5 if flops else 0, what)
-            _hold(errs, "probe_stream<sum>", got[1], want[1], 0, what)
-        kw = dict(chain=scatter.chain_of(400 if mode == "xor" else 0),
-                  mul=0.9999)
-        _hold(errs, "probe_stream_pipelined",
-              probes.probe_stream_pipelined(xs, **kw),
-              probes.probe_stream_pipelined_plain(xs, **kw),
-              1e-5 if kw["chain"] else 0, f"chain {kw['chain']}")
-    for variant, tb in VARIANTS.items():
-        for lo, hi in ((0, 9), (0, 12), (7, 17)):
-            if variant == "mma" and lo:
-                continue  # the mma variant sums bits 0-6 on the tensor cores
-            _hold(errs, f"probe_flipsum<{variant}>",
-                  probes.probe_flipsum(xs[0], lo, hi, variant, tb),
-                  probes.probe_flipsum_plain(xs[0], lo, hi, variant, tb),
-                  2e-6 if variant == "mma" else 0, f"bits [{lo}, {hi})")
-    for mode in probes.MMA_MODES:
-        dtype = torch.float64 if mode == "f64" else torch.float32
-        x = xs[0][:512 * 128].view(512, 128).to(dtype)
-        key = f"probe_tile_mma<{mode}>"
-        for bit in range(7):  # every fragment position, bit for bit
-            P = torch.from_numpy(exactness.permutation(bit)).to(device, dtype)
-            _hold(errs, key, probes.probe_tile_mma(x, P, mode),
-                  probes.probe_tile_mma_plain(x, P, mode), 0,
-                  f"flip of lane bit {bit}")
-        M = xs[1][:128 * 128].view(128, 128).to(dtype)
-        _hold(errs, key, probes.probe_tile_mma(x, M, mode),
-              probes.probe_tile_mma_plain(x, M, mode),
-              1e-14 if mode == "f64" else 2e-6, "random (128, 128)")
-    smem = smem_limit(device)  # each launch's output held bit for bit
-    if not smem[227] or smem[228]:
-        raise AssertionError(f"phase 16 probe_smem: {smem} (227 KB must "
-                             f"launch, 228 KB be refused)")
-    errs["probe_smem"] = 0.0
-    v0, v1, phi, dmb, G = order_inputs(L_CHECK, device, SEED)
-    tile_bits, h = cf.flip_split(L_CHECK, torch.complex128)
+    v0, v1, phi, dmb, G = inputs
+    L = v0.numel().bit_length() - 1
+    tile_bits, h = cf.flip_split(L, torch.complex128)
     w = cf.cheby_flip_high(v1, G, h)
     for body in probes.ORDER_BODIES:
         for nb in probes.ORDER_NBS:
             k0, kphi, p0, pphi = v0.clone(), phi.clone(), v0.clone(), \
                 phi.clone()
-            args = (dmb, G, -0.14, 0.13, tile_bits, L_CHECK - h, body, nb, w)
+            args = (dmb, G, S2, AK, tile_bits, L - h, body, nb, w)
             probes.probe_flip_order(k0, v1, kphi, *args)
             probes.probe_flip_order_plain(p0, v1, pphi, *args)
             key = f"probe_flip_order<double,{body},{nb}>"
             for got, want in ((k0, p0), (kphi, pphi)):
                 err = float((got - want).abs().max())
                 if err > 1e-14:
-                    raise AssertionError(f"phase 16 {key}: max|d| {err:.3e}")
+                    raise AssertionError(f"phase 16 {key} L={L}: max|d| "
+                                         f"{err:.3e}")
                 errs[key] = max(errs.get(key, 0.0), err)
             if (body, nb) == ("full", "xor"):  # the production pass's copy
                 b0, bphi = v0.clone(), phi.clone()
-                cf.cheby_flip_iter_low(b0, v1, bphi, dmb, G, -0.14, 0.13,
-                                       L_CHECK - h, w)
+                cf.cheby_flip_iter_low(b0, v1, bphi, dmb, G, S2, AK, L - h, w)
                 if not (torch.equal(k0, b0) and torch.equal(kphi, bphi)):
-                    raise AssertionError("phase 16 probe_flip_order full/xor "
-                                         "differs from cheby_flip_iter_low")
-    rng = np.random.default_rng(SEED)
-    for dtype, ctype in ((torch.float32, "float"), (torch.float64, "double")):
-        a, b = (torch.from_numpy(rng.standard_normal(n)).to(device, dtype)
-                for _ in range(2))
-        p, r = probes.probe_fma_residual(a, b)
+                    raise AssertionError(f"phase 16 probe_flip_order full/xor "
+                                         f"L={L} differs from "
+                                         f"cheby_flip_iter_low")
+
+
+def _hold_fma(errs, a, b):
+    """The FMA residual kernel in each variant: ``p`` bit for bit against
+    the plain version; ``r`` bit for bit against the exact residual where
+    the reading is ``FUSED`` and against 0 where it is ``separate`` (which
+    the ``separate`` variant must read)."""
+    from quantumpropagators_torch.ops import probes
+
+    ctype = "float" if a.dtype == torch.float32 else "double"
+    key = f"probe_fma_residual<{ctype}>"
+    for variant in probes.FMA_VARIANTS:
+        p, r = probes.probe_fma_residual(a, b, variant)
         outcome = probes.fma_outcome(a, b, p, r)
-        if outcome not in ("FUSED", "separate"):
-            raise AssertionError(f"phase 16 FMA {ctype}: {outcome}")
-        key = f"probe_fma_residual<{ctype}>"
+        if outcome not in ("FUSED", "separate") or (
+                variant == "separate" and outcome != "separate"):
+            raise AssertionError(f"phase 16 {key} {variant}: {outcome}")
+        _hold(errs, key, p, probes.probe_fma_residual_plain(a, b, variant)[0],
+              0, f"{variant} p")
         want = probes.exact_product_residual(a, b) if outcome == "FUSED" \
             else torch.zeros_like(r)
-        _hold(errs, key, r, want, 0, f"as compiled ({outcome})")
-        for got, want in zip(probes.probe_fma_residual(a, b, True),
-                             probes.probe_fma_residual_plain(a, b, True)):
-            _hold(errs, key, got, want, 0, "separately rounded")
-    x = xs[2][:1024].view(8, 128) * torch.exp(xs[3][:1024].view(8, 128))
-    for got, want in zip(probes.probe_extract(x), probes.probe_extract_plain(x)):
-        _hold(errs, "probe_extract", got, want, 0, "(8, 128)")
+        _hold(errs, key, r, want, 0, f"{variant} r ({outcome})")
+
+
+def probe_checks(device, big, s16):
+    """Phase 16a: every probe kernel against its plain version on the
+    card, at the probe modules' own sizes: the stream bodies on ``big``
+    (planes of 2^26) and ``s16`` (the scatter probe's 16 planes of 2^22),
+    the scatter maps and the pipelined sum on ``s16`` with tiles of 1024
+    rows, the flip sums at 2^20, 2^22 and 2^26, the flip order at L_CHECK
+    (phase 16b holds it at L_MAIN).  Returns the max abs difference per
+    kernel."""
+    from quantumpropagators_torch.ops import probes
+    from quantumpropagators_torch.profiling import exactness, scatter
+    from quantumpropagators_torch.profiling.dd_stages import order_inputs
+    from quantumpropagators_torch.profiling.flips import VARIANTS
+    from quantumpropagators_torch.profiling.roofline import smem_limit
+
+    errs = {}
+    for xs in (s16, big):
+        n = xs[0].numel()
+        for name, (op, n_in, chain, mul, scale, rel) in \
+                PROBE_STREAM_CHECKS.items():
+            kw = dict(chain=chain, mul=mul, scale=scale)
+            _hold(errs, f"probe_stream<{op}>",
+                  probes.probe_stream(xs[:n_in], op, **kw),
+                  probes.probe_stream_plain(xs[:n_in], op, **kw), rel,
+                  f"{name} 2^{n.bit_length() - 1}")
+    n = s16[0].numel()
+    tile_bits = 17  # tiles of 1024 rows, as probe_scatter_r4.py
+    for mode in scatter.MODES:
+        for flops in (0, 400):
+            kw = dict(maps=scatter.maps(mode, n >> tile_bits),
+                      tile_bits=tile_bits, chain=scatter.chain_of(flops),
+                      mul=0.9999, n_out=2)
+            got = probes.probe_stream(s16, "sum", **kw)
+            want = probes.probe_stream_plain(s16, "sum", **kw)
+            what = f"scatter {mode} flops={flops} 2^{n.bit_length() - 1}"
+            _hold(errs, "probe_stream<sum>", got[0], want[0],
+                  1e-5 if flops else 0, what)
+            _hold(errs, "probe_stream<sum>", got[1], want[1], 0, what)
+    for flops in (0, 400):
+        kw = dict(chain=scatter.chain_of(flops), mul=0.9999)
+        _hold(errs, "probe_stream_pipelined",
+              probes.probe_stream_pipelined(s16, **kw),
+              probes.probe_stream_pipelined_plain(s16, **kw),
+              1e-5 if flops else 0, f"flops={flops}")
+    for x in (s16[0][:1 << 20], s16[0], big[0]):
+        for variant, tb in VARIANTS.items():
+            for lo, hi in ((0, 9), (0, 12), (7, 17)):
+                # the mma variant sums bits 0-6 on the tensor cores
+                if variant == "mma" and lo:
+                    continue
+                _hold(errs, f"probe_flipsum<{variant}>",
+                      probes.probe_flipsum(x, lo, hi, variant, tb),
+                      probes.probe_flipsum_plain(x, lo, hi, variant, tb),
+                      2e-6 if variant == "mma" else 0,
+                      f"bits [{lo}, {hi}) 2^{x.numel().bit_length() - 1}")
+    for mode in probes.MMA_MODES:
+        dtype = torch.float64 if mode == "f64" else torch.float32
+        x = s16[0][:512 * 128].view(512, 128).to(dtype)
+        key = f"probe_tile_mma<{mode}>"
+        for bit in range(7):  # every fragment position, bit for bit
+            P = torch.from_numpy(exactness.permutation(bit)).to(device, dtype)
+            _hold(errs, key, probes.probe_tile_mma(x, P, mode),
+                  probes.probe_tile_mma_plain(x, P, mode), 0,
+                  f"flip of lane bit {bit}")
+    smem = smem_limit(device)  # each launch's output held bit for bit
+    if not smem[227] or smem[228]:
+        raise AssertionError(f"phase 16 probe_smem: {smem} (227 KB must "
+                             f"launch, 228 KB be refused)")
+    errs["probe_smem"] = 0.0
+    _hold_orders(errs, order_inputs(L_CHECK, device, SEED))
+    for dtype in (torch.float32, torch.float64):
+        a, b = (x[:1 << 20].to(dtype) for x in s16[:2])
+        _hold_fma(errs, a, b)
+    x = s16[2][:1024].view(8, 128) * torch.exp(s16[3][:1024].view(8, 128))
+    _hold(errs, "probe_extract", probes.probe_extract(x),
+          probes.probe_extract_plain(x), 0, "(8, 128)")
     for variant, bits in (("shfl", range(5)), ("smem", range(12))):
         for bit in bits:
             _hold(errs, f"probe_xor_permute<{variant}>",
-                  probes.probe_xor_permute(xs[4], bit, variant),
-                  probes.probe_xor_permute_plain(xs[4], bit, variant), 0,
+                  probes.probe_xor_permute(s16[4], bit, variant),
+                  probes.probe_xor_permute_plain(s16[4], bit, variant), 0,
                   f"bit {bit}")
     missing = set(probes.LAUNCHES) - set(errs)
     if missing:
@@ -2670,25 +2700,25 @@ def probe_checks(device):
     return errs
 
 
-def probe_times(device, card):
+def probe_times(device, card, big, s16, errs):
     """Phase 16b: each probe kernel at its probe's size (stream and flip
-    bodies on planes of 2^26, the pipelined sum on the scatter probe's 16
-    planes of 2^22, the flip order at L_MAIN, the exactness bodies at
-    theirs), its plain version, the one PyTorch call that computes the
-    same function where there is one, and the bound; returns ``{kernel:
-    (ms, plain_ms, bound_ms, bound_by, library_ms)}``."""
+    bodies on the planes of 2^26 in ``big``, the pipelined sum on the
+    scatter probe's 16 planes of 2^22, the flip order at L_MAIN, the
+    exactness bodies at theirs), its plain version, the one PyTorch call
+    that computes the same function where there is one, and the bound.
+    Each kernel's output on the timed inputs is held against the plain
+    version's first, at phase 16a's tolerances.  Returns
+    ``{kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}``."""
     from quantumpropagators_torch.ops import cheby_flip as cf
     from quantumpropagators_torch.ops import probes
-    from quantumpropagators_torch.profiling import planes
     from quantumpropagators_torch.profiling import time_ms as graph_ms
     from quantumpropagators_torch.profiling.dd_stages import AK, S2, \
         order_inputs
     from quantumpropagators_torch.profiling.flips import VARIANTS
 
-    n = PROBE_N
-    xs = planes(n, 3, device, SEED)
+    xs = big[:3]
+    n = xs[0].numel()
     out = torch.empty_like(xs[0])
-    s16 = planes(1 << 22, 16, device, SEED)
     x2, M2 = xs[0].view(-1, 128), xs[1][:128 * 128].view(128, 128)
     x64, M64 = x2[: n // 256].double(), M2.double()
     out64 = torch.empty_like(x64)
@@ -2707,49 +2737,53 @@ def probe_times(device, card):
         return run
 
     P, K = probes, {}
-    # key: (kernel, plain, library or None, bytes, operations, peak, what)
+    # key: (kernel, plain, library or None, bytes, operations, peak, what,
+    # tolerance of the hold, or None: the order and the FMA residual are
+    # held by their own checks)
     K["probe_stream<sum>"] = (
         lambda: P.probe_stream(xs[:1]), lambda: P.probe_stream_plain(xs[:1]),
-        lambda: out.copy_(xs[0]), 8 * n, 0, "float", f"copy 2^{n.bit_length() - 1}")
+        lambda: out.copy_(xs[0]), 8 * n, 0, "float",
+        f"copy 2^{n.bit_length() - 1}", 0)
     K["probe_stream<triad>"] = (
         lambda: P.probe_stream(xs, "triad"),
         lambda: P.probe_stream_plain(xs, "triad"),
         lambda: torch.addcmul(xs[0], xs[1], xs[2], out=out), 16 * n, 2 * n,
-        "float", f"triad 2^{n.bit_length() - 1}")
+        "float", f"triad 2^{n.bit_length() - 1}", 2e-6)
     chain = dict(chain=64, mul=1.0000001)
     K["probe_stream<chain>"] = (
         lambda: P.probe_stream(xs[:2], "chain", **chain),
         lambda: P.probe_stream_plain(xs[:2], "chain", **chain), None,
-        12 * n, 128 * n, "float", f"fma64 2^{n.bit_length() - 1}")
+        12 * n, 128 * n, "float", f"fma64 2^{n.bit_length() - 1}", 1e-5)
     K["probe_stream_pipelined"] = (
         lambda: P.probe_stream_pipelined(s16),
         lambda: P.probe_stream_pipelined_plain(s16), None,
-        17 * 4 << 22, 15 << 22, "float", "16 planes of 2^22, flops=0")
+        17 * 4 << 22, 15 << 22, "float", "16 planes of 2^22, flops=0", 0)
     for variant, tb in VARIANTS.items():
         K[f"probe_flipsum<{variant}>"] = (
             lambda v=variant, t=tb: P.probe_flipsum(xs[0], 0, 9, v, t),
             lambda v=variant, t=tb: P.probe_flipsum_plain(xs[0], 0, 9, v, t),
             None, 8 * n, 9 * n, "float",
-            f"9-bit flip sum 2^{n.bit_length() - 1}")
+            f"9-bit flip sum 2^{n.bit_length() - 1}",
+            2e-6 if variant == "mma" else 0)
     K["probe_tile_mma<tf32>"] = (
         lambda: P.probe_tile_mma(x2, M2, "tf32"),
         lambda: P.probe_tile_mma_plain(x2, M2, "tf32"),
         matmul(x2, M2, out.view(-1, 128), True), 8 * n, 256 * n, "tf32",
-        f"({x2.shape[0]}, 128) x (128, 128), library TF32")
+        f"({x2.shape[0]}, 128) x (128, 128), library TF32", 2e-6)
     K["probe_tile_mma<3xtf32>"] = (
         lambda: P.probe_tile_mma(x2, M2, "3xtf32"),
         lambda: P.probe_tile_mma_plain(x2, M2, "3xtf32"),
         matmul(x2, M2, out.view(-1, 128), False), 8 * n, 3 * 256 * n,
-        "tf32", f"({x2.shape[0]}, 128) x (128, 128), library full f32")
+        "tf32", f"({x2.shape[0]}, 128) x (128, 128), library full f32", 2e-6)
     K["probe_tile_mma<f64>"] = (
         lambda: P.probe_tile_mma(x64, M64, "f64"),
         lambda: P.probe_tile_mma_plain(x64, M64, "f64"),
         matmul(x64, M64, out64, False), 16 * x64.numel(),
-        256 * x64.numel(), "fp64 mma", f"({x64.shape[0]}, 128) f64")
+        256 * x64.numel(), "fp64 mma", f"({x64.shape[0]}, 128) f64", 1e-14)
     K["probe_smem"] = (
         lambda: P.probe_smem(tiny, 227 * 1024),
         lambda: P.probe_smem_plain(tiny, 227 * 1024), None, 8 * 1024, 0,
-        "float", "(8, 128) through 227 KB")
+        "float", "(8, 128) through 227 KB", 0)
     v0, v1, phi, dmb, G = order_inputs(L_MAIN, device, SEED)
     tile_bits, h = cf.flip_split(L_MAIN, torch.complex128)
     w = cf.cheby_flip_high(v1, G, h)
@@ -2762,23 +2796,29 @@ def probe_times(device, card):
                 lambda a=args: P.probe_flip_order(*a),
                 lambda a=args: P.probe_flip_order_plain(*a), None,
                 104 * N, (4 * (L_MAIN - h) + 12) * N, "double",
-                f"L={L_MAIN} bits < {L_MAIN - h}")
+                f"L={L_MAIN} bits < {L_MAIN - h}", None)
     for ctype, a in (("float", tiny), ("double", small)):
         K[f"probe_fma_residual<{ctype}>"] = (
             lambda a=a: P.probe_fma_residual(a, a),
             lambda a=a: P.probe_fma_residual_plain(a, a), None,
             4 * a.numel() * a.element_size(), 3 * a.numel(), ctype,
-            "(8, 128)")
+            "(8, 128)", None)
     K["probe_extract"] = (lambda: P.probe_extract(tiny),
                           lambda: P.probe_extract_plain(tiny), None,
-                          12 * 1024, 4 * 1024, "float", "(8, 128)")
+                          12 * 1024, 4 * 1024, "float", "(8, 128)", 0)
     for variant, bit in (("shfl", 2), ("smem", 8)):
         K[f"probe_xor_permute<{variant}>"] = (
             lambda v=variant, b=bit: P.probe_xor_permute(r32, b, v),
             lambda v=variant, b=bit: P.probe_xor_permute_plain(r32, b, v),
-            None, 8 * r32.numel(), 0, "float", f"(32, 128), bit {bit}")
+            None, 8 * r32.numel(), 0, "float", f"(32, 128), bit {bit}", 0)
+    _hold_orders(errs, (v0, v1, phi, dmb, G))
+    _hold_fma(errs, tiny, tiny)
+    _hold_fma(errs, small, small)
     times = {}
-    for key, (kernel, plain, library, n_bytes, ops, peak, what) in K.items():
+    for key, (kernel, plain, library, n_bytes, ops, peak, what, rel) in \
+            K.items():
+        if rel is not None:
+            _hold(errs, key, kernel(), plain(), rel, f"{what} (timed inputs)")
         # kernel and library call as the probe modules time them (a CUDA
         # graph of the launches: no host cost); the plain version, which
         # copies its scalars to the card, eagerly
@@ -2808,10 +2848,14 @@ def probe_phase(device, card):
 
     from quantumpropagators_torch.ops import cheby_flip as cf
     from quantumpropagators_torch.ops import probes
+    from quantumpropagators_torch.profiling import planes, scatter
 
     t_phase = time.perf_counter()
-    errs = probe_checks(device)
-    times = probe_times(device, card)
+    big = planes(PROBE_N, 7, device, SEED)
+    s16 = planes(1 << 22, scatter.N_IN, device, SEED)
+    errs = probe_checks(device, big, s16)
+    times = probe_times(device, card, big, s16, errs)
+    del big, s16
     gc.collect()
     torch.cuda.empty_cache()
     probes.reset_launches()
@@ -2828,9 +2872,11 @@ def probe_phase(device, card):
         raise AssertionError(f"phase 16: not launched by the probes' "
                              f"command lines: {idle}")
     ex = runs["exactness"][0]
-    log(f"phase 16 exactness: FMA as compiled float "
-        f"{ex['fma']['float']['as compiled']}, double "
-        f"{ex['fma']['double']['as compiled']}; σ-extraction "
+    fma = {c: {v: ex["fma"][c][v] for v in probes.FMA_VARIANTS}
+           for c in ("float", "double")}
+    log(f"phase 16 exactness: FMA contraction of a·b − p (p loaded) float "
+        f"{ex['fma']['float']['loaded']}, double "
+        f"{ex['fma']['double']['loaded']}; every variant {fma}; σ-extraction "
         f"{ex['sigma']['extract']}; permutation exact "
         f"{ {m: r['perm_exact'] for m, r in ex['permutation'].items()} }; "
         f"mantissa bits exact "

@@ -50,7 +50,10 @@
 //                           at i (self) or not at all (none).
 //     replaces scratch_prof_dd.py:95 and scratch_prof2.py:94.  Bound: bytes.
 //   probe_fma_residual<T>   p = a*b, r = a*b - p as the library's flags
-//                           compile it, and with __fmul_rn/__fsub_rn.
+//                           compile it (inline: nvcc may evaluate a*b once;
+//                           loaded: a, b and p read back through volatile
+//                           loads, so a*b - p can only be contracted), and
+//                           with __fmul_rn/__fsub_rn.
 //     replaces scratch_r3_probe2.py:25, scratch_r3_probe3.py:26.
 //   probe_extract           sigma = 64 max|x| over the block, q = (sigma +
 //                           x) - sigma, r = x - q.
@@ -699,10 +702,17 @@ __device__ __forceinline__ double sub_rn(double a, double b) {
   return __dsub_rn(a, b);
 }
 
-// p = a*b; r = a*b - p: written plainly (Separate = false), the compiler
-// may contract a*b - p into fma(a, b, -p), the exact residual; with the
-// _rn intrinsics (Separate = true) every operation rounds on its own.
-template <typename T, bool Separate>
+enum FmaVariant { kInline = 0, kSeparate = 1, kLoaded = 2 };
+
+// p = a*b; r = a*b - p.  Written plainly (kInline, the TPU probe's body)
+// the compiler may contract a*b - p into fma(a, b, -p), the exact
+// residual, or evaluate a*b once, which makes r = 0 whatever it does with
+// a*b - p (nvcc does not fuse a product that is also stored).  kLoaded
+// reads a, b and p back through volatile loads, so the second a*b is a
+// product of its own with one use, and r is the residual exactly when
+// a*b - p is contracted.  With the _rn intrinsics (kSeparate) every
+// operation rounds on its own.
+template <typename T, int Variant>
 __global__ void __launch_bounds__(kThreads)
     probe_fma_residual_kernel(const T* __restrict__ a,
                               const T* __restrict__ b, T* __restrict__ p,
@@ -712,10 +722,16 @@ __global__ void __launch_bounds__(kThreads)
        i += stride) {
     const T x = a[i];
     const T y = b[i];
-    if constexpr (Separate) {
+    if constexpr (Variant == kSeparate) {
       const T q = mul_rn(x, y);
       p[i] = q;
       r[i] = sub_rn(mul_rn(x, y), q);
+    } else if constexpr (Variant == kLoaded) {
+      p[i] = x * y;
+      const T x2 = *reinterpret_cast<volatile const T*>(a + i);
+      const T y2 = *reinterpret_cast<volatile const T*>(b + i);
+      const T q = *reinterpret_cast<volatile const T*>(p + i);
+      r[i] = x2 * y2 - q;
     } else {
       const T q = x * y;
       p[i] = q;
@@ -725,16 +741,27 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch_fma(const void* a, const void* b, void* p, void* r, int separate,
+int launch_fma(const void* a, const void* b, void* p, void* r, int variant,
                int64_t n, cudaStream_t stream) {
   if (n < 1) return int(cudaErrorInvalidValue);
   const int blocks = grid_for(n, kThreads);
-  if (separate)
-    probe_fma_residual_kernel<T, true><<<blocks, kThreads, 0, stream>>>(
-        (const T*)a, (const T*)b, (T*)p, (T*)r, n);
-  else
-    probe_fma_residual_kernel<T, false><<<blocks, kThreads, 0, stream>>>(
-        (const T*)a, (const T*)b, (T*)p, (T*)r, n);
+  switch (variant) {
+    case kInline:
+      probe_fma_residual_kernel<T, kInline><<<blocks, kThreads, 0, stream>>>(
+          (const T*)a, (const T*)b, (T*)p, (T*)r, n);
+      break;
+    case kSeparate:
+      probe_fma_residual_kernel<T, kSeparate>
+          <<<blocks, kThreads, 0, stream>>>((const T*)a, (const T*)b, (T*)p,
+                                            (T*)r, n);
+      break;
+    case kLoaded:
+      probe_fma_residual_kernel<T, kLoaded><<<blocks, kThreads, 0, stream>>>(
+          (const T*)a, (const T*)b, (T*)p, (T*)r, n);
+      break;
+    default:
+      return int(cudaErrorInvalidValue);
+  }
   return int(cudaGetLastError());
 }
 
@@ -971,13 +998,13 @@ int probe_flip_order_f64(const void* v0, void* out, const void* v1, void* phi,
 }
 
 int probe_fma_residual_f32(const void* a, const void* b, void* p, void* r,
-                           int separate, int64_t n, void* stream) {
-  return launch_fma<float>(a, b, p, r, separate, n, (cudaStream_t)stream);
+                           int variant, int64_t n, void* stream) {
+  return launch_fma<float>(a, b, p, r, variant, n, (cudaStream_t)stream);
 }
 
 int probe_fma_residual_f64(const void* a, const void* b, void* p, void* r,
-                           int separate, int64_t n, void* stream) {
-  return launch_fma<double>(a, b, p, r, separate, n, (cudaStream_t)stream);
+                           int variant, int64_t n, void* stream) {
+  return launch_fma<double>(a, b, p, r, variant, n, (cudaStream_t)stream);
 }
 
 int probe_extract(const void* x, void* q, void* r, int n, void* stream) {

@@ -67,7 +67,7 @@ _SIGNATURES = {
     # stream
     "probe_flip_order_f64": [_P] * 7 + [_I, _I, _I, _L, _I, _I]
                             + [ctypes.c_double] * 2 + [_P],
-    # a, b, p, r, separate, n, stream
+    # a, b, p, r, variant, n, stream
     "probe_fma_residual_f32": [_P] * 4 + [_I, _L, _P],
     "probe_fma_residual_f64": [_P] * 4 + [_I, _L, _P],
     # x, q, r, n, stream

@@ -63,6 +63,7 @@ STREAM_OPS = {"sum": 0, "triad": 1, "chain": 2}
 FLIP_VARIANTS = {"gather": 0, "tile": 1, "shfl": 2, "mma": 3}
 MMA_MODES = {"tf32": 0, "3xtf32": 1, "f64": None}
 ORDER_BODIES = {"full": 0, "copy": 1, "noflips": 2}
+FMA_VARIANTS = {"inline": 0, "separate": 1, "loaded": 2}
 ORDER_NBS = {"xor": 0, "self": 1, "none": 2}
 PERMUTE_VARIANTS = {"shfl": 0, "smem": 1}
 
@@ -452,10 +453,10 @@ def probe_smem(x, n_bytes):
 
 # -------------------------------------------------------------- flip order
 
-def _check_order(v0, v1, phi, dmb, G, tile_bits, bits, body, nb, w, out):
+def _check_order(v0, v1, phi, dmb, G, tile_bits, bits, body, nb, w):
     if v0.dtype != torch.complex128 or v0.dim() != 1:
         raise TypeError("the flip-order probe takes flat complex128 states")
-    L = _check_flip([v0, v1, phi, out] + ([w] if w is not None else []),
+    L = _check_flip([v0, v1, phi] + ([w] if w is not None else []),
                     dmb, G)
     if body not in ORDER_BODIES or nb not in ORDER_NBS:
         raise ValueError(f"body must be one of {list(ORDER_BODIES)} and nb "
@@ -468,10 +469,9 @@ def _check_order(v0, v1, phi, dmb, G, tile_bits, bits, body, nb, w, out):
 
 
 def probe_flip_order_plain(v0, v1, phi, dmb, G, s2, ak, tile_bits, bits,
-                           body="full", nb="xor", w=None, out=None):
+                           body="full", nb="xor", w=None):
     """Plain PyTorch version of :func:`probe_flip_order`."""
-    out = v0 if out is None else out
-    _check_order(v0, v1, phi, dmb, G, tile_bits, bits, body, nb, w, out)
+    _check_order(v0, v1, phi, dmb, G, tile_bits, bits, body, nb, w)
     lo = min(bits, tile_bits)
     hi = lo if nb == "none" else bits
     d = dmb.view(v1.shape)
@@ -486,12 +486,12 @@ def probe_flip_order_plain(v0, v1, phi, dmb, G, s2, ak, tile_bits, bits,
         u = u + w.view(v1.shape)
     r = v0 + u if body == "copy" else v0 + (1j * s2) * u
     phi.add_(r, alpha=1.0 if body == "copy" else ak)
-    out.copy_(r)
-    return out
+    v0.copy_(r)
+    return v0
 
 
 def probe_flip_order(v0, v1, phi, dmb, G, s2, ak, tile_bits, bits,
-                     body="full", nb="xor", w=None, out=None):
+                     body="full", nb="xor", w=None):
     """The flip order's tiled pass (``cheby_flip_iter_low`` over bits
     ``< bits`` of a flat complex128 ``2^L`` state, tiles of
     ``2^tile_bits``) with its parts taken apart:
@@ -504,20 +504,19 @@ def probe_flip_order(v0, v1, phi, dmb, G, s2, ak, tile_bits, bits,
       v1[nb_j(i)] + w``, ``Φ += out``: the same streams, summed;
 
     with ``nb_j(i) = i ^ 2^j`` (``"xor"``), ``i`` (``"self"``), or no
-    term for bits at and above ``tile_bits`` (``"none"``).  ``out``
-    defaults to ``v0``'s buffer."""
-    out = v0 if out is None else out
+    term for bits at and above ``tile_bits`` (``"none"``).  ``out`` is
+    written into ``v0``'s buffer."""
     if _device_of(v0) == "cpu":
         return probe_flip_order_plain(v0, v1, phi, dmb, G, s2, ak, tile_bits,
-                                      bits, body, nb, w, out)
-    L = _check_order(v0, v1, phi, dmb, G, tile_bits, bits, body, nb, w, out)
+                                      bits, body, nb, w)
+    L = _check_order(v0, v1, phi, dmb, G, tile_bits, bits, body, nb, w)
     _cuda.launch("probe_flip_order_f64", (
-        v0.data_ptr(), out.data_ptr(), v1.data_ptr(), phi.data_ptr(),
+        v0.data_ptr(), v0.data_ptr(), v1.data_ptr(), phi.data_ptr(),
         dmb.data_ptr(), G.data_ptr(), None if w is None else w.data_ptr(),
         ORDER_BODIES[body], ORDER_NBS[nb], L, v0.numel(), tile_bits, bits,
         s2, ak), v0.device)
     LAUNCHES[f"probe_flip_order<double,{body},{nb}>"] += 1
-    return out
+    return v0
 
 
 # --------------------------------------------------------------- exactness
@@ -533,27 +532,39 @@ def _check_pair(a, b):
                         "tensors of one shape on one device")
 
 
-def probe_fma_residual_plain(a, b, separate=False):
-    """Plain PyTorch version of :func:`probe_fma_residual`: PyTorch rounds
-    every operation, so ``r`` is 0 whatever ``separate`` says."""
+def _check_fma(a, b, variant):
     _check_pair(a, b)
+    if variant not in FMA_VARIANTS:
+        raise ValueError(f"variant must be one of {list(FMA_VARIANTS)}")
+
+
+def probe_fma_residual_plain(a, b, variant="inline"):
+    """Plain PyTorch version of :func:`probe_fma_residual`: PyTorch rounds
+    every operation, so ``r`` is 0 whatever the variant."""
+    _check_fma(a, b, variant)
     p = a * b
     return p, a * b - p
 
 
-def probe_fma_residual(a, b, separate=False):
-    """``p = a·b``, ``r = a·b − p`` as the library's flags compile it
-    (``separate=False``: ``r`` is the exact residual if the compiler
-    contracts ``a·b − p`` into one FMA, else 0), or with every operation
-    rounded on its own (``separate=True``, ``__fmul_rn``/``__fsub_rn``)."""
+def probe_fma_residual(a, b, variant="inline"):
+    """``p = a·b``, ``r = a·b − p`` as the library's flags compile it:
+
+    - ``"inline"``, the TPU probe's body: ``r`` is the exact residual if
+      the compiler contracts ``a·b − p`` into one FMA, and 0 if it rounds
+      apart or evaluates ``a·b`` once and subtracts it from itself;
+    - ``"loaded"``: ``a``, ``b`` and ``p`` are read back through volatile
+      loads, so the second ``a·b`` is a product of its own and ``r``
+      reads the contraction alone;
+    - ``"separate"``: every operation rounded on its own
+      (``__fmul_rn``/``__fsub_rn``), ``r = 0``."""
     if _device_of(a) == "cpu":
-        return probe_fma_residual_plain(a, b, separate)
-    _check_pair(a, b)
+        return probe_fma_residual_plain(a, b, variant)
+    _check_fma(a, b, variant)
     p, r = torch.empty_like(a), torch.empty_like(a)
     ctype, suffix = _CTYPE[a.dtype]
     _cuda.launch(f"probe_fma_residual_{suffix}", (
         a.data_ptr(), b.data_ptr(), p.data_ptr(), r.data_ptr(),
-        int(separate), a.numel()), a.device)
+        FMA_VARIANTS[variant], a.numel()), a.device)
     LAUNCHES[f"probe_fma_residual<{ctype}>"] += 1
     return p, r
 

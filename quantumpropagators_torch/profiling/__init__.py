@@ -36,11 +36,16 @@ import subprocess
 import numpy as np
 import torch
 
+from ..ops import cheby_flip as _flip
+from ..ops import probes as _probes
+
 __all__ = ["HBM_BYTES_S", "card_line", "cuda_device", "planes", "time_ms"]
 
 # H100 SXM device memory rate (NVIDIA data sheet), against which a rate's
 # share is printed
 HBM_BYTES_S = 3.35e12
+# launch counts of the kernels the probes time
+_COUNTERS = (_probes.LAUNCHES, _flip.LAUNCHES)
 
 
 def cuda_device() -> torch.device:
@@ -61,27 +66,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Milliseconds a call of ``fn``: ``warmup`` eager calls, then
+def time_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn``: two eager warm-up calls, then
     ``reps`` calls recorded into one CUDA graph, replayed once untimed
     and once between two CUDA events.  A replay launches the recorded
     kernels back to back, so the host's cost of a call (the wrapper's
     checks, the ctypes call) stays out of the time of a kernel that runs
-    for microseconds."""
-    for _ in range(warmup):
+    for microseconds.  ``LAUNCHES`` ends up counting the launches that
+    ran: the warm-ups and both replays, not the recording (as
+    ``utils/scan.py`` keeps its counts)."""
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    before = [dict(c) for c in _COUNTERS]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    graph.replay()
     start.record()
     graph.replay()
     stop.record()
     torch.cuda.synchronize()
+    # recording counted the graph's launches once and ran none of them;
+    # the two replays ran them twice
+    for counts, was in zip(_COUNTERS, before):
+        for key in counts:
+            counts[key] += counts[key] - was[key]
     return start.elapsed_time(stop) / reps
 
 

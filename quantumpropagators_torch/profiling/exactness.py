@@ -10,8 +10,11 @@ mantissa width).
 - FMA: ``p = a·b; r = a·b − p`` in float32 and float64 as the kernel
   library's ``nvcc`` flags compile it: ``FUSED`` (``r`` is the exact
   residual: the compiler contracted ``a·b − p`` into one FMA) or
-  ``separate`` (``r = 0``); the same with ``__fmul_rn``/``__fsub_rn``
-  must read ``separate``.  Any other reading raises.
+  ``separate`` (``r = 0``).  Written inline, as the TPU probe is, the
+  compiler may also evaluate ``a·b`` once (``r = 0`` again), so the
+  contraction is read from the ``loaded`` variant, where ``a``, ``b``
+  and ``p`` come back through volatile loads.  The same with ``__fmul_rn``/
+  ``__fsub_rn`` must read ``separate``.  Any other reading raises.
 - σ-extraction: ``q = (σ + x) − σ`` with ``σ = 64·max|x|`` is ``kept``
   (the strict float32 value) or ``FOLDED`` (``q = x``); anything else
   raises.
@@ -81,7 +84,8 @@ def product_error(x: np.ndarray, M: np.ndarray, mode: str, device):
 
 def fma_probe(device, seed=0, log=print):
     """FMA contraction in float32 and float64; returns ``{ctype:
-    {"as compiled": outcome, "separate": outcome, "max|r|": ...}}``."""
+    {variant: outcome, "max|r|": {variant: ...}}}`` for each variant of
+    ``probes.FMA_VARIANTS``; ``"loaded"`` is the contraction finding."""
     card = card_line()
     rng = np.random.default_rng(seed)
     xs = rng.standard_normal((8, LANE)).astype(np.float32) \
@@ -96,18 +100,16 @@ def fma_probe(device, seed=0, log=print):
     for ctype, (a, b) in (("float", (xs, ys)), ("double", (x64, y64))):
         a = torch.from_numpy(a).to(device)
         b = torch.from_numpy(b).to(device)
-        row = res[ctype] = {}
-        for separate in (False, True):
-            p, r = probes.probe_fma_residual(a, b, separate)
-            what = probes.fma_outcome(a, b, p, r)
-            key = "separate" if separate else "as compiled"
-            row[key] = what
-            if not separate:
-                row["max|r|"] = float(r.abs().max())
-            if what == "OTHER" or (separate and what != "separate"):
-                raise AssertionError(f"FMA probe {ctype} {key}: {what}")
+        row = res[ctype] = {"max|r|": {}}
+        for variant in probes.FMA_VARIANTS:
+            p, r = probes.probe_fma_residual(a, b, variant)
+            what = row[variant] = probes.fma_outcome(a, b, p, r)
+            row["max|r|"][variant] = float(r.abs().max())
+            if what == "OTHER" or (variant == "separate"
+                                   and what != "separate"):
+                raise AssertionError(f"FMA probe {ctype} {variant}: {what}")
             resid = (r - probes.exact_product_residual(a, b)).abs().max()
-            log(f"exactness FMA {ctype} {key}: max|r| "
+            log(f"exactness FMA {ctype} {variant}: max|r| "
                 f"{float(r.abs().max()):.3e}, max|r - exact residual| "
                 f"{float(resid):.3e} -> {what} [{card}]")
     return res

@@ -2,7 +2,6 @@
 ``docs/profiling/scratch_flips.py``.
 
     python -m quantumpropagators_torch.profiling.flips [--reps N]
-        [--shapes l2,hbm]
 
 The 9-bit flip sum ``x[i] + Σ_{j<9} x[i ^ 2^j]`` of one float32 plane
 (index bits 0-6 are the TPU's lanes, 7-8 its rows) by each Hopper
@@ -32,15 +31,14 @@ BITS = (0, 9)
 VARIANTS = {"gather": 12, "tile": 12, "shfl": 12, "mma": 13}
 
 
-def run(device, shapes=("l2", "hbm"), reps=30, seed=0, log=print):
+def run(device, reps=30, seed=0, log=print):
     """Each formulation at each shape, then the permutation products;
     returns ``{"flipsum": {shape: {variant: {"ms", "GB/s"}}},
     "exactness": ...}``."""
     card = card_line()
     res = {"card": card, "flipsum": {}}
     lo, hi = BITS
-    for shape in shapes:
-        n = SHAPES[shape]
+    for shape, n in SHAPES.items():
         (x,) = planes(n, 1, device, seed)
         res["flipsum"][shape] = rows = {}
         for variant, tile_bits in VARIANTS.items():
@@ -59,14 +57,8 @@ def run(device, shapes=("l2", "hbm"), reps=30, seed=0, log=print):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--shapes", default="l2,hbm",
-                    help="comma-separated subset of " + ",".join(SHAPES))
     args = ap.parse_args(argv)
-    shapes = [s for s in args.shapes.split(",") if s]
-    for s in shapes:
-        if s not in SHAPES:
-            ap.error(f"unknown shape {s!r}")
-    return run(cuda_device(), shapes, args.reps)
+    return run(cuda_device(), args.reps)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,6 @@
 and ``scratch_r3_probe3.py``.
 
     python -m quantumpropagators_torch.profiling.roofline [--reps N]
-        [--shapes l2,hbm]
 
 Each body runs on float32 planes of two sizes: ``l2``, the TPU probes'
 (2^15, 128) planes of 16 MB (two or three of them fit in the H100's 50 MB
@@ -98,13 +97,12 @@ def smem_limit(device):
     return result
 
 
-def run(device, shapes=("l2", "hbm"), reps=30, seed=0, log=print):
+def run(device, reps=30, seed=0, log=print):
     """Every body at every shape; returns ``{"stream": {shape: {case:
     {...}}}, "flips": ..., "matmul": ..., "smem": {kb: launched}}``."""
     card = card_line()
     res = {"card": card, "stream": {}, "flips": {}, "matmul": {}}
-    for shape in shapes:
-        n = SHAPES[shape]
+    for shape, n in SHAPES.items():
         xs = planes(n, 7, device, seed)
         plane_gb = 4 * n / 1e9
         res["stream"][shape] = rows = {}
@@ -150,14 +148,8 @@ def run(device, shapes=("l2", "hbm"), reps=30, seed=0, log=print):
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--shapes", default="l2,hbm",
-                    help="comma-separated subset of " + ",".join(SHAPES))
     args = ap.parse_args(argv)
-    shapes = [s for s in args.shapes.split(",") if s]
-    for s in shapes:
-        if s not in SHAPES:
-            ap.error(f"unknown shape {s!r}")
-    return run(cuda_device(), shapes, args.reps)
+    return run(cuda_device(), args.reps)
 
 
 if __name__ == "__main__":

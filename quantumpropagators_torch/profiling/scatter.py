@@ -3,7 +3,6 @@ card?  The port of ``docs/profiling/probe_scatter_r4.py``.
 
     python -m quantumpropagators_torch.profiling.scatter [--L 22]
         [--tile-rows 1024] [--reps 30] [--flops 0 [400 ...]] [--manual]
-        [--chunk 1024]
 
 Sixteen float32 planes of ``2^L`` elements in, a running sum (plus
 ``--flops`` operations an element as an FMA chain, the flip order's
@@ -17,8 +16,8 @@ elements.  Three read patterns with the same bytes:
   stays below the tile count).
 
 ``--manual`` runs the same sum (one plane out) through a two-stage
-``cp.async`` ring in shared memory (``--chunk`` elements a plane a
-stage, persistent blocks), the port of the script's explicitly
+``cp.async`` ring in shared memory (1024 elements a plane a stage,
+persistent blocks), the port of the script's explicitly
 double-buffered DMA variant.
 """
 
@@ -53,7 +52,7 @@ def chain_of(flops: int) -> int:
 
 
 def run(device, L=22, tile_rows=1024, reps=30, flops=(0,), manual=False,
-        chunk=1024, seed=0, log=print):
+        seed=0, log=print):
     """Rates of the three read patterns (or, with ``manual``, of the
     pipelined sum) for each ``flops``; returns ``{flops: {mode: {"ms",
     "GB/s"}}}``."""
@@ -71,7 +70,7 @@ def run(device, L=22, tile_rows=1024, reps=30, flops=(0,), manual=False,
         if manual:
             n_planes = N_IN + 1
             ms = time_ms(lambda: probes.probe_stream_pipelined(
-                xs, chain=chain_of(f), mul=0.9999, chunk=chunk), reps)
+                xs, chain=chain_of(f), mul=0.9999), reps)
             cases = {"manual": ms}
         else:
             n_planes = N_IN + 2
@@ -103,11 +102,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--manual", action="store_true",
                     help="the cp.async-ring variant instead of the three "
                          "read patterns")
-    ap.add_argument("--chunk", type=int, default=1024,
-                    help="elements a plane per pipeline stage (--manual)")
     args = ap.parse_args(argv)
     return run(cuda_device(), args.L, args.tile_rows, args.reps, args.flops,
-               args.manual, args.chunk)
+               args.manual)
 
 
 if __name__ == "__main__":

@@ -249,7 +249,7 @@ def test_fma_probe_body_reads_a_named_outcome(script):
     p, r = np.array(p), np.array(r)
     outcome = probes.fma_outcome(a, b, _T(p), _T(r))
     assert outcome in ("FUSED", "separate")
-    pp, rp = probes.probe_fma_residual_plain(a, b, separate=True)
+    pp, rp = probes.probe_fma_residual_plain(a, b, "separate")
     held(pp, p, 0)
     if outcome == "separate":
         held(rp, r, 0)

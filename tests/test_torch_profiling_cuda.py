@@ -179,10 +179,11 @@ def test_fma_residual_reads_a_named_outcome(cuda, dtype):
     rng = np.random.default_rng(0)
     a = torch.from_numpy(rng.standard_normal(4096)).to(cuda, dtype)
     b = torch.from_numpy(rng.standard_normal(4096)).to(cuda, dtype)
-    p, r = probes.probe_fma_residual(a, b)
-    assert probes.fma_outcome(a, b, p, r) in ("FUSED", "separate")
-    ps, rs = probes.probe_fma_residual(a, b, separate=True)
-    pp, rp = probes.probe_fma_residual_plain(a, b, separate=True)
+    for variant in ("inline", "loaded"):
+        p, r = probes.probe_fma_residual(a, b, variant)
+        assert probes.fma_outcome(a, b, p, r) in ("FUSED", "separate")
+    ps, rs = probes.probe_fma_residual(a, b, "separate")
+    pp, rp = probes.probe_fma_residual_plain(a, b, "separate")
     _assert_close(ps, pp, 0)
     _assert_close(rs, rp, 0)
 
@@ -237,3 +238,17 @@ def test_kernels_record_into_a_cuda_graph(cuda):
         graph.replay()
         torch.cuda.synchronize()
         _assert_close(out["got"], want, 0)
+
+
+def test_time_ms_counts_the_launches_that_ran(cuda):
+    """Recording a launch into the timing graph runs nothing; the warm-ups
+    and the two replays do, and the counts say so."""
+    (x,) = _planes(1 << 16, 1, cuda)
+    v0, v1, phi, dmb, G = order_inputs(12, cuda)
+    probes.reset_launches()
+    cf.reset_launches()
+    time_ms(lambda: probes.probe_stream([x]), 3)
+    time_ms(lambda: cf.cheby_flip_high(v1, G, 2), 4)
+    assert probes.LAUNCHES["probe_stream<sum>"] == 2 + 2 * 3
+    assert cf.LAUNCHES["cheby_flip_high<double>"] == 2 + 2 * 4
+    assert sum(probes.LAUNCHES.values()) == 8
