@@ -98,6 +98,19 @@ streaming, four flip formulations, the flip order's stages at L = 24,
 FMA contraction, σ-extraction and tensor-core exactness).  Its kernels
 join the kernels line.
 
+Phase 17 (after phase 10, on its world-size-1 NCCL group and 4 slots)
+runs every sharded step of ``parallel/`` as one replayed CUDA graph a
+call (``utils/scan.graphed``, the port of the JAX package's
+``jax.jit(shard_map(...))`` sites) against its own body run eagerly:
+the L = 24 chain in both tiers with a tensor and with a Python-float
+flip scale that changes every call, banded20 over 4 slots, the BSR
+complex and dd steps on banded20's partition, the chain step over
+``sharded_apply`` at L = 24 and the BSR and CSR applies; each bit for
+bit with equal launches a call, one capture over its calls and one
+more for a new operator, with steps/s and host µs a call both ways;
+then traces of 3 dd chain steps graphed and eager (busy share).  Phases
+10, 14 and the sharded example step through the same graphs.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -2119,6 +2132,11 @@ SCALING_SIZES = ("--slots", "4", "--L-base", "22", "--R-local", "2048",
                  "--block", "128", "--steps", "5")
 SCALING_RUNS = (("--mode", "all"), ("--mode", "banded-vs-ag"))
 EXAMPLE_WORKERS = 4
+# 4-slot total retention of each regime at SCALING_SIZES while the
+# sharded steps ran eagerly (chip runs on an NVIDIA H100 80GB HBM3 at
+# 700 W): phase 14 logs the graphed steps' retention beside it
+EAGER_RETENTION = {"banded_dd": "1.019-1.044", "hypercube": "0.799-0.816",
+                   "hypercube_dd": "0.499-0.702"}
 
 
 def _example_numbers(name, out):
@@ -2259,6 +2277,11 @@ def entry_points_phase(device, card, L=L_MAIN, n_steps=3):
             raise AssertionError(f"scaling tables {line['tables']}")
         log(f"phase 14b scaling_torch.py {cmd}: {json.dumps(line)} "
             f"({seconds:.1f} s) [{card}]")
+        for regime, table in (line["tables"].items()
+                              if "regime" in line else ()):
+            log(f"phase 14b {regime} total retention at 4 slots "
+                f"{table['4']['total_retention']:.3f} with graphed steps "
+                f"(eager steps: {EAGER_RETENTION[regime]}) [{card}]")
 
     t0 = time.perf_counter()
     err_o = float(np.abs(one - oracle.result()).max())
@@ -2374,6 +2397,270 @@ def graph_vs_eager(label, step, carry, xs, n, card, paths, tol=0.0):
         f"[{card}]")
     del graphed, first, second, eager
     return n / wall_g, n / wall_e, 1e6 * host_g / n
+
+
+def hold_graphed(label, step, state, call, n, renew, card):
+    """One graphed sharded site (a fresh :class:`Graphed` step) both
+    ways over ``n`` calls: ``call(k, prev) -> (args, kwargs)`` builds
+    call ``k`` from the output before it (``state`` for the first), and
+    ``renew(args, kwargs)`` a call of the same inputs with a new
+    operator.  After one warm-up call (the capture), the ``n`` graphed
+    calls and the ``n`` calls of ``step.body`` must agree bit for bit
+    output by output and issue the same kernel launches; a graphed call
+    on the body's first output must equal the body's second; all of it
+    leaves one capture, and the renewed call must agree too and add one
+    capture.
+    Returns the graphed calls' launches, steps/s both ways and host µs a
+    call both ways (host: until the last call returns, before the
+    synchronize)."""
+    from quantumpropagators_torch.utils.scan import _leaves
+
+    def run(fn):
+        outs, prev = [], state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(n):
+            args, kwargs = call(k, prev)
+            prev = fn(*args, **kwargs)
+            outs.append(prev)
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return outs, t_host, time.perf_counter() - t0
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+    captures = step.captures
+    args, kwargs = call(0, state)
+    step(*args, **kwargs)
+    _reset_launches()
+    graph, host_g, wall_g = run(step)
+    n_graph = _launch_counts()
+    _reset_launches()
+    eager, host_e, wall_e = run(step.body)
+    n_eager = _launch_counts()
+    same = all(equal(g, e) for g, e in zip(graph, eager))
+    err = max(_max_diff(g, e) for g, e in zip(graph, eager))
+    # the body's own output as the next input (a view, as the f32
+    # step's planes are) replays the same graph
+    args, kwargs = call(1, eager[0])
+    same = same and equal(step(*args, **kwargs), eager[1])
+    del graph, eager
+    once = step.captures - captures
+    args, kwargs = renew(*call(0, state))
+    same_new = equal(step(*args, **kwargs), step.body(*args, **kwargs))
+    again = step.captures - captures
+    if not (same and same_new and n_graph == n_eager and once == 1
+            and again == 2):
+        raise AssertionError(
+            f"phase 17 {label}: graph vs eager equal {same} (max|d| {err}), "
+            f"new operator equal {same_new}, launches graph {n_graph} eager "
+            f"{n_eager}, captures {once} then {again}")
+    per_call = {k: v / n for k, v in n_graph.items() if v}
+    log(f"phase 17 {label} {n} calls: graphed vs eager max|d|={err:.3e} "
+        f"(= 0, bit for bit), launches/call equal {per_call}, 1 capture, "
+        f"1 more for a new operator; graphed {n / wall_g:.3f} steps/s "
+        f"(host {1e6 * host_g / n:.1f} us/call), eager {n / wall_e:.3f} "
+        f"steps/s (host {1e6 * host_e / n:.1f} us/call) [{card}]")
+    return {"launches": n_graph, "graph": n / wall_g, "eager": n / wall_e,
+            "host_graph_us": 1e6 * host_g / n,
+            "host_eager_us": 1e6 * host_e / n}
+
+
+def _renew_first(args, kwargs):
+    """The same call with a copy of its first argument (the operator
+    tensor): a new address, so a new capture."""
+    return (args[0].clone(),) + tuple(args[1:]), kwargs
+
+
+def _renew_field(field):
+    """The same call with the first argument (a partition) holding a copy
+    of its tensor ``field``."""
+    from dataclasses import replace
+
+    def renew(args, kwargs):
+        part = args[0]
+        new = replace(part, **{field: getattr(part, field).clone()})
+        return (new,) + tuple(args[1:]), kwargs
+
+    return renew
+
+
+def sharded_graph_phase(device, card, chain, ctx, group):
+    """Phase 17: every sharded step of ``parallel/`` as one replayed CUDA
+    graph a call (``utils/scan.graphed``), on 4 slots of this card over
+    phase 10's world-size-1 NCCL group, each held against its own body
+    run eagerly (:func:`hold_graphed`): the L = 24 chain in both tiers
+    with a per-bit (dd) or 0-d (f32) tensor flip scale and with a Python
+    float, changing every call; banded20 through
+    ``make_sharded_dd_cheby_step``; the BSR complex (tensor coefficients
+    on the card) and dd steps on banded20's partition; the chain step
+    over ``sharded_apply`` at L = 24 (tensor coefficients); the BSR and
+    CSR applies at phase 10's small sizes.  Then traces of 3 dd chain
+    steps graphed and eager.  Returns the graphed runs' launches by
+    path."""
+    import scipy.sparse as sp
+
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.models.generators import (
+        coeff_table, coeff_table_np)
+    from quantumpropagators_torch.ops.cheby import cheby_coeffs
+    from quantumpropagators_torch.ops.fused_cheby_dd import f32_tail_orders
+    from quantumpropagators_torch.ops.operators import DiagonalOperator
+    from quantumpropagators_torch.parallel import sharded_banded as sbd
+    from quantumpropagators_torch.parallel import sharded_bsr as sbsr
+    from quantumpropagators_torch.parallel import sharded_chain as sch
+    from quantumpropagators_torch.parallel import sharded_csr as scsr
+    from quantumpropagators_torch.parallel import sharded_fused as sf
+    from quantumpropagators_torch.parallel.mesh import (chain_mesh,
+                                                        replicate,
+                                                        shard_vector)
+
+    t_phase = time.perf_counter()
+    mesh = chain_mesh(4, group=group, device=device)
+    paths, rates = {}, {}
+
+    def hold(label, step, state, call, renew, n=N_STEPS):
+        rates[label] = r = hold_graphed(label, step, state, call, n, renew,
+                                        card)
+        paths[f"phase 17 {label} graph"] = r["launches"]
+
+    # -- the L = 24 chain, both tiers ---------------------------------------
+    psi0, H, wrk = chain
+    L = L_MAIN
+    tlist = np.linspace(0.0, N_STEPS * DT, N_STEPS + 1)
+    diag = H.ops[0].diag.real.to(torch.float64)
+    beta = wrk.delta / 2.0 + wrk.e_min
+    c64 = np.asarray(wrk.coeffs, dtype=np.float64)
+    tail = f32_tail_orders(c64)
+    drive = np.asarray(coeff_table_np(H, tlist))[:, 0]
+    Gbits = torch.as_tensor(np.outer(drive, np.full(L, G_FIELD)),
+                            device=device)
+    kw = dict(delta=wrk.delta, e_min=wrk.e_min, dt=wrk.dt)
+    dmb = shard_vector(mesh, diag - beta)
+    psi_sh = shard_vector(mesh, psi0)
+    step_dd = sf.make_sharded_fused_cheby_step_dd(mesh, L, 1.0,
+                                                  f32_tail=tail, **kw)
+    hold(f"sharded dd L={L} per-bit tensor flip_scale", step_dd, psi_sh,
+         lambda k, st: ((dmb, st, c64), {"flip_scale": Gbits[k]}),
+         _renew_first)
+    step_f = sf.make_sharded_fused_cheby_step_dd(mesh, L, G_FIELD,
+                                                 f32_tail=tail, **kw)
+    scales = [float(x) for x in drive]
+    hold(f"sharded dd L={L} Python float flip_scale", step_f, psi_sh,
+         lambda k, st: ((dmb, st, c64), {"flip_scale": scales[k]}),
+         _renew_first)
+    del step_f
+    table = coeff_table(H, tlist)
+    table = (table.real if table.is_complex() else table).to(
+        device, torch.float32)[:, 0]
+    d32 = shard_vector(mesh, diag)
+    p32 = psi0.to(torch.complex64)
+    ri = (shard_vector(mesh, p32.real.contiguous()),
+          shard_vector(mesh, p32.imag.contiguous()))
+    for how, scale in (("0-d tensor", lambda k: table[k]),
+                       ("Python float", lambda k: float(drive[k]))):
+        hold(f"sharded f32 L={L} {how} flip_scale",
+             sf.make_sharded_fused_cheby_step(mesh, L, G_FIELD, **kw), ri,
+             lambda k, st: ((d32, *st, c64), {"flip_scale": scale(k)}),
+             _renew_first)
+    del d32, p32, ri
+
+    # traces: 3 steps of the 4-slot dd chain, graphed and eager
+    busy = {}
+    for how, fn in (("graphed", step_dd), ("eager", step_dd.body)):
+        def run(fn=fn):
+            st = psi_sh
+            for k in range(3):
+                st = fn(dmb, st, c64, flip_scale=Gbits[k])
+            return st
+
+        *_, busy[how] = trace_steps(run, f"phase 17 trace {how} sharded dd "
+                                    f"L={L} 4 slots", 3, card, top=6)
+    del step_dd, dmb, psi_sh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- banded20: the banded step, the BSR complex and dd steps -----------
+    bw = ctx["wrk"]
+    bkw = dict(delta=bw.delta, e_min=bw.e_min, dt=bw.dt)
+    cb = np.asarray(bw.coeffs, dtype=np.float64)
+    x20 = shard_vector(mesh, ctx["psi0"])
+    pb, step_b, kind = sbd.make_sharded_dd_cheby_step(
+        mesh, ctx["banded"], 4, tile_rows=8, **bkw)
+    if kind != "banded_pallas":
+        raise AssertionError(f"phase 17 banded20 kind {kind}")
+    hold(f"sharded banded20 2^{N_BANDED.bit_length() - 1}", step_b, x20,
+         lambda k, st: ((pb, st, cb), {}), _renew_field("edge_left"))
+    del pb, step_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    pbsr = sbsr.partition_bsr(ctx["op"], 4, mode="banded", device=device)
+    cb_card = replicate(mesh, torch.as_tensor(cb))
+    hold("sharded BSR complex banded20 (coefficients on the card)",
+         sbsr.make_sharded_bsr_cheby_step(mesh, pbsr, **bkw), x20,
+         lambda k, st: ((pbsr, st, cb_card), {}), _renew_field("cols"))
+    hold("sharded BSR dd banded20 (host coefficients)",
+         sbsr.make_sharded_bsr_cheby_step_dd(mesh, pbsr, **bkw), x20,
+         lambda k, st: ((pbsr, st, cb), {}), _renew_field("cols"))
+    del pbsr, x20
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the chain step over sharded_apply at L = 24 -----------------------
+    H_diag, H_x = qt.transverse_field_ising(L, J=J, g=G_FIELD, h=H_FIELD,
+                                            dtype=torch.float64,
+                                            device=device)
+    op = sch.prepare_sharded_operator(qt.Operator([H_diag, H_x], [1.0]), 4)
+    bound = (L - 1) * J + L * (G_FIELD + H_FIELD)
+    cc = replicate(mesh, torch.as_tensor(cheby_coeffs(2 * bound, DT)))
+
+    def renew_op(args, kwargs):
+        o = args[0]
+        new = qt.Operator([DiagonalOperator(o.ops[0].diag.clone()),
+                           *o.ops[1:]], o.coeffs)
+        return (new,) + tuple(args[1:]), kwargs
+
+    hold(f"sharded chain step L={L} (coefficients on the card)",
+         sch.make_sharded_cheby_step(mesh, op, delta=2 * bound,
+                                     e_min=-bound, dt=DT), psi0,
+         lambda k, st: ((op, st, cc), {}), renew_op)
+    del op, H_diag, H_x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the BSR and CSR applies at phase 10's small sizes ------------------
+    rng = np.random.default_rng(SEED + 91)
+    N, w = 2 ** 14, 24
+    A = sp.diags([rng.standard_normal(N - abs(k)) for k in range(-w, w + 1)],
+                 list(range(-w, w + 1))).tocsr()
+    A = (0.5 * (A + A.T)).tocsr()
+    xs = [random_state(14, torch.complex128, device, SEED + 170 + k)
+          for k in range(N_STEPS)]
+    for label, part, make, field in (
+            ("BSR halo apply", sbsr.partition_bsr(A, 4, block_size=64,
+                                                  device=device),
+             sbsr.make_banded_bsr_apply, "cols"),
+            ("BSR all-gather apply",
+             sbsr.partition_bsr(A, 4, block_size=64, mode="allgather",
+                                device=device),
+             sbsr.make_allgather_bsr_apply, "cols"),
+            ("CSR all-gather apply",
+             scsr.partition_csr_rows(A, 4, device=device),
+             scsr.make_allgather_csr_apply, "data"),
+            ("CSR halo apply", scsr.partition_csr_banded(A, 4, device=device),
+             scsr.make_banded_csr_apply, "data")):
+        hold(f"sharded {label} 2^14", make(mesh, part), xs[0],
+             lambda k, _, part=part: ((part, xs[k]), {}), _renew_field(field))
+
+    g, e = (rates[f"sharded dd L={L} per-bit tensor flip_scale"][k]
+            for k in ("graph", "eager"))
+    log(f"phase 17 4-slot dd chain L={L}: graphed {g:.3f} against eager "
+        f"{e:.3f} steps/s ({100 * (g / e - 1):+.2f} %), device busy "
+        f"{100 * busy['graphed']:.2f} % graphed against "
+        f"{100 * busy['eager']:.2f} % eager [{card}]")
+    log(f"phase 17 wall {time.perf_counter() - t_phase:.1f} s")
+    return paths
 
 
 def graph_phase(device, card, chain, ctx):
@@ -2954,6 +3241,11 @@ def main() -> int:
                                              ctx, rates, group)
         gc.collect()
         torch.cuda.empty_cache()
+        for path, counts in sharded_graph_phase(device, card, chain, ctx,
+                                                group).items():
+            scan_paths[path] = counts
+        gc.collect()
+        torch.cuda.empty_cache()
         sharded_krylov_phase(device, card, ctx, group, rates9, sparse)
     finally:
         dist.destroy_process_group()
@@ -2964,7 +3256,7 @@ def main() -> int:
         if counts[BANDED]:
             banded["launches_by_path"][path] = counts[BANDED]
             banded["launches"] += counts[BANDED]
-        else:
+        elif any(counts.values()):
             flip_paths[path] = counts
     banded["max_abs_err"] = max(banded["max_abs_err"], err_b)
     del finals, ctx

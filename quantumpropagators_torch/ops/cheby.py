@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from scipy.special import jv as _besselj
 
-from .operators import apply, host_np, vdot
+from .operators import apply, vdot
 
 __all__ = ["cheby_coeffs", "n_cheby_coeffs", "ChebyWorkspace", "cheby_apply"]
 
@@ -115,7 +115,9 @@ def cheby_apply(
     """Evaluate ``exp(-i H dt) |psi⟩`` via the Chebyshev recurrence.
 
     ``op`` is any operator implementing the ``apply`` protocol,
-    ``coeffs`` the coefficient array.  ``dt`` is the *signed* time step
+    ``coeffs`` the coefficient array: a host array (each order multiplies
+    by a Python number) or a tensor (each order multiplies by its 0-d
+    row, so coefficients on the card are never read back).  ``dt`` is the *signed* time step
     and ``forward`` must match its sign (it selects ``c = ∓2i/Δ``,
     reference ``src/cheby.jl:158-162``).
 
@@ -131,7 +133,8 @@ def cheby_apply(
     beta = delta / 2.0 + float(e_min)
     sign = -1.0 if forward else 1.0
     c = sign * 2.0j / delta
-    a = host_np(coeffs).tolist()
+    a = coeffs if isinstance(coeffs, torch.Tensor) \
+        else np.asarray(coeffs).tolist()
 
     v0 = psi
     phi = a[0] * v0

@@ -83,9 +83,14 @@ def cheby_dd_recurrence(apply_cdd, psi, coeffs_hi, coeffs_lo, delta, e_min,
                         dt, forward) -> torch.Tensor:
     """The Chebyshev recurrence over a complex128 matvec ``apply_cdd``,
     global phase included.  ``coeffs_hi + coeffs_lo`` are the float64
-    coefficients (the JAX signature's split; ``coeffs_lo`` may be 0)."""
-    coeffs = (np.asarray(coeffs_hi, np.float64)
-              + np.asarray(coeffs_lo, np.float64))
+    coefficients (the JAX signature's split; ``coeffs_lo`` may be 0):
+    host arrays, or a tensor ``coeffs_hi`` whose sum stays on its
+    device."""
+    if isinstance(coeffs_hi, torch.Tensor):
+        coeffs = coeffs_hi.to(torch.float64) + coeffs_lo
+    else:
+        coeffs = (np.asarray(coeffs_hi, np.float64)
+                  + np.asarray(coeffs_lo, np.float64))
     return cheby_apply(None, as_tensor(psi).to(torch.complex128), coeffs,
                        delta, e_min, dt, forward=forward,
                        apply_fn=lambda _op, v: apply_cdd(v))

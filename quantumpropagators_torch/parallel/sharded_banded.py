@@ -31,6 +31,7 @@ from ..ops.banded_spmv import banded_spmv
 from ..ops.bsr_dd import BandedDD, banded_dd_from_bsr, banded_dd_from_scipy
 from ..ops.df64_sparse import cheby_dd_recurrence
 from ..ops.operators import BSROperator
+from ..utils.scan import graphed
 from .mesh import STATE_AXIS, Mesh
 
 __all__ = [
@@ -196,9 +197,16 @@ def make_sharded_banded_cheby_step_dd(
     """Reference-accuracy sharded banded Chebyshev step on
     ``banded_spmv<double>``.  Returns ``step(pb, state, coeffs_h,
     coeffs_l=0.0) -> state`` with ``state`` a complex128 sharded vector
-    of the mesh; each polynomial order costs one edge exchange per
-    direction and one kernel launch per slot.  ``interpret`` is accepted
-    for parity with the JAX package."""
+    of the mesh and the coefficients host arrays or tensors on the card;
+    each polynomial order costs one edge exchange per direction and one
+    kernel launch per slot.  ``interpret`` is accepted for parity with
+    the JAX package.
+
+    On the card each call replays one CUDA graph of the step
+    (:func:`~..utils.scan.graphed`: ``pb``'s planes read in place, the
+    state and tensor coefficients copied in, one capture per partition
+    and host coefficients); on a mesh whose group spans more than one
+    rank the step runs eagerly."""
 
     def step(p, state, coeffs_h, coeffs_l=0.0):
         out = cheby_dd_recurrence(
@@ -208,7 +216,7 @@ def make_sharded_banded_cheby_step_dd(
         )
         return out.reshape(state.shape)
 
-    return step
+    return graphed(step, mesh=mesh, operators=("p",))
 
 
 def make_sharded_dd_cheby_step(

@@ -37,6 +37,7 @@ from ..ops.df64_sparse import BSRdd, bsr_dd_from_scipy, cheby_dd_recurrence
 from ..ops.cheby import cheby_apply
 from ..ops.operators import (BSROperator, as_tensor, bsr_from_scipy, host_np,
                               resolve_device)
+from ..utils.scan import graphed
 from .mesh import STATE_AXIS, Mesh
 
 __all__ = [
@@ -258,12 +259,16 @@ def _make_apply(mesh: Mesh, inner):
     def apply(pbsr, psi):
         return inner(pbsr, mesh.local(psi), mesh=mesh).reshape(psi.shape)
 
-    return apply
+    return graphed(apply, mesh=mesh, operators=("pbsr",))
 
 
 def make_banded_bsr_apply(mesh: Mesh, pbsr: PartitionedBSR):
     """Distributed block SpMV ``(pbsr, psi) -> H psi`` (halo); ``psi`` a
-    sharded vector of the mesh, the result in its shape."""
+    sharded vector of the mesh, the result in its shape.  On the card
+    each call of this and of :func:`make_allgather_bsr_apply` replays one
+    CUDA graph (:func:`~..utils.scan.graphed`: the slabs read in place,
+    ``psi`` copied in, one capture per partition); on a mesh whose group
+    spans more than one rank the apply runs eagerly."""
     if pbsr.halo_blocks < 0:
         raise ValueError("pbsr was partitioned in all-gather mode")
     return _make_apply(mesh, banded_bsr_apply)
@@ -287,8 +292,13 @@ def make_sharded_bsr_cheby_step(
 ):
     """Full Chebyshev step ``exp(-i H dt)`` over a block-partitioned BSR
     operator.  Returns ``step(pbsr, psi, coeffs) -> psi`` with ``psi`` a
-    sharded vector of the mesh; each polynomial order costs one
-    distributed block SpMV (two edge exchanges in banded mode)."""
+    sharded vector of the mesh and ``coeffs`` a host array or a tensor
+    on the card; each polynomial order costs one distributed block SpMV
+    (two edge exchanges in banded mode).  On the card each call replays
+    one CUDA graph (:func:`~..utils.scan.graphed`: the slabs read in
+    place, ``psi`` and tensor coefficients copied in, one capture per
+    partition and host coefficients); on a mesh whose group spans more
+    than one rank the step runs eagerly."""
     inner = _inner_for(pbsr)
 
     def step(pb, psi, coeffs):
@@ -298,7 +308,7 @@ def make_sharded_bsr_cheby_step(
         )
         return out.reshape(psi.shape)
 
-    return step
+    return graphed(step, mesh=mesh, operators=("pb",))
 
 
 def make_sharded_bsr_cheby_step_dd(
@@ -314,7 +324,11 @@ def make_sharded_bsr_cheby_step_dd(
     operator, in complex128.  Returns ``step(pbdd, state, coeffs_h,
     coeffs_l=0.0) -> state`` with ``state`` a complex128 sharded vector
     of the mesh and ``coeffs_h + coeffs_l`` the float64 Chebyshev
-    coefficients (the JAX signature's double-float split)."""
+    coefficients (the JAX signature's double-float split; host arrays
+    or tensors on the card).  On the card each call replays one CUDA
+    graph (:func:`~..utils.scan.graphed`, as
+    :func:`make_sharded_bsr_cheby_step`); on a mesh whose group spans
+    more than one rank the step runs eagerly."""
     inner = _inner_for(pbdd)
 
     def step(pb, state, coeffs_h, coeffs_l=0.0):
@@ -324,7 +338,7 @@ def make_sharded_bsr_cheby_step_dd(
         )
         return out.reshape(state.shape)
 
-    return step
+    return graphed(step, mesh=mesh, operators=("pb",))
 
 
 @dataclass(frozen=True)

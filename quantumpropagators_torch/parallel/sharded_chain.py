@@ -27,7 +27,7 @@ inner products over every slot (:func:`~..ops.operators.op_mesh`).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 from typing import Any
 
@@ -37,6 +37,7 @@ from ..models.generators import Operator, ScaledOperator, _scalar
 from ..models.lattice import GroupedSiteSum, SiteOperatorSum
 from ..ops.cheby import cheby_apply
 from ..ops.operators import DiagonalOperator, op_shape
+from ..utils.scan import graphed
 from .mesh import STATE_AXIS, Mesh, device_bits
 
 __all__ = [
@@ -152,7 +153,7 @@ def _device_bit_terms(device_mats, device_active, p, psi_local, out,
         recv = mesh.ppermute(psi_local,
                              [(s, s ^ mask) for s in range(mesh.n_devices)])
         bit0 = (((slots >> (p - 1 - b)) & 1) == 0).reshape(shape)
-        M = device_mats[b].to(psi_local.device, psi_local.dtype)
+        M = device_mats[b].to(dtype=psi_local.dtype)
         diag_c = torch.where(bit0, M[0, 0], M[1, 1])
         off_c = torch.where(bit0, M[0, 1], M[1, 0])
         out = out + diag_c * psi_local + off_c * recv
@@ -174,15 +175,21 @@ def _sharded_site_sum(op: SiteOperatorSum, psi_local, mesh: Mesh):
 def operator_shard_spec(op, mesh: Mesh):
     """This rank's part of ``op`` as :func:`sharded_apply` takes it:
     whole diagonals sliced to this rank's slots like the state (views,
-    no copy), everything else shared.  (The JAX function returns the
-    ``PartitionSpec`` tree that ``shard_map`` slices by; here the
-    slicing is done directly.)"""
+    no copy), the slot-bit site matrices on the mesh's device (moved
+    only when they are elsewhere), everything else shared.  (The JAX
+    function returns the ``PartitionSpec`` tree that ``shard_map``
+    slices by; here the slicing is done directly.)"""
 
     def _spec(term):
         if isinstance(term, DiagonalOperator):
             d = term.diag.view(mesh.n_devices, -1)
             return DiagonalOperator(mesh.local_rows(d))
-        if isinstance(term, (ShardedSiteSum, SiteOperatorSum)):
+        if isinstance(term, ShardedSiteSum):
+            mats = term.device_mats
+            if isinstance(mats, torch.Tensor) and mats.device != mesh.device:
+                term = replace(term, device_mats=mats.to(mesh.device))
+            return term
+        if isinstance(term, SiteOperatorSum):
             return term
         if isinstance(term, ScaledOperator):
             return ScaledOperator(term.coeff, _spec(term.operator))
@@ -206,9 +213,16 @@ def make_sharded_cheby_step(
 
     Returns ``step(op, psi, coeffs) -> psi`` where ``psi`` is a sharded
     vector of the mesh (this rank's slots, or with one rank the whole
-    state; the result keeps its shape) and ``op`` the whole operator;
-    every polynomial order is one :func:`sharded_apply` with its slot
-    exchanges.  ``op_example`` is checked for supported terms.
+    state; the result keeps its shape), ``op`` the whole operator and
+    ``coeffs`` a host array or a tensor on the card; every polynomial
+    order is one :func:`sharded_apply` with its slot exchanges.
+    ``op_example`` is checked for supported terms.
+
+    On the card each call replays one CUDA graph of the step
+    (:func:`~..utils.scan.graphed`: ``op``'s tensors read in place,
+    ``psi`` and tensor coefficients copied in, one capture per operator
+    and host coefficients); on a mesh whose group spans more than one
+    rank the step runs eagerly.
     """
     operator_shard_spec(op_example, mesh)
     apply_fn = partial(sharded_apply, mesh=mesh)
@@ -219,7 +233,7 @@ def make_sharded_cheby_step(
                           apply_fn=apply_fn)
         return out.reshape(psi.shape)
 
-    return step
+    return graphed(step, mesh=mesh, operators=("op",))
 
 
 @dataclass(frozen=True)

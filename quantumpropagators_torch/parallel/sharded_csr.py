@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.operators import CSROperator, _promote, as_tensor
+from ..utils.scan import graphed
 from .mesh import STATE_AXIS, Mesh
 
 __all__ = [
@@ -153,14 +154,17 @@ def partition_csr_banded(A, n_devices: int, *,
 def _csr_slab_matvec(data, col, row, x, n_rows):
     """Per slot ``s``: ``y[s] = Σ data[s]·x[s, col[s]]`` summed into
     ``row[s]``; ``x`` is ``(n_local, M)``, the result ``(n_local,
-    n_rows)``."""
+    n_rows)``.  The sum is an accumulating ``index_put_``, which adds
+    each row's entries in their order (on the card after a stable sort
+    of the indices), so every call gives the same bits; ``index_add_``
+    adds with atomics on the card, in an order that varies."""
     data, x = _promote(data, x)
     prod = data * torch.gather(x, 1, col)
     S = prod.shape[0]
     offs = torch.arange(S, device=row.device)[:, None] * n_rows
     out = torch.zeros(S * n_rows, dtype=prod.dtype, device=prod.device)
-    return out.index_add_(0, (row + offs).reshape(-1),
-                          prod.reshape(-1)).view(S, n_rows)
+    return out.index_put_(((row + offs).reshape(-1),), prod.reshape(-1),
+                          accumulate=True).view(S, n_rows)
 
 
 def _local_slabs(pcsr, mesh: Mesh):
@@ -196,12 +200,16 @@ def _make_apply(mesh: Mesh, inner):
     def apply(pcsr, psi):
         return inner(pcsr, mesh.local(psi), mesh=mesh).reshape(psi.shape)
 
-    return apply
+    return graphed(apply, mesh=mesh, operators=("pcsr",))
 
 
 def make_allgather_csr_apply(mesh: Mesh, pcsr: PartitionedCSR):
     """Distributed SpMV ``(pcsr, psi) -> H psi`` (all-gather); ``psi``
-    a sharded vector of the mesh, the result in its shape."""
+    a sharded vector of the mesh, the result in its shape.  On the card
+    each call of this and of :func:`make_banded_csr_apply` replays one
+    CUDA graph (:func:`~..utils.scan.graphed`: the slabs read in place,
+    ``psi`` copied in, one capture per partition); on a mesh whose group
+    spans more than one rank the apply runs eagerly."""
     return _make_apply(mesh, allgather_csr_apply)
 
 

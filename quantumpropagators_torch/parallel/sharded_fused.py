@@ -21,12 +21,13 @@ import numpy as np
 import torch
 
 from ..ops.cheby import cheby_coeffs
-from ..ops.fused_cheby import flip_cheby_step, make_flip_plan
+from ..ops.fused_cheby import flip_cheby_step, make_flip_plan, plan_coeffs
 from ..ops.fused_cheby_dd import (
     cheby_step_fused_dd,
     dd_tile_rows,
     f32_tail_orders,
 )
+from ..utils.scan import graphed
 from .mesh import STATE_AXIS, Mesh, device_bits
 
 __all__ = [
@@ -137,11 +138,17 @@ def make_sharded_fused_cheby_step(
     Returns ``step(diag, re, im, coeffs[, flip_scale]) -> (re, im)``
     where ``diag``/``re``/``im`` are sharded vectors of the mesh (this
     rank's ``(n_local, 2^(L−p))`` slots, or with one rank the whole
-    ``(2^L,)`` vector) and ``coeffs`` the Chebyshev coefficients; the
-    outputs keep ``re``'s shape.  ``flip_scale`` scales every flip,
-    slot bits included; slot bits with zero coupling skip their
-    exchange.  ``interpret`` and ``axis_name`` are accepted for parity
-    with the JAX package and ignored.
+    ``(2^L,)`` vector) and ``coeffs`` the host Chebyshev coefficients;
+    the outputs keep ``re``'s shape.  ``flip_scale`` (a Python number or
+    a 0-d tensor) scales every flip, slot bits included; slot bits with
+    zero coupling skip their exchange.  ``interpret`` and ``axis_name``
+    are accepted for parity with the JAX package and ignored.
+
+    On the card each call replays one CUDA graph of the step
+    (:func:`~..utils.scan.graphed`: ``diag`` read in place, ``re``,
+    ``im`` and ``flip_scale`` copied in, one capture per ``diag`` and
+    ``coeffs``); on a mesh whose group spans more than one rank the step
+    runs eagerly.
     """
     del interpret, axis_name
     plan_local, device_gs = sharded_flip_plan(
@@ -150,13 +157,18 @@ def make_sharded_fused_cheby_step(
     live = _live_bits(device_gs)
     neighbours = _slot_neighbours(mesh, live)
     beta = float(delta) / 2.0 + float(e_min)
+    n_local_bits = len(plan_local.gs)
 
     def step(diag, re, im, coeffs, flip_scale=1.0):
         rdtype = re.dtype
-        scale = torch.as_tensor(flip_scale, dtype=rdtype, device=re.device)
-        G = torch.as_tensor(plan_local.gs, dtype=rdtype,
-                            device=re.device) * scale
-        gs = [device_gs[j] * scale for j in live]
+        scale = flip_scale.to(rdtype) if isinstance(
+            flip_scale, torch.Tensor) else flip_scale
+        # the plan's flip coefficients, slot bits last, made once per
+        # dtype and device
+        G_all = plan_coeffs(plan_local, rdtype, re.device,
+                            [device_gs[j] for j in live]) * scale
+        G = G_all[:n_local_bits]
+        gs = [G_all[n_local_bits + i] for i in range(len(live))]
 
         def w_fn(v):
             # the exchanged rows are fresh copies: scale and sum in place
@@ -172,7 +184,8 @@ def make_sharded_fused_cheby_step(
                               forward=forward, w_fn=w_fn if live else None)
         return out.real.reshape(re.shape), out.imag.reshape(im.shape)
 
-    return step
+    return graphed(step, mesh=mesh, operators=("diag",),
+                   controls=("flip_scale",))
 
 
 def make_sharded_fused_cheby_step_dd(
@@ -211,6 +224,12 @@ def make_sharded_fused_cheby_step_dd(
     ``step.exchange_plan`` counts the exchange: bytes per local element
     per order, 16 (complex128) per coupled slot bit in the complex128
     orders and 8 (complex64) in the tail orders.
+
+    On the card each call replays one CUDA graph of the step
+    (:func:`~..utils.scan.graphed`: ``dmb`` read in place, ``state`` and
+    ``flip_scale`` copied in, one capture per ``dmb`` and ``coeffs``);
+    on a mesh whose group spans more than one rank the step runs
+    eagerly.
     """
     del interpret, axis_name
     p = device_bits(mesh.n_devices)
@@ -231,7 +250,8 @@ def make_sharded_fused_cheby_step_dd(
         """``flip_scale``: ``None`` (1), a scalar scaling every flip (one
         time-dependent transverse field), or a per-bit vector of length
         ``L`` (bit ``j`` carries its own control)."""
-        if flip_scale is not None:
+        if flip_scale is not None and not isinstance(flip_scale,
+                                                     (int, float)):
             fs = torch.as_tensor(flip_scale, dtype=torch.float64,
                                  device=state.device)
             if fs.ndim > 0:
@@ -252,6 +272,8 @@ def make_sharded_fused_cheby_step_dd(
         )
         return out.reshape(state.shape)
 
+    step = graphed(step, mesh=mesh, operators=("dmb",),
+                   controls=("flip_scale",))
     step.exchange_plan = {
         "device_bits": p,
         "live_device_bits": len(live),

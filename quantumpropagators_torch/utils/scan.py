@@ -1,5 +1,9 @@
-"""The port's ``jax.lax.scan``: a loop over intervals that runs, on the
-card, as one captured CUDA graph replayed once per interval.
+"""The port's ``jax.lax.scan`` and ``jax.jit``: a loop over intervals
+that runs, on the card, as one captured CUDA graph replayed once per
+interval (:func:`scan`, :class:`GraphedScan`), and a function whose
+every call replays one captured CUDA graph of itself (:func:`graphed`,
+the counterpart of ``jax.jit(shard_map(...))`` for the sharded steps of
+``parallel/``).
 
 The JAX fused layer runs a whole propagation as ONE compiled program: a
 ``lax.scan`` of the step over the per-interval coefficient table, with
@@ -45,16 +49,27 @@ such a scan finishes as the loop after its eager first interval.
 :class:`GraphedScan` keeps its graph between calls: every call with
 inputs of the captured shapes copies them into the static buffers and
 replays, one capture for every control update.
+
+:func:`graphed` follows the same rules for one call of a function
+(:class:`Graphed`): eager first call, one capture per key (operator
+tensors read in place, per-call inputs and controls copied into static
+buffers), a replay and cloned outputs per later call; the body as it is
+on the CPU, inside an enclosing capture, while autograd records and on a
+mesh of more than one rank.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
+
+import numpy as np
 import torch
 
 from ..ops import banded_spmv as _banded
 from ..ops import cheby_flip as _flip
 
-__all__ = ["scan", "GraphedScan"]
+__all__ = ["scan", "GraphedScan", "graphed", "Graphed"]
 
 _COUNTERS = (_flip.LAUNCHES, _banded.LAUNCHES)
 _SIDE_STREAMS: dict = {}
@@ -221,10 +236,53 @@ def _graph_pool(device):
     return _POOLS[index][0]
 
 
-def _refused(step, why) -> str:
+def _refused(step, why, what="scan") -> str:
     name = getattr(step, "__qualname__", None) or repr(step)
-    return (f"scan: step {name} cannot be captured as a CUDA graph (a step "
-            f"on the card must not read the host): {why}")
+    return (f"{what}: step {name} cannot be captured as a CUDA graph (a "
+            f"step on the card must not read the host): {why}")
+
+
+def _captured(device, fn, refused):
+    """``fn()`` captured as a CUDA graph on the device's side stream into
+    the shared pool (capturing runs nothing on the device).  Returns the
+    graph, what ``fn`` returned and the launches one replay issues (the
+    counters' delta over the capture, which is taken back).  A failed
+    capture raises ``RuntimeError(refused(exc))``."""
+    cur = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    side.wait_stream(cur)
+    before = [dict(c) for c in _COUNTERS]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=_graph_pool(device))
+            try:
+                out = fn()
+            except Exception as exc:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    # the capture was already invalidated by exc, and the
+                    # allocator still routes this stream's allocations
+                    # to the pool: capture on a new stream into a new
+                    # pool from now on
+                    index = _index(device)
+                    _SIDE_STREAMS.pop(index, None)
+                    _POOLS.pop(index, None)
+                raise RuntimeError(refused(exc)) from exc
+            graph.capture_end()
+        delta = tuple((c, k, c[k] - b[k]) for c, b in zip(_COUNTERS, before)
+                      for k in c if c[k] != b[k])
+    finally:
+        for c, b in zip(_COUNTERS, before):
+            c.update(b)
+    cur.wait_stream(side)
+    return graph, out, delta
+
+
+def _add_launches(delta, times=1):
+    for counts, key, d in delta:
+        counts[key] += d * times
 
 
 class _Graph:
@@ -299,53 +357,260 @@ class _Graph:
     def _replay(self, times):
         for _ in range(times):
             self.graph.replay()
-            for counts, key, d in self.delta:
-                counts[key] += d
+        _add_launches(self.delta, times)
 
     def _capture(self):
         """The graph of one interval from the static buffers: it selects
         its ``xs`` row and writes its outputs at the counter, increments
         it and copies its carry into the carry buffer.  Capturing runs
         nothing on the device.  Keeps the launches one replay issues."""
-        cur = torch.cuda.current_stream(self.device)
-        side = _side_stream(self.device)
-        side.wait_stream(cur)
-        before = [dict(c) for c in _COUNTERS]
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            graph.capture_begin(pool=_graph_pool(self.device))
-            try:
-                x = _map(lambda t: t.index_select(0, self.counter)[0],
-                         self.xs)
-                state, y = self.step(self.carry, x)
-                if _signature(state) != _signature(self.carry):
-                    raise ValueError(
-                        f"the carry changed from {_signature(self.carry)} "
-                        f"to {_signature(state)}")
-                _map(lambda buf, t: buf.index_copy_(0, self.counter, t[None]),
-                     self.ys, y)
-                self.counter.add_(1)
-                _map(lambda buf, t: buf.copy_(t), self.carry, state)
-                del state, y, x
-            except Exception as exc:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    # the capture was already invalidated by exc, and the
-                    # allocator still routes this stream's allocations
-                    # to the pool: capture on a new stream into a new
-                    # pool from now on
-                    index = _index(self.device)
-                    _SIDE_STREAMS.pop(index, None)
-                    _POOLS.pop(index, None)
-                for c, b in zip(_COUNTERS, before):
-                    c.update(b)
-                raise RuntimeError(_refused(self.step, exc)) from exc
-            graph.capture_end()
-        cur.wait_stream(side)
-        self.delta = tuple((c, k, c[k] - b[k])
-                           for c, b in zip(_COUNTERS, before)
-                           for k in c if c[k] != b[k])
-        for c, b in zip(_COUNTERS, before):
-            c.update(b)
+
+        def interval():
+            x = _map(lambda t: t.index_select(0, self.counter)[0], self.xs)
+            state, y = self.step(self.carry, x)
+            if _signature(state) != _signature(self.carry):
+                raise ValueError(
+                    f"the carry changed from {_signature(self.carry)} to "
+                    f"{_signature(state)}")
+            _map(lambda buf, t: buf.index_copy_(0, self.counter, t[None]),
+                 self.ys, y)
+            self.counter.add_(1)
+            _map(lambda buf, t: buf.copy_(t), self.carry, state)
+
+        self.graph, _, self.delta = _captured(
+            self.device, interval, lambda exc: _refused(self.step, exc))
+
+
+# -- jax.jit of one call --------------------------------------------------
+
+def graphed(body, *, mesh=None, operators=(), controls=()):
+    """``jax.jit`` of ``body`` on the port: a :class:`Graphed` whose
+    calls on the card each replay one CUDA graph of ``body``.
+
+    ``operators`` names the parameters whose tensors the graph reads in
+    place (planes, diagonals, index arrays: never copied per call);
+    ``controls`` names those that change from call to call as Python
+    numbers or host arrays (a Python number is written into a 0-d
+    float64 (complex128) buffer on the card, a host array copied into a
+    buffer of its dtype), so that a new value replays the same graph.
+    Every other tensor on the card is a per-call input, copied into its
+    static buffer; every other argument (host coefficient arrays used as
+    kernel scalars, Python numbers, ``None``) is part of the graph's key
+    by value.  ``mesh``: a mesh whose group spans more than one rank
+    makes every call run ``body`` eagerly (cross-rank exchanges are not
+    captured)."""
+    return Graphed(body, mesh=mesh, operators=operators, controls=controls)
+
+
+class Graphed:
+    """``body`` as one replayed CUDA graph per call (:func:`graphed`).
+
+    - The first call with a given key runs ``body`` eagerly on a side
+      stream (the kernels get built and one-time device constants made)
+      and returns that result; then it captures one call over static
+      buffers (capturing runs nothing on the device), so that every
+      call issues one call's launches.
+    - A later call with the same key copies its per-call inputs into the
+      static buffers, replays once and returns clones of the outputs, so
+      that the next call does not overwrite a result the caller holds.
+    - The key holds each per-call input's shape, dtype and device (not
+      its strides: it is copied into its buffer), each operator tensor's
+      address, shape, strides and dtype, and every other argument's
+      value (host tensors and arrays by their bytes).  A call with
+      another key captures anew and frees the old graph.
+    - ``body`` runs as it is (no graph): on the CPU, inside an enclosing
+      capture (a :func:`scan` over a graphed step captures straight
+      through it), while autograd records, and on a mesh whose group
+      spans more than one rank (decided from ``mesh.world_size``).
+    - A body that reads the host raises ``RuntimeError`` at its capture,
+      naming the step; it never falls back to the eager body.
+
+    :attr:`captures` counts the captures, :attr:`body` is the function
+    itself.  The launch counters see each replay's launches, as in
+    :func:`scan`."""
+
+    def __init__(self, body, *, mesh=None, operators=(), controls=()):
+        functools.update_wrapper(self, body)
+        self.body = body
+        self.mesh = mesh
+        self.operators = frozenset(operators)
+        self.controls = frozenset(controls)
+        self.captures = 0
+        self._params = inspect.signature(body)
+        self._call = None
+
+    def __call__(self, *args, **kwargs):
+        bound = self._params.bind(*args, **kwargs)
+        device = self._device(bound.arguments)
+        if device is None:
+            return self.body(*args, **kwargs)
+        key, inputs = self._key(bound.arguments)
+        if self._call is not None and self._call.key == key:
+            self._call.load(inputs)
+            return self._call.replay()
+        self._call = None  # its blocks go back to the pool first
+        out, self._call = _Call.first(self, key, device, bound, inputs)
+        self.captures += 1
+        return out
+
+    def _device(self, arguments):
+        """The card the call runs on, or ``None`` to run the body."""
+        if self.mesh is not None and self.mesh.world_size > 1:
+            return None
+        tensors = []
+        _walk(arguments, tensors, set(), keyed=False)
+        cards = [t.device for t in tensors if t.device.type == "cuda"]
+        if not cards or torch.cuda.is_current_stream_capturing():
+            return None
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            return None
+        return cards[0]
+
+    def _key(self, arguments):
+        """The graph's key and the per-call inputs ``(name, value)``."""
+        key, inputs = [], []
+        for name, value in arguments.items():
+            on_card = isinstance(value, torch.Tensor) \
+                and value.device.type == "cuda"
+            if name in self.operators and not on_card:
+                key.append((name, _walk(value, [], set())))
+            elif name in self.operators:
+                key.append((name, "operator", _identity(value)))
+            elif on_card:
+                key.append((name, "input", _layout(value)))
+                inputs.append((name, value))
+            elif name in self.controls and _is_number(value):
+                key.append((name, "number", isinstance(value, complex)))
+                inputs.append((name, value))
+            elif name in self.controls and _is_host_array(value):
+                a = np.asarray(value)
+                key.append((name, "array", a.shape, a.dtype.str))
+                inputs.append((name, a))
+            else:
+                key.append((name, _walk(value, [], set())))
+        return tuple(key), inputs
+
+
+class _Call:
+    """One call of a :class:`Graphed` body captured over static
+    buffers."""
+
+    def __init__(self, key, buffers, graph, out, delta):
+        self.key = key
+        self.buffers = buffers   # static per-call inputs
         self.graph = graph
+        self.out = out           # static outputs
+        self.delta = delta       # launches one replay issues
+
+    @classmethod
+    def first(cls, owner, key, device, bound, inputs):
+        """The body run eagerly on the side stream (its result is the
+        call's), then one call captured over static buffers.  Returns
+        ``(result, _Call)``."""
+        cur = torch.cuda.current_stream(device)
+        side = _side_stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = owner.body(*bound.args, **bound.kwargs)
+        cur.wait_stream(side)
+        for t in _leaves(out):
+            if t.device != device:
+                raise RuntimeError(_refused(
+                    owner.body, f"it returns a tensor on {t.device}",
+                    "graphed"))
+            t.record_stream(cur)
+        buffers = [_buffer(value, device) for _, value in inputs]
+        for (name, _), buf in zip(inputs, buffers):
+            bound.arguments[name] = buf
+        graph, static, delta = _captured(
+            device, lambda: owner.body(*bound.args, **bound.kwargs),
+            lambda exc: _refused(owner.body, exc, "graphed"))
+        return out, cls(key, buffers, graph, static, delta)
+
+    def load(self, inputs):
+        """A later call's per-call inputs into the static buffers: host
+        arrays through pinned memory, so that no copy waits for the
+        device."""
+        for buf, (_, value) in zip(self.buffers, inputs):
+            if isinstance(value, torch.Tensor):
+                buf.copy_(value)
+            elif isinstance(value, np.ndarray):
+                buf.copy_(torch.from_numpy(value).pin_memory(),
+                          non_blocking=True)
+            else:
+                buf.fill_(value)
+
+    def replay(self):
+        self.graph.replay()
+        _add_launches(self.delta)
+        return _map(torch.clone, self.out)
+
+
+def _is_number(x) -> bool:
+    return isinstance(x, (int, float, complex, np.number)) \
+        and not isinstance(x, (bool, np.bool_))
+
+
+def _is_host_array(x) -> bool:
+    return isinstance(x, np.ndarray) or (
+        isinstance(x, torch.Tensor) and x.device.type == "cpu")
+
+
+def _buffer(value, device) -> torch.Tensor:
+    """A static buffer on ``device`` holding a per-call input."""
+    if isinstance(value, torch.Tensor):
+        return value.clone()
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(value).to(device).clone()
+    dtype = torch.complex128 if isinstance(value, complex) or np.iscomplexobj(
+        value) else torch.float64
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def _layout(t: torch.Tensor) -> tuple:
+    """A per-call input's key: its strides do not matter, since the
+    graph reads the buffer it is copied into."""
+    return (tuple(t.shape), t.dtype, t.device)
+
+
+def _identity(t: torch.Tensor) -> tuple:
+    """An operator tensor's key: the graph reads it in place."""
+    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
+
+
+def _walk(obj, tensors, seen, keyed=True):
+    """The key of ``obj``: tensors on the card by address and layout
+    (each also appended to ``tensors``), host tensors, arrays and other
+    values by value, containers, dataclasses and objects through their
+    fields.  ``keyed=False`` only collects the tensors."""
+    if isinstance(obj, torch.Tensor):
+        tensors.append(obj)
+        if not keyed or obj.device.type == "cuda":
+            return _identity(obj) if keyed else None
+        flat = obj.detach().contiguous().reshape(-1)
+        return ("host", str(obj.dtype), tuple(obj.shape),
+                flat.view(torch.uint8).numpy().tobytes())
+    if not keyed and isinstance(obj, (np.ndarray, str, int, float, complex)):
+        return None
+    if isinstance(obj, np.ndarray):
+        return ("array", obj.dtype.str, obj.shape, obj.tobytes())
+    if isinstance(obj, float):
+        return ("float", obj.hex())
+    if isinstance(obj, complex):
+        return ("complex", obj.real.hex(), obj.imag.hex())
+    if obj is None or isinstance(obj, (bool, int, str, np.generic,
+                                       torch.dtype, torch.device)):
+        return (type(obj).__name__, repr(obj))
+    if id(obj) in seen:
+        return ("cycle", id(obj))
+    seen = seen | {id(obj)}
+    if isinstance(obj, (tuple, list)):
+        return (type(obj).__name__,) + tuple(
+            _walk(x, tensors, seen, keyed) for x in obj)
+    if isinstance(obj, dict):
+        return ("dict",) + tuple((k, _walk(v, tensors, seen, keyed))
+                                 for k, v in obj.items())
+    fields = getattr(obj, "__dict__", None)
+    if fields is None:
+        return ("object", id(obj))
+    return (type(obj).__qualname__, _walk(fields, tensors, seen, keyed))
