@@ -2808,6 +2808,9 @@ PROBE_MAINS = (
     ("dd_stages", ["--L", str(L_MAIN), "--reps", "5"]),
     ("exactness", []),
 )
+# rows of phase 16a's ragged tile products: not a multiple of the TF32
+# kernel's 64-row tile nor of the FP64 kernel's 32
+PROBE_RAGGED_ROWS = {"tf32": 1040, "3xtf32": 1040, "f64": 1032}
 # name: (op, planes, chain, mul, scale, tolerance relative to max|plain|;
 # 0 = bit for bit: the kernel adds in the plain version's order)
 PROBE_STREAM_CHECKS = {
@@ -2953,12 +2956,24 @@ def probe_checks(device, big, s16):
     for mode in probes.MMA_MODES:
         dtype = torch.float64 if mode == "f64" else torch.float32
         x = s16[0][:512 * 128].view(512, 128).to(dtype)
+        # on a TF32 rounding tie: truncating in place of rounding would show
+        ties = torch.from_numpy(exactness.tf32_ties((512, 128), SEED)).to(
+            device, dtype)
         key = f"probe_tile_mma<{mode}>"
         for bit in range(7):  # every fragment position, bit for bit
             P = torch.from_numpy(exactness.permutation(bit)).to(device, dtype)
             _hold(errs, key, probes.probe_tile_mma(x, P, mode),
                   probes.probe_tile_mma_plain(x, P, mode), 0,
                   f"flip of lane bit {bit}")
+            _hold(errs, key, probes.probe_tile_mma(ties, P, mode),
+                  probes.probe_tile_mma_plain(ties, P, mode), 0,
+                  f"TF32 ties, flip of lane bit {bit}")
+        rows = PROBE_RAGGED_ROWS[mode]  # not a multiple of the tile's rows
+        xr = s16[1][:rows * 128].view(rows, 128).to(dtype)
+        Mr = s16[2][:128 * 128].view(128, 128).to(dtype)
+        _hold(errs, key, probes.probe_tile_mma(xr, Mr, mode),
+              probes.probe_tile_mma_plain(xr, Mr, mode),
+              1e-14 if mode == "f64" else 2e-6, f"random ({rows}, 128)")
     smem = smem_limit(device)  # each launch's output held bit for bit
     if not smem[227] or smem[228]:
         raise AssertionError(f"phase 16 probe_smem: {smem} (227 KB must "
@@ -3115,6 +3130,10 @@ def probe_times(device, card, big, s16, errs):
         bound_ms, bound_by = bound(n_bytes, ops, peak)
         times[key] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
         lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        if key.startswith("probe_tile_mma<"):
+            mode = key[len("probe_tile_mma<"):-1]
+            lib += (f" ({ms / lib_ms:.3f} x the library's time), "
+                    f"{P.MMA_INSTRUCTIONS[mode]}")
         log(f"phase 16b time {key} {what}: {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
             f"{100 * bound_ms / ms:.1f} % of it reached){lib} [{card}]")

@@ -31,12 +31,19 @@
 //     replaces scratch_flips.py:20, and the roll / grouped-roll flip sums of
 //     scratch_roofline.py:19, scratch_r3_roofline.py:20 and
 //     scratch_r3_probe2.py:50.  Bound: bytes (one read, one write).
-//   probe_tile_mma          each 16-row slab of an (R, 128) f32 plane times
-//                           a (128, 128) f32 matrix with mma.sync m16n8k8 in
-//                           TF32 or in 3xTF32 (hi*hi + hi*lo + lo*hi), and
-//                           in FP64 with m8n8k4.
+//   probe_tile_mma          an (R, 128) plane times a (128, 128) matrix:
+//                           TF32 by wgmma m64n128k8 (A from registers, B
+//                           from shared memory); FP64 by mma.sync
+//                           m16n8k16 (or m8n8k4, Ampere's, for
+//                           comparison); 3xTF32 (hi*hi + hi*lo + lo*hi) by
+//                           mma.sync m16n8k8 on 16-row slabs, M through L1.
 //     replaces scratch_roofline.py:59, scratch_flips.py:132 and
-//     scratch_r3_probe4.py:50.  Bound: bytes at these shapes.
+//     scratch_r3_probe4.py:50.  Bound: bytes at the timed sizes ((2^19,
+//     128) f32, (2^18, 128) f64: 0.1603 ms at 3.35 TB/s), the FP64
+//     operations close behind (0.128 ms at 67 TFLOP/s).  So the TF32 and
+//     FP64 kernels hold M in shared memory for a persistent block's life,
+//     in the layout the MMA reads, and stream x through a three-stage ring
+//     of TMA bulk copies that run under the MMAs and the stores.
 //   probe_smem              one block with `bytes` of dynamic shared memory:
 //                           x is staged at the top of the allocation and
 //                           written back doubled; launching proves the size.
@@ -446,15 +453,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------ tile MMA
 
-// out = x M for an (R, 128) f32 plane, R = 16 slabs: each warp takes one
-// 16-row slab at a time and all 16 column tiles of it; M is read through
-// L1.  Mode 0 TF32 (inputs rounded to nearest, ties away); mode 1 3xTF32:
-// lo*Mhi + hi*Mlo + hi*Mhi, small terms first.
-template <int Mode>
+// out = x M in 3xTF32 for an (R, 128) f32 plane, R = 16 slabs: each warp
+// takes one 16-row slab at a time and all 16 column tiles of it; M is read
+// through L1.  The products lo*Mhi + hi*Mlo + hi*Mhi, small terms first.
 __global__ void __launch_bounds__(kMmaThreads)
-    probe_tile_mma_kernel(const float* __restrict__ x,
-                          const float* __restrict__ m,
-                          float* __restrict__ out, int64_t slabs) {
+    probe_tile_mma_3xtf32_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ m,
+                                 float* __restrict__ out, int64_t slabs) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -485,12 +490,10 @@ __global__ void __launch_bounds__(kMmaThreads)
         const float m1 = __ldg(m + ((k0 + t + 4) << 7) + (nt << 3) + g);
         const uint32_t bh0 = tf32_bits(m0);
         const uint32_t bh1 = tf32_bits(m1);
-        if constexpr (Mode == 1) {
-          const uint32_t bl0 = tf32_bits(m0 - __uint_as_float(bh0));
-          const uint32_t bl1 = tf32_bits(m1 - __uint_as_float(bh1));
-          mma_tf32(c[nt], al, bh0, bh1);
-          mma_tf32(c[nt], ah, bl0, bl1);
-        }
+        const uint32_t bl0 = tf32_bits(m0 - __uint_as_float(bh0));
+        const uint32_t bl1 = tf32_bits(m1 - __uint_as_float(bh1));
+        mma_tf32(c[nt], al, bh0, bh1);
+        mma_tf32(c[nt], ah, bl0, bl1);
         mma_tf32(c[nt], ah, bh0, bh1);
       }
     }
@@ -504,35 +507,452 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// out = x M in f64 for an (R, 128) plane, R = 8 slabs, m8n8k4.
-__global__ void __launch_bounds__(kMmaThreads)
-    probe_tile_mma_f64_kernel(const double* __restrict__ x,
-                              const double* __restrict__ m,
-                              double* __restrict__ out, int64_t slabs) {
+// The TF32 and FP64 products below share one pipeline.  A persistent block
+// (one an SM) holds M in shared memory for its whole life, in the layout its
+// MMA reads, and walks the tiles blockIdx.x, + gridDim.x, ... of x.  One
+// producer thread streams those tiles through a ring of stages (as many
+// as shared memory holds beside M) with TMA bulk copies (cp.async.bulk,
+// completed on the stage's `full` mbarrier); two consumer groups of four
+// warps take the block's tiles in turn (group i % 2 the i-th), read their
+// A fragments from the stage, free it on its `empty` mbarrier and store
+// their results.  A ragged last tile is copied and stored only as far as
+// R.  The loads of later tiles are in flight under the MMAs and the stores
+// of earlier ones.
+constexpr int kPipeThreads = 288;  // 8 consumer warps + 1 producer warp
+constexpr int kProducerWarp = 8;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+// `bytes` (a multiple of 16) from global to shared memory by the TMA unit,
+// counted against `bar`'s expected transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void consumers_sync() {  // the 8 consumer warps
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void group_sync(int group) {  // one group's 4 warps
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + group) : "memory");
+}
+// `bytes` from shared to global memory by the TMA unit, as one bulk group
+// of the calling thread (cp.async.bulk.wait_group waits for it).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+
+// Barriers: full[s] (one arrival, the producer's, plus the stage's bytes)
+// and empty[s] (one arrival from each warp of the group that read it).
+template <int Stages>
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer: tile i of this block goes into stage i % Stages once
+// the group that read the stage's previous tile has freed it.  Tiles of
+// `tile_rows` rows of `row_bytes`, copied as one block of rows (stride
+// 0) or one copy a row into rows `stride` bytes apart.
+template <int Stages>
+__device__ __forceinline__ void produce(const unsigned char* x,
+                                        unsigned char* ring, int stage_bytes,
+                                        int stride, uint64_t* full,
+                                        uint64_t* empty, int64_t rows,
+                                        int tile_rows, int row_bytes) {
+  const int64_t n_tiles = (rows + tile_rows - 1) / tile_rows;
+  int64_t i = 0;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
+    const int s = int(i % Stages);
+    mbar_wait(&empty[s], uint32_t((i / Stages) & 1) ^ 1u);
+    const int64_t r0 = tile * tile_rows;
+    const int n = int(rows - r0 < tile_rows ? rows - r0 : tile_rows);
+    mbar_expect_tx(&full[s], uint32_t(n * row_bytes));
+    unsigned char* dst = ring + int64_t(s) * stage_bytes;
+    const unsigned char* src = x + r0 * row_bytes;
+    if (stride == 0)
+      bulk_load(dst, src, uint32_t(n * row_bytes), &full[s]);
+    else
+      for (int r = 0; r < n; ++r)
+        bulk_load(dst + r * stride, src + int64_t(r) * row_bytes,
+                  uint32_t(row_bytes), &full[s]);
+  }
+}
+
+// M (128 x 128, row-major) into shared memory by the 256 consumer threads:
+// `put(e, v)` stores element e.  kMBatch loads a thread are in flight
+// before the first store (one at a time, the 64 round trips to L2 held the
+// first tile back: tools/tile_mma_variants.py, `M one load at a time`).
+constexpr int kMBatch = 32;
+template <typename T, typename Put>
+__device__ __forceinline__ void load_m(const T* __restrict__ m, Put put) {
+  for (int e0 = threadIdx.x; e0 < 128 * 128; e0 += 256 * kMBatch) {
+    T v[kMBatch];
+#pragma unroll
+    for (int q = 0; q < kMBatch; ++q) v[q] = __ldg(m + e0 + 256 * q);
+#pragma unroll
+    for (int q = 0; q < kMBatch; ++q) put(e0 + 256 * q, v[q]);
+  }
+}
+
+// A consumer's wait for tile i of its block; returns the tile's stage.  A
+// parity wait cannot tell phase k + 1 from phase k - 1, and the other
+// group may run a whole ring ahead (the TMA unit completes copies out of
+// order), so the wait for fill k of a stage first waits, as the producer
+// did, until fill k - 1 was read: the full barrier is then in phase k.
+template <int Stages>
+__device__ __forceinline__ int consume_wait(uint64_t* full, uint64_t* empty,
+                                            int64_t i) {
+  const int s = int(i % Stages);
+  const uint32_t k = uint32_t((i / Stages) & 1);
+  mbar_wait(&empty[s], k ^ 1u);
+  mbar_wait(&full[s], k);
+  return s;
+}
+
+// ---- TF32: wgmma m64n128k8, A from registers, B (M) from shared memory
+
+constexpr int kTf32TileRows = 64;
+constexpr int kTf32Stages = 3;
+constexpr int kTf32MBytes = 128 * 128 * 4;
+constexpr int kTf32StageBytes = kTf32TileRows * 128 * 4;
+constexpr int kTf32Smem = kTf32MBytes + (kTf32Stages + 2) * kTf32StageBytes +
+                          2 * kTf32Stages * 8;
+
+// D (64 x 128, f32) += A (64 x 8, TF32, registers) B (8 x 128, TF32, the
+// shared-memory matrix `desc` describes).  D of warp w of the warpgroup,
+// n-tile j: d[4j] (16w+g, 8j+2t), d[4j+1] (16w+g, 8j+2t+1), d[4j+2]
+// (16w+g+8, 8j+2t), d[4j+3] (16w+g+8, 8j+2t+1); A: a0 (16w+g, t), a1
+// (16w+g+8, t), a2 (16w+g, t+4), a3 (16w+g+8, t+4).
+#define QP_D8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),      \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : QP_D8(0), QP_D8(8), QP_D8(16), QP_D8(24), QP_D8(32), QP_D8(40),
+        QP_D8(48), QP_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+#undef QP_D8
+
+// The TF32 kernel's k order.  Step ks's hardware k index p (t or t + 4 in
+// a thread's A fragment) reads x's column 16 (ks / 2) + 4 (p % 4) +
+// 2 (ks % 2) + p / 4, so that a thread's four columns 16 s + 4 t .. + 3
+// are one float4 load serving steps 2s and 2s+1.  B is stored in the same
+// order, so the product is x M.  Returns 8 ks + p of column `k`.
+__device__ __forceinline__ int tf32_hw_k(int k) {
+  const int ks = ((k >> 4) << 1) + ((k >> 1) & 1);
+  const int p = ((k >> 2) & 3) + ((k & 1) << 2);
+  return (ks << 3) + p;
+}
+
+// M as wgmma's B operand: K-major (B must be K-major for TF32), no
+// swizzle.  Core matrices of 8 n-rows x 4 k (16 B a row, 128 B) at byte
+// (n / 8) * 4096 + (kp / 4) * 128: the leading (k) byte offset is 128, the
+// stride (n) byte offset 4096, and step ks starts 256 ks bytes in.
+__device__ __forceinline__ uint64_t tf32_b_desc(const float* b, int ks) {
+  const uint32_t addr = smem_addr(b) + uint32_t(ks) * 256u;
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) |
+         (uint64_t(4096 >> 4) << 32);
+}
+
+// out = x M for an (R, 128) f32 plane (R a multiple of 16), the operands
+// rounded to TF32 (nearest, ties away), f32 sums.  Each consumer group is
+// one warpgroup taking a whole 64-row tile: it loads and rounds all of its
+// A fragments (16 float4 loads a thread, 64 registers), frees the stage,
+// runs 16 wgmma steps on them and M, and writes the tile into its own
+// 32 KB output buffer, from which one TMA bulk store sends it out (stores
+// of 8 B a thread from registers, 8 rows an instruction, were slower:
+// tools/tile_mma_variants.py, `direct stores`).  Shared memory: M 64 KB,
+// the ring 3 x 32 KB, the output buffers 2 x 32 KB.
+__global__ void __launch_bounds__(kPipeThreads, 1)
+    probe_tile_mma_tf32_kernel(const float* __restrict__ x,
+                               const float* __restrict__ m,
+                               float* __restrict__ out, int64_t rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* bs = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + kTf32MBytes;
+  float* obufs = reinterpret_cast<float*>(ring + kTf32Stages * kTf32StageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(obufs + 2 * 64 * 128);
+  uint64_t* empty = full + kTf32Stages;
+  init_ring<kTf32Stages>(full, empty);
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  if (warp == kProducerWarp) {
+    if (lane == 0)
+      produce<kTf32Stages>(reinterpret_cast<const unsigned char*>(x), ring,
+                           kTf32StageBytes, 0, full, empty, rows,
+                           kTf32TileRows, 512);
+    return;
+  }
+  // M, rounded once, into the core-matrix layout (rows in tf32_hw_k's
+  // order); made visible to the tensor cores' (async proxy) reads
+  load_m(m, [&](int e, float v) {
+    const int n = e & 127, kp = tf32_hw_k(e >> 7);
+    bs[(n >> 3) * 1024 + (kp >> 2) * 32 + (n & 7) * 4 + (kp & 3)] =
+        __uint_as_float(tf32_bits(v));
+  });
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync();
+  const int group = warp >> 2;
+  const int w = warp & 3;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int64_t warps = int64_t(gridDim.x) * (blockDim.x >> 5);
-  for (int64_t sl = int64_t(blockIdx.x) * (blockDim.x >> 5) +
-                    (threadIdx.x >> 5);
-       sl < slabs; sl += warps) {
-    const double* xs = x + (sl << 10);
-    double c[16][2];
+  const bool leader = (threadIdx.x & 127) == 0;  // issues the group's stores
+  float* obuf = obufs + group * 64 * 128;
+  const int64_t n_tiles = (rows + kTf32TileRows - 1) / kTf32TileRows;
+  int64_t i = group;
+  for (int64_t tile = blockIdx.x + int64_t(group) * gridDim.x; tile < n_tiles;
+       tile += 2 * int64_t(gridDim.x), i += 2) {
+    const int s = consume_wait<kTf32Stages>(full, empty, i);
+    const float* xs = reinterpret_cast<const float*>(
+        ring + s * kTf32StageBytes) + ((16 * w + g) << 7) + 4 * t;
+    uint32_t a[16][4];
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) c[nt][0] = c[nt][1] = 0.0;
-    for (int ks = 0; ks < 32; ++ks) {
-      const int k0 = ks << 2;
-      const double a = xs[(g << 7) + k0 + t];
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt)
-        mma_f64(c[nt], a, __ldg(m + ((k0 + t) << 7) + (nt << 3) + g));
+    for (int q = 0; q < 8; ++q) {
+      const float4 lo = *reinterpret_cast<const float4*>(xs + 16 * q);
+      const float4 hi = *reinterpret_cast<const float4*>(xs + 1024 + 16 * q);
+      a[2 * q][0] = tf32_bits(lo.x);
+      a[2 * q][1] = tf32_bits(hi.x);
+      a[2 * q][2] = tf32_bits(lo.y);
+      a[2 * q][3] = tf32_bits(hi.y);
+      a[2 * q + 1][0] = tf32_bits(lo.z);
+      a[2 * q + 1][1] = tf32_bits(hi.z);
+      a[2 * q + 1][2] = tf32_bits(lo.w);
+      a[2 * q + 1][3] = tf32_bits(hi.w);
     }
-    double* os = out + (sl << 10);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    float d[64];
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      os[(g << 7) + (nt << 3) + 2 * t] = c[nt][0];
-      os[(g << 7) + (nt << 3) + 2 * t + 1] = c[nt][1];
+    for (int q = 0; q < 64; ++q) d[q] = 0.f;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) wgmma_tf32(d, a[ks], tf32_b_desc(bs, ks));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    // the tile goes out through the group's output buffer, one bulk store
+    // of its valid rows, once the previous store has read the buffer
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    group_sync(group);
+    float* o = obuf + ((16 * w + g) << 7) + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(d[4 * j], d[4 * j + 1]);
+      *reinterpret_cast<float2*>(o + 1024 + 8 * j) =
+          make_float2(d[4 * j + 2], d[4 * j + 3]);
     }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    group_sync(group);
+    if (leader) {
+      const int64_t r0 = tile * kTf32TileRows;
+      const int n = int(rows - r0 < kTf32TileRows ? rows - r0 : kTf32TileRows);
+      bulk_store(out + (r0 << 7), obuf, uint32_t(n * 512));
+    }
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// ---- FP64: mma.sync m16n8k16 (or Ampere's m8n8k4), both from shared memory
+
+constexpr int kF64TileRows = 32;
+constexpr int kF64Stages = 3;
+constexpr int kF64Stride = 130;  // doubles a row of a stage: 1040 B
+constexpr int kF64MBytes = 128 * 128 * 8;
+constexpr int kF64StageBytes = kF64TileRows * kF64Stride * 8;
+constexpr int kF64Smem =
+    kF64MBytes + kF64Stages * kF64StageBytes + 2 * kF64Stages * 8;
+
+// D (16 x 8) += A (16 x 16) B (16 x 8), f64.  Fragments: a[2j] (g, 4j+t),
+// a[2j+1] (g+8, 4j+t); b[j] (4j+t, g); d0 (g, 2t), d1 (g, 2t+1), d2 (g+8,
+// 2t), d3 (g+8, 2t+1).
+__device__ __forceinline__ void mma_f64_k16(double (&d)[4],
+                                            const double (&a)[8],
+                                            const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// out = x M in f64 for an (R, 128) plane (R a multiple of 8).  A consumer
+// group takes a 32-row tile, each warp a 32 x 32 block of it (2 x 4 tiles
+// of 16 x 8, 32 doubles of accumulator a thread).  The k order: hardware
+// index 4j + t of step ks (K = 16) reads column 16 ks + 4t + j, so a
+// thread's A values of a row are two double2 loads; M is stored in
+// fragment order, b[0..3] of (ks, n-tile) as two double2 a lane, 512 B a
+// warp per load.  Stage rows are 1040 B apart (one bulk copy a row): the
+// 8 rows of an A load then fall on distinct banks.  K = 4 runs the same
+// loads through m8n8k4 (a (g, t), b (t, g), d (g, 2t), (g, 2t+1)), four
+// steps for each of m16n8k16.  A group holds its stage until its MMAs have
+// read it.  Shared memory: M 128 KB and 3 stages of 32.5 KB, 225.5 KB of
+// the 227 a block may have, so the results go out from registers, 16 B a
+// thread (two adjacent doubles).
+template <int K>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+    probe_tile_mma_f64_kernel(const double* __restrict__ x,
+                              const double* __restrict__ m,
+                              double* __restrict__ out, int64_t rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  double2* bs = reinterpret_cast<double2*>(smem);
+  unsigned char* ring = smem + kF64MBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + kF64Stages * kF64StageBytes);
+  uint64_t* empty = full + kF64Stages;
+  init_ring<kF64Stages>(full, empty);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp == kProducerWarp) {
+    if (lane == 0)
+      produce<kF64Stages>(reinterpret_cast<const unsigned char*>(x), ring,
+                          kF64StageBytes, kF64Stride * 8, full, empty, rows,
+                          kF64TileRows, 1024);
+    return;
+  }
+  // M[k][n] is b[k % 4] of lane 4 (n % 8) + (k % 16) / 4 in (k / 16, n / 8)
+  load_m(m, [&](int e, double v) {
+    const int k = e >> 7, n = e & 127;
+    const int lb = ((n & 7) << 2) + ((k & 15) >> 2);
+    const int j = k & 3;
+    reinterpret_cast<double*>(
+        bs + ((((k >> 4) << 4) + (n >> 3)) * 2 + (j >> 1)) * 32 + lb)[j & 1] =
+        v;
+  });
+  consumers_sync();
+  const int group = warp >> 2;
+  const int wn = (warp & 3) * 4;  // the warp's first n-tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int64_t n_tiles = (rows + kF64TileRows - 1) / kF64TileRows;
+  int64_t i = group;
+  for (int64_t tile = blockIdx.x + int64_t(group) * gridDim.x; tile < n_tiles;
+       tile += 2 * int64_t(gridDim.x), i += 2) {
+    const int s = consume_wait<kF64Stages>(full, empty, i);
+    const double* xs = reinterpret_cast<const double*>(
+        ring + s * kF64StageBytes) + g * kF64Stride + 4 * t;
+    double acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][nt][q] = 0.0;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      double av[4][4];  // rows g + 8 r, columns 16 ks + 4t + j
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const double2 v0 = *reinterpret_cast<const double2*>(
+            xs + 8 * r * kF64Stride + 16 * ks);
+        const double2 v1 = *reinterpret_cast<const double2*>(
+            xs + 8 * r * kF64Stride + 16 * ks + 2);
+        av[r][0] = v0.x;
+        av[r][1] = v0.y;
+        av[r][2] = v1.x;
+        av[r][3] = v1.y;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const double2* bp = bs + ((ks << 4) + wn + nt) * 64 + lane;
+        const double2 b01 = bp[0];
+        const double2 b23 = bp[32];
+        const double b[4] = {b01.x, b01.y, b23.x, b23.y};
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if constexpr (K == 16) {
+            const double a[8] = {av[2 * mi][0], av[2 * mi + 1][0],
+                                 av[2 * mi][1], av[2 * mi + 1][1],
+                                 av[2 * mi][2], av[2 * mi + 1][2],
+                                 av[2 * mi][3], av[2 * mi + 1][3]};
+            mma_f64_k16(acc[mi][nt], a, b);
+          } else {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              double c[2] = {acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]};
+#pragma unroll
+              for (int j = 0; j < 4; ++j) mma_f64(c, av[2 * mi + h][j], b[j]);
+              acc[mi][nt][2 * h] = c[0];
+              acc[mi][nt][2 * h + 1] = c[1];
+            }
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    const int64_t r0 = tile * kF64TileRows + g;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t r = r0 + 16 * mi + 8 * h;
+        if (r < rows) {  // R is a multiple of 8: 8-row blocks in or out
+          double* o = out + (r << 7) + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            *reinterpret_cast<double2*>(o + 8 * (wn + nt)) = make_double2(
+                acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
+        }
+      }
   }
 }
 
@@ -937,25 +1357,50 @@ int probe_tile_mma_f32(const void* x, const void* m, void* out, int mode,
                        int64_t rows, void* stream) {
   if (rows < 16 || rows % 16 != 0 || mode < 0 || mode > 1)
     return int(cudaErrorInvalidValue);
-  const int64_t slabs = rows / 16;
-  const int blocks = grid_for(slabs, kMmaThreads / 32);
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == 0)
-    probe_tile_mma_kernel<0><<<blocks, kMmaThreads, 0, st>>>(
+  if (mode == 1) {
+    const int64_t slabs = rows / 16;
+    probe_tile_mma_3xtf32_kernel<<<grid_for(slabs, kMmaThreads / 32),
+                                   kMmaThreads, 0, st>>>(
         (const float*)x, (const float*)m, (float*)out, slabs);
-  else
-    probe_tile_mma_kernel<1><<<blocks, kMmaThreads, 0, st>>>(
-        (const float*)x, (const float*)m, (float*)out, slabs);
+    return int(cudaGetLastError());
+  }
+  if ((reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)  // bulk copies' rule
+    return int(cudaErrorInvalidValue);
+  static int granted = 0;
+  const cudaError_t rc =
+      allow_smem(probe_tile_mma_tf32_kernel, kTf32Smem, granted);
+  if (rc != cudaSuccess) return int(rc);
+  const int64_t tiles = (rows + kTf32TileRows - 1) / kTf32TileRows;
+  const int blocks = int(tiles < sm_count() ? tiles : sm_count());
+  probe_tile_mma_tf32_kernel<<<blocks, kPipeThreads, kTf32Smem, st>>>(
+      (const float*)x, (const float*)m, (float*)out, rows);
   return int(cudaGetLastError());
 }
 
+// k = 16: mma.sync m16n8k16 (the kernel's); k = 4: m8n8k4 (Ampere's shape,
+// for comparison).
 int probe_tile_mma_f64(const void* x, const void* m, void* out, int64_t rows,
-                       void* stream) {
-  if (rows < 8 || rows % 8 != 0) return int(cudaErrorInvalidValue);
-  const int64_t slabs = rows / 8;
-  probe_tile_mma_f64_kernel<<<grid_for(slabs, kMmaThreads / 32), kMmaThreads,
-                              0, (cudaStream_t)stream>>>(
-      (const double*)x, (const double*)m, (double*)out, slabs);
+                       int k, void* stream) {
+  if (rows < 8 || rows % 8 != 0 || (k != 16 && k != 4) ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+    return int(cudaErrorInvalidValue);
+  static int granted16 = 0, granted4 = 0;
+  const cudaError_t rc =
+      k == 16 ? allow_smem(probe_tile_mma_f64_kernel<16>, kF64Smem, granted16)
+              : allow_smem(probe_tile_mma_f64_kernel<4>, kF64Smem, granted4);
+  if (rc != cudaSuccess) return int(rc);
+  const int64_t tiles = (rows + kF64TileRows - 1) / kF64TileRows;
+  const int blocks = int(tiles < sm_count() ? tiles : sm_count());
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k == 16)
+    probe_tile_mma_f64_kernel<16><<<blocks, kPipeThreads, kF64Smem, st>>>(
+        (const double*)x, (const double*)m, (double*)out, rows);
+  else
+    probe_tile_mma_f64_kernel<4><<<blocks, kPipeThreads, kF64Smem, st>>>(
+        (const double*)x, (const double*)m, (double*)out, rows);
   return int(cudaGetLastError());
 }
 

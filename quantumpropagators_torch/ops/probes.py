@@ -62,6 +62,12 @@ MAP_KINDS = {"self": 0, "stride": 1, "xor": 2}
 STREAM_OPS = {"sum": 0, "triad": 1, "chain": 2}
 FLIP_VARIANTS = {"gather": 0, "tile": 1, "shfl": 2, "mma": 3}
 MMA_MODES = {"tf32": 0, "3xtf32": 1, "f64": None}
+# the tensor-core instruction each mode's kernel runs
+MMA_INSTRUCTIONS = {
+    "tf32": "wgmma.mma_async.m64n128k8.f32.tf32.tf32",
+    "3xtf32": "mma.sync.m16n8k8.f32.tf32.tf32",
+    "f64": "mma.sync.m16n8k16.f64",
+}
 ORDER_BODIES = {"full": 0, "copy": 1, "noflips": 2}
 FMA_VARIANTS = {"inline": 0, "separate": 1, "loaded": 2}
 ORDER_NBS = {"xor": 0, "self": 1, "none": 2}
@@ -401,15 +407,27 @@ def probe_tile_mma_plain(x, M, mode="tf32"):
 def probe_tile_mma(x, M, mode="tf32"):
     """``x @ M`` for an ``(R, 128)`` plane and a ``(128, 128)`` matrix on
     the tensor cores: ``tf32`` (float32 operands rounded to TF32, one
-    ``mma.sync.m16n8k8`` pass), ``3xtf32`` (each operand split hi + lo:
-    lo·Mhi + hi·Mlo + hi·Mhi) or ``f64`` (float64, ``m8n8k4``)."""
+    ``wgmma`` pass), ``3xtf32`` (each operand split hi + lo: lo·Mhi +
+    hi·Mlo + hi·Mhi, ``mma.sync.m16n8k8``) or ``f64`` (float64,
+    ``mma.sync.m16n8k16``); :data:`MMA_INSTRUCTIONS` names each.
+
+    The TF32 and FP64 kernels replace the Pallas bodies of
+    ``scratch_roofline.py:59``, ``scratch_flips.py:132`` and
+    ``scratch_r3_probe4.py:50``.  At (2^19, 128) f32 and (2^18, 128) f64
+    they are bound by bytes (x read and out written once: 0.1603 ms at
+    3.35 TB/s), with the FP64 operations close behind (2^33 at 67
+    TFLOP/s, 0.128 ms).  So each persistent block (one an SM) reads M
+    once into shared memory, in the layout its MMA reads, and streams x
+    through a ring of three stages of TMA bulk copies, so that the loads
+    run under the MMAs and the stores; ``csrc/probes.cu`` gives the
+    layouts."""
     if _device_of(x) == "cpu":
         return probe_tile_mma_plain(x, M, mode)
     _check_mma(x, M, mode)
     out = torch.empty_like(x)
-    if mode == "f64":
+    if mode == "f64":  # k = 16: m16n8k16 (4 would run Ampere's m8n8k4)
         _cuda.launch("probe_tile_mma_f64", (x.data_ptr(), M.data_ptr(),
-                                            out.data_ptr(), x.shape[0]),
+                                            out.data_ptr(), x.shape[0], 16),
                      x.device)
     else:
         _cuda.launch("probe_tile_mma_f32", (x.data_ptr(), M.data_ptr(),

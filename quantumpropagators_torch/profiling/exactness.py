@@ -58,6 +58,16 @@ def permutation(bit: int = 0) -> np.ndarray:
     return P
 
 
+def tf32_ties(shape, seed: int = 0) -> np.ndarray:
+    """Standard normal float32 values moved onto a TF32 rounding tie: low
+    13 bits ``0x1000``, halfway between two TF32 values, where rounding
+    to nearest with ties away (``cvt.rna``, the plain version's
+    ``tf32_round``) and truncation (what the tensor cores do to an
+    operand left unrounded) differ."""
+    v = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return ((v.view(np.int32) & ~0x1FFF) | 0x1000).view(np.float32)
+
+
 def grid_values(v: np.ndarray, k: int) -> np.ndarray:
     """``v`` (float32, |v| ≤ 1) rounded to multiples of ``2^-k`` by
     ``(v + c) − c`` in float32, ``c = 1.5·2^23·2^-k``, as

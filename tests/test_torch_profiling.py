@@ -403,6 +403,31 @@ def test_tf32_round_is_nearest_ties_away():
     assert probes.tf32_round(x).tolist() == want
 
 
+def test_tf32_ties_sit_halfway_between_tf32_values():
+    """The tie inputs of the tile-product checks: rounding to nearest with
+    ties away moves every one up in magnitude, truncation down."""
+    ties = exactness.tf32_ties((16, LANE), seed=4)
+    bits = ties.view(np.int32)
+    assert np.all((bits & 0x1FFF) == 0x1000)
+    up = probes.tf32_round(_T(ties)).numpy().view(np.int32)
+    assert np.all(up == (bits & ~0x1FFF) + 0x2000)
+    P = _T(exactness.permutation(3))
+    got = probes.probe_tile_mma_plain(_T(ties), P, "tf32")
+    assert torch.equal(got, probes.tf32_round(_T(ties)) @ P)
+
+
+def test_tile_mma_modes_name_their_instruction():
+    """Each mode names the tensor-core instruction its kernel runs
+    (``chip_smoke.py`` phase 16b prints it); on CPU tensors each mode is
+    its plain version and launches nothing."""
+    assert set(probes.MMA_INSTRUCTIONS) == set(probes.MMA_MODES)
+    probes.reset_launches()
+    x = _T(planes_np(1, rows=24)[0]).double()
+    M = _T(planes_np(1, rows=LANE, seed=3)[0]).double()
+    assert torch.equal(probes.probe_tile_mma(x, M, "f64"), x @ M)
+    assert not any(probes.LAUNCHES.values())
+
+
 def test_wrappers_on_cpu_run_the_plain_versions():
     probes.reset_launches()
     xs = [_T(x).reshape(-1) for x in planes_np(3, rows=32)]

@@ -131,6 +131,91 @@ def test_tile_mma_random_matches_plain(cuda, mode):
                   1e-14 if mode == "f64" else 2e-6)
 
 
+# row counts that are not multiples of the kernels' tiles (64 rows TF32,
+# 32 rows FP64), and the timed sizes of chip_smoke.py phase 16b
+_RAGGED_ROWS = {"tf32": (16, 48, 80, 1040), "f64": (8, 24, 72, 1032)}
+_TIMED_ROWS = {"tf32": 1 << 19, "f64": 1 << 18}
+_MMA_TOL = {"tf32": 2e-6, "f64": 1e-14}
+
+
+def _mma_operands(mode, rows, cuda, seed=0):
+    dtype = torch.float64 if mode == "f64" else torch.float32
+    x, m = _planes(rows * 128, 2, cuda, seed)
+    return x.view(rows, 128).to(dtype), \
+        _planes(128 * 128, 1, cuda, seed + 1)[0].view(128, 128).to(dtype)
+
+
+@pytest.mark.parametrize("mode, rows", [(m, r) for m, rs in
+                                        _RAGGED_ROWS.items() for r in rs])
+def test_tile_mma_ragged_rows_match_plain(cuda, mode, rows):
+    x, M = _mma_operands(mode, rows, cuda)
+    before = probes.LAUNCHES[f"probe_tile_mma<{mode}>"]
+    _assert_close(probes.probe_tile_mma(x, M, mode),
+                  probes.probe_tile_mma_plain(x, M, mode), _MMA_TOL[mode])
+    assert probes.LAUNCHES[f"probe_tile_mma<{mode}>"] == before + 1
+
+
+@pytest.mark.parametrize("mode", ["tf32", "f64"])
+def test_tile_mma_ties_bit_for_bit(cuda, mode):
+    """Operands on a TF32 rounding tie, through each flip permutation: a
+    kernel that truncated in place of rounding (ties away) would differ."""
+    dtype = torch.float64 if mode == "f64" else torch.float32
+    ties = exactness.tf32_ties((80, 128), seed=4)
+    x = torch.from_numpy(ties).to(cuda, dtype)
+    truncated = torch.from_numpy(ties.view(np.int32) & ~0x1FFF).view(
+        torch.float32)
+    assert not torch.equal(probes.tf32_round(torch.from_numpy(ties)),
+                           truncated)
+    for bit in range(7):
+        P = torch.from_numpy(exactness.permutation(bit)).to(cuda, dtype)
+        _assert_close(probes.probe_tile_mma(x, P, mode),
+                      probes.probe_tile_mma_plain(x, P, mode), 0)
+
+
+@pytest.mark.parametrize("mode", ["tf32", "f64"])
+def test_tile_mma_timed_size_matches_plain(cuda, mode):
+    x, M = _mma_operands(mode, _TIMED_ROWS[mode], cuda)
+    _assert_close(probes.probe_tile_mma(x, M, mode),
+                  probes.probe_tile_mma_plain(x, M, mode), _MMA_TOL[mode])
+
+
+@pytest.mark.parametrize("mode", ["tf32", "f64"])
+def test_tile_mma_repeated_launches_agree(cuda, mode):
+    """The ring's barriers: 50 launches at the timed size, each output
+    equal bit for bit to the first."""
+    x, M = _mma_operands(mode, _TIMED_ROWS[mode], cuda)
+    first = probes.probe_tile_mma(x, M, mode)
+    for _ in range(50):
+        assert torch.equal(probes.probe_tile_mma(x, M, mode), first)
+
+
+@pytest.mark.parametrize("mode", ["tf32", "f64"])
+def test_tile_mma_records_into_a_cuda_graph(cuda, mode):
+    x, M = _mma_operands(mode, 1040 if mode == "tf32" else 1032, cuda)
+    want = probes.probe_tile_mma(x, M, mode)
+    assert time_ms(lambda: probes.probe_tile_mma(x, M, mode), 3) > 0
+    out = {}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out["got"] = probes.probe_tile_mma(x, M, mode)
+    graph.replay()
+    torch.cuda.synchronize()
+    _assert_close(out["got"], want, 0)
+
+
+@pytest.mark.parametrize("mode", ["tf32", "f64"])
+def test_tile_mma_refuses_a_misaligned_plane(cuda, mode):
+    """The ring's bulk copies need 16-byte aligned rows: a plane that
+    starts one element into its storage raises, and launches nothing."""
+    dtype = torch.float64 if mode == "f64" else torch.float32
+    x = torch.zeros(64 * 128 + 1, device=cuda, dtype=dtype)[1:].view(64, 128)
+    M = torch.eye(128, device=cuda, dtype=dtype)
+    before = probes.LAUNCHES[f"probe_tile_mma<{mode}>"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        probes.probe_tile_mma(x, M, mode)
+    assert probes.LAUNCHES[f"probe_tile_mma<{mode}>"] == before
+
+
 def test_smem_limit(cuda):
     (x,) = _planes(4096, 1, cuda)
     for kb in (16, 48, 100, 227):
