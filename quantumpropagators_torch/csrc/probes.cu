@@ -34,8 +34,7 @@
 //   probe_tile_mma          an (R, 128) plane times a (128, 128) matrix:
 //                           TF32 by wgmma m64n128k8 (A from registers, B
 //                           from shared memory); FP64 by mma.sync
-//                           m16n8k16 (or m8n8k4, Ampere's, for
-//                           comparison); 3xTF32 (hi*hi + hi*lo + lo*hi) by
+//                           m16n8k16; 3xTF32 (hi*hi + hi*lo + lo*hi) by
 //                           mma.sync m16n8k8 on 16-row slabs, M through L1.
 //     replaces scratch_roofline.py:59, scratch_flips.py:132 and
 //     scratch_r3_probe4.py:50.  Bound: bytes at the timed sizes ((2^19,
@@ -331,16 +330,6 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// D += A B for one 8x8 tile: A 8x4 (row), B 4x8 (col), all f64.
-// Fragments: a0 (g, t); b0 (t, g); c0 (g, 2t), c1 (g, 2t+1).
-__device__ __forceinline__ void mma_f64(double (&c)[2], double a, double b) {
-  asm volatile(
-      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
-      "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
-      : "+d"(c[0]), "+d"(c[1])
-      : "d"(a), "d"(b));
-}
-
 // A01[k][n] = 1 where k and n differ in exactly one of bits 0-6.
 __device__ __forceinline__ uint32_t adjacency(int k, int n) {
   const int d = k ^ n;
@@ -627,7 +616,7 @@ __device__ __forceinline__ void produce(const unsigned char* x,
 // M (128 x 128, row-major) into shared memory by the 256 consumer threads:
 // `put(e, v)` stores element e.  kMBatch loads a thread are in flight
 // before the first store (one at a time, the 64 round trips to L2 held the
-// first tile back: tools/tile_mma_variants.py, `M one load at a time`).
+// first tile back).
 constexpr int kMBatch = 32;
 template <typename T, typename Put>
 __device__ __forceinline__ void load_m(const T* __restrict__ m, Put put) {
@@ -717,8 +706,8 @@ __device__ __forceinline__ uint64_t tf32_b_desc(const float* b, int ks) {
 // A fragments (16 float4 loads a thread, 64 registers), frees the stage,
 // runs 16 wgmma steps on them and M, and writes the tile into its own
 // 32 KB output buffer, from which one TMA bulk store sends it out (stores
-// of 8 B a thread from registers, 8 rows an instruction, were slower:
-// tools/tile_mma_variants.py, `direct stores`).  Shared memory: M 64 KB,
+// of 8 B a thread from registers, 8 rows an instruction, were slower).
+// Shared memory: M 64 KB,
 // the ring 3 x 32 KB, the output buffers 2 x 32 KB.
 __global__ void __launch_bounds__(kPipeThreads, 1)
     probe_tile_mma_tf32_kernel(const float* __restrict__ x,
@@ -809,7 +798,7 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// ---- FP64: mma.sync m16n8k16 (or Ampere's m8n8k4), both from shared memory
+// ---- FP64: mma.sync m16n8k16, both operands from shared memory
 
 constexpr int kF64TileRows = 32;
 constexpr int kF64Stages = 3;
@@ -841,13 +830,10 @@ __device__ __forceinline__ void mma_f64_k16(double (&d)[4],
 // thread's A values of a row are two double2 loads; M is stored in
 // fragment order, b[0..3] of (ks, n-tile) as two double2 a lane, 512 B a
 // warp per load.  Stage rows are 1040 B apart (one bulk copy a row): the
-// 8 rows of an A load then fall on distinct banks.  K = 4 runs the same
-// loads through m8n8k4 (a (g, t), b (t, g), d (g, 2t), (g, 2t+1)), four
-// steps for each of m16n8k16.  A group holds its stage until its MMAs have
-// read it.  Shared memory: M 128 KB and 3 stages of 32.5 KB, 225.5 KB of
+// 8 rows of an A load then fall on distinct banks.  A group holds its
+// stage until its MMAs have read it.  Shared memory: M 128 KB and 3 stages of 32.5 KB, 225.5 KB of
 // the 227 a block may have, so the results go out from registers, 16 B a
 // thread (two adjacent doubles).
-template <int K>
 __global__ void __launch_bounds__(kPipeThreads, 1)
     probe_tile_mma_f64_kernel(const double* __restrict__ x,
                               const double* __restrict__ m,
@@ -918,22 +904,11 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
         const double b[4] = {b01.x, b01.y, b23.x, b23.y};
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
-          if constexpr (K == 16) {
-            const double a[8] = {av[2 * mi][0], av[2 * mi + 1][0],
-                                 av[2 * mi][1], av[2 * mi + 1][1],
-                                 av[2 * mi][2], av[2 * mi + 1][2],
-                                 av[2 * mi][3], av[2 * mi + 1][3]};
-            mma_f64_k16(acc[mi][nt], a, b);
-          } else {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              double c[2] = {acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]};
-#pragma unroll
-              for (int j = 0; j < 4; ++j) mma_f64(c, av[2 * mi + h][j], b[j]);
-              acc[mi][nt][2 * h] = c[0];
-              acc[mi][nt][2 * h + 1] = c[1];
-            }
-          }
+          const double a[8] = {av[2 * mi][0], av[2 * mi + 1][0],
+                               av[2 * mi][1], av[2 * mi + 1][1],
+                               av[2 * mi][2], av[2 * mi + 1][2],
+                               av[2 * mi][3], av[2 * mi + 1][3]};
+          mma_f64_k16(acc[mi][nt], a, b);
         }
       }
     }
@@ -1379,28 +1354,21 @@ int probe_tile_mma_f32(const void* x, const void* m, void* out, int mode,
   return int(cudaGetLastError());
 }
 
-// k = 16: mma.sync m16n8k16 (the kernel's); k = 4: m8n8k4 (Ampere's shape,
-// for comparison).
 int probe_tile_mma_f64(const void* x, const void* m, void* out, int64_t rows,
-                       int k, void* stream) {
-  if (rows < 8 || rows % 8 != 0 || (k != 16 && k != 4) ||
+                       void* stream) {
+  if (rows < 8 || rows % 8 != 0 ||
       (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)  // bulk copies' rule
     return int(cudaErrorInvalidValue);
-  static int granted16 = 0, granted4 = 0;
+  static int granted = 0;
   const cudaError_t rc =
-      k == 16 ? allow_smem(probe_tile_mma_f64_kernel<16>, kF64Smem, granted16)
-              : allow_smem(probe_tile_mma_f64_kernel<4>, kF64Smem, granted4);
+      allow_smem(probe_tile_mma_f64_kernel, kF64Smem, granted);
   if (rc != cudaSuccess) return int(rc);
   const int64_t tiles = (rows + kF64TileRows - 1) / kF64TileRows;
   const int blocks = int(tiles < sm_count() ? tiles : sm_count());
-  cudaStream_t st = (cudaStream_t)stream;
-  if (k == 16)
-    probe_tile_mma_f64_kernel<16><<<blocks, kPipeThreads, kF64Smem, st>>>(
-        (const double*)x, (const double*)m, (double*)out, rows);
-  else
-    probe_tile_mma_f64_kernel<4><<<blocks, kPipeThreads, kF64Smem, st>>>(
-        (const double*)x, (const double*)m, (double*)out, rows);
+  probe_tile_mma_f64_kernel<<<blocks, kPipeThreads, kF64Smem,
+                              (cudaStream_t)stream>>>(
+      (const double*)x, (const double*)m, (double*)out, rows);
   return int(cudaGetLastError());
 }
 

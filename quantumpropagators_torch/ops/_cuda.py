@@ -59,8 +59,8 @@ _SIGNATURES = {
     "probe_flipsum": [_P, _P, _I, _L, _I, _I, _I, _P],
     # x, m, out, mode, rows, stream
     "probe_tile_mma_f32": [_P] * 3 + [_I, _L, _P],
-    # x, m, out, rows, k (instruction depth), stream
-    "probe_tile_mma_f64": [_P] * 3 + [_L, _I, _P],
+    # x, m, out, rows, stream
+    "probe_tile_mma_f64": [_P] * 3 + [_L, _P],
     # x, out, n, bytes, stream
     "probe_smem": [_P, _P, _I, _I, _P],
     # v0, out, v1, phi, dmb, G, w, body, nb, L, n, tile_bits, bits, s2, ak,

@@ -424,10 +424,13 @@ def probe_tile_mma(x, M, mode="tf32"):
     if _device_of(x) == "cpu":
         return probe_tile_mma_plain(x, M, mode)
     _check_mma(x, M, mode)
+    if mode != "3xtf32" and x.data_ptr() % 16:
+        raise ValueError(f"{mode} streams x through TMA bulk copies, which "
+                         f"need a plane that starts 16-byte aligned")
     out = torch.empty_like(x)
-    if mode == "f64":  # k = 16: m16n8k16 (4 would run Ampere's m8n8k4)
+    if mode == "f64":
         _cuda.launch("probe_tile_mma_f64", (x.data_ptr(), M.data_ptr(),
-                                            out.data_ptr(), x.shape[0], 16),
+                                            out.data_ptr(), x.shape[0]),
                      x.device)
     else:
         _cuda.launch("probe_tile_mma_f32", (x.data_ptr(), M.data_ptr(),

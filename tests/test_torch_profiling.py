@@ -428,6 +428,20 @@ def test_tile_mma_modes_name_their_instruction():
     assert not any(probes.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("mode", ["tf32", "f64"])
+def test_tile_mma_on_cpu_takes_an_offset_plane(mode):
+    """Only the card's bulk copies need a 16-byte aligned plane: on the
+    CPU a contiguous view one element into its storage is the plain
+    product."""
+    dtype = torch.float64 if mode == "f64" else torch.float32
+    flat = _T(planes_np(1, rows=33)[0]).reshape(-1)[:16 * LANE + 1].to(dtype)
+    x = flat[1:].view(16, LANE)
+    M = _T(exactness.permutation(2)).to(dtype)
+    assert x.data_ptr() % 16
+    assert torch.equal(probes.probe_tile_mma(x, M, mode),
+                       probes.probe_tile_mma_plain(x.clone(), M, mode))
+
+
 def test_wrappers_on_cpu_run_the_plain_versions():
     probes.reset_launches()
     xs = [_T(x).reshape(-1) for x in planes_np(3, rows=32)]

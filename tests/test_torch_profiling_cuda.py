@@ -140,7 +140,7 @@ _MMA_TOL = {"tf32": 2e-6, "f64": 1e-14}
 
 def _mma_operands(mode, rows, cuda, seed=0):
     dtype = torch.float64 if mode == "f64" else torch.float32
-    x, m = _planes(rows * 128, 2, cuda, seed)
+    (x,) = _planes(rows * 128, 1, cuda, seed)
     return x.view(rows, 128).to(dtype), \
         _planes(128 * 128, 1, cuda, seed + 1)[0].view(128, 128).to(dtype)
 
@@ -206,12 +206,13 @@ def test_tile_mma_records_into_a_cuda_graph(cuda, mode):
 @pytest.mark.parametrize("mode", ["tf32", "f64"])
 def test_tile_mma_refuses_a_misaligned_plane(cuda, mode):
     """The ring's bulk copies need 16-byte aligned rows: a plane that
-    starts one element into its storage raises, and launches nothing."""
+    starts one element into its storage raises, naming the rule, and
+    launches nothing."""
     dtype = torch.float64 if mode == "f64" else torch.float32
     x = torch.zeros(64 * 128 + 1, device=cuda, dtype=dtype)[1:].view(64, 128)
     M = torch.eye(128, device=cuda, dtype=dtype)
     before = probes.LAUNCHES[f"probe_tile_mma<{mode}>"]
-    with pytest.raises(RuntimeError, match="CUDA error"):
+    with pytest.raises(ValueError, match="16-byte aligned"):
         probes.probe_tile_mma(x, M, mode)
     assert probes.LAUNCHES[f"probe_tile_mma<{mode}>"] == before
 

@@ -6,25 +6,20 @@ of themselves on one NVIDIA GPU.
 Each variant is a copy of ``probes.cu`` with one change made by text
 substitution, built with the package's ``nvcc`` flags into
 ``quantumpropagators_torch/_build/tile_mma_variants/``: ``as built``,
-``128 blocks``
-(a grid of 128 persistent blocks, which divides the 8192 tiles, in place
-of one a streaming multiprocessor), ``M one load at a time`` (each
-consumer thread reading its share of M with one load in flight, in
-place of 32), ``no MMA`` (the
-tensor-core instructions taken out: the ring, the fragment loads and the
-stores alone), ``direct stores`` (the TF32 tile stored from registers,
-8 B a thread, in place of the output buffer and its bulk store), ``no
-stores`` (the results never written to device memory).  Each runs the
-TF32 product on a (2^19, 128) f32 plane and the FP64 product on a
-(2^18, 128) f64 plane, as ``chip_smoke.py`` phase 16b does, the FP64
-one with both instruction shapes; times are ``profiling.time_ms`` (a
+``m8n8k4`` (the FP64 kernel on Ampere's ``mma.sync`` shape, four
+m8n8k4 steps for each m16n8k16), ``no MMA`` (the tensor-core
+instructions taken out: the ring, the fragment loads and the stores
+alone) and ``no stores`` (the results never written to device memory).
+Each runs the TF32 product on a (2^19, 128) f32 plane and the FP64
+product on a (2^18, 128) f64 plane, as ``chip_smoke.py`` phase 16b does
+(``m8n8k4`` only the FP64 one); times are ``profiling.time_ms`` (a
 replayed CUDA graph of ``reps`` launches), taken twice in turn (every
 variant, then every variant again).  A variant that computes the
 product is held against the plain version first (2e-6 and 1e-14 of the
 largest value), and ``as built`` is launched ``repeat`` more times on
 the same inputs, each output equal bit for bit to the first (a race in
-the ring would show).  ``Tensor.copy_`` of the plane and ``torch.matmul`` are
-timed beside them as yardsticks.
+the ring would show).  ``Tensor.copy_`` of the plane and ``torch.matmul``
+are timed beside them as yardsticks.
 """
 
 from __future__ import annotations
@@ -39,48 +34,32 @@ import torch
 
 HERE = Path(__file__).resolve().parents[1]
 
-# the TF32 kernel's store through its output buffer (the lines from the
-# first marker up to the second), and the stores from registers it replaced
-TF32_STAGED_STORE = ("    // the tile goes out through the group's output buffer",
-                     "  if (leader) asm volatile(\"cp.async.bulk.wait_group 0;")
-TF32_DIRECT_STORE = """    const int64_t r = tile * kTf32TileRows + 16 * w + g;
-    if (r < rows) {
-      float* o = out + (r << 7) + 2 * t;
+F64_MMA = "          mma_f64_k16(acc[mi][nt], a, b);"
+# the same products as m8n8k4 steps: a (g, t), b (t, g), d (g, 2t), (g, 2t+1)
+F64_M8N8K4 = r"""#pragma unroll
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        *reinterpret_cast<float2*>(o + 8 * j) =
-            make_float2(d[4 * j], d[4 * j + 1]);
-        *reinterpret_cast<float2*>(o + 1024 + 8 * j) =
-            make_float2(d[4 * j + 2], d[4 * j + 3]);
-      }
-    }
-  }
-"""
+            for (int j = 0; j < 4; ++j)
+              asm volatile(
+                  "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+                  "{%0,%1}, {%2}, {%3}, {%0,%1};\n"
+                  : "+d"(acc[mi][nt][2 * h]), "+d"(acc[mi][nt][2 * h + 1])
+                  : "d"(av[2 * mi + h][j]), "d"(b[j]));"""
 
-# name: ([(old, new) substitutions], computes the product); an `old` that
-# is a pair of markers stands for the text from the first up to the second
+# name: ([(old, new) substitutions], computes the product, products run)
 VARIANTS = {
-    "as built": ([], True),
-    "128 blocks": ([("const int blocks = int(tiles < sm_count() ? tiles : "
-                     "sm_count());",
-                     "const int blocks = int(tiles < 128 ? tiles : 128);")],
-                   True),
-    "M one load at a time": ([("constexpr int kMBatch = 32;",
-                               "constexpr int kMBatch = 1;")], True),
+    "as built": ([], True, ("tf32", "f64")),
+    "m8n8k4": ([(F64_MMA, F64_M8N8K4)], True, ("f64",)),
     "no MMA": ([
         ("    for (int ks = 0; ks < 16; ++ks) wgmma_tf32(d, a[ks], "
          "tf32_b_desc(bs, ks));", ""),
-        ("            mma_f64_k16(acc[mi][nt], a, b);",
-         "            acc[mi][nt][0] += a[0] * b[0];"),
-        ("              for (int j = 0; j < 4; ++j) mma_f64(c, av[2 * mi + h]"
-         "[j], b[j]);", "              c[0] += av[2 * mi + h][0] * b[0];"),
-    ], False),
-    "direct stores": ([(TF32_STAGED_STORE, TF32_DIRECT_STORE)], True),
+        (F64_MMA, "          acc[mi][nt][0] += a[0] * b[0];"),
+    ], False, ("tf32", "f64")),
     "no stores": ([
         ("      bulk_store(out + (r0 << 7), obuf, uint32_t(n * 512));", ""),
         ("        if (r < rows) {  // R is a multiple of 8",
          "        if (r < 0) {  // R is a multiple of 8"),
-    ], False),
+    ], False, ("tf32", "f64")),
 }
 
 
@@ -100,14 +79,9 @@ def build_variants(out_dir):
     src = (HERE / "quantumpropagators_torch/csrc/probes.cu").read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, (subs, _)) in enumerate(VARIANTS.items()):
+    for i, (name, (subs, _, _)) in enumerate(VARIANTS.items()):
         text = src
         for old, new in subs:
-            if isinstance(old, tuple):
-                start, stop = (text.find(mark) for mark in old)
-                if start < 0 or stop < start:
-                    raise ValueError(f"{name}: {old!r} not in the source")
-                old = text[start:stop]
             if old not in text:
                 raise ValueError(f"{name}: {old!r} not in the source")
             text = text.replace(old, new)
@@ -149,10 +123,9 @@ def main(argv=None):
     x32, M32 = xs[0].view(-1, 128), xs[1][:128 * 128].view(128, 128)
     x64, M64 = x32[: n // 256].double(), M32.double()
     o32, o64 = torch.empty_like(x32), torch.empty_like(x64)
-    want32 = probes.probe_tile_mma_plain(x32, M32, "tf32")
-    want64 = probes.probe_tile_mma_plain(x64, M64, "f64")
-
-    f64_k = {"m16n8k16": 16, "m8n8k4": 4}  # the C entry's instruction depth
+    want = {"tf32": probes.probe_tile_mma_plain(x32, M32, "tf32"),
+            "f64": probes.probe_tile_mma_plain(x64, M64, "f64")}
+    outs = {"tf32": o32, "f64": o64}
 
     def launch(lib, what):
         # the current stream: a side stream while time_ms records a graph
@@ -163,28 +136,24 @@ def main(argv=None):
                                         stream)
         else:
             rc = lib.probe_tile_mma_f64(x64.data_ptr(), M64.data_ptr(),
-                                        o64.data_ptr(), x64.shape[0],
-                                        f64_k[what], stream)
+                                        o64.data_ptr(), x64.shape[0], stream)
         if rc:
             raise RuntimeError(f"{what}: launch failed ({rc})")
 
-    kinds = ("tf32", "m16n8k16", "m8n8k4")
     for name, lib in libs.items():
-        if not VARIANTS[name][1]:
-            continue
-        for what in kinds:
+        _, computes, kinds = VARIANTS[name]
+        for what in kinds if computes else ():
             launch(lib, what)
-            got, want, rel = (o32, want32, 2e-6) if what == "tf32" \
-                else (o64, want64, 1e-14)
-            err = float((got.double() - want.double()).abs().max())
-            if err > rel * float(want.double().abs().max()):
+            rel = 2e-6 if what == "tf32" else 1e-14
+            ref = want[what].double()
+            err = float((outs[what].double() - ref).abs().max())
+            if err > rel * float(ref.abs().max()):
                 raise AssertionError(f"{name} {what}: max|d| {err:.3e}")
             print(f"variant {name} {what}: held, max|d| {err:.3e}",
                   flush=True)
     # a race in the ring shows as a launch that differs from the first
     lib = libs["as built"]
-    for what in kinds:
-        out = o32 if what == "tf32" else o64
+    for what, out in outs.items():
         launch(lib, what)
         first = out.clone()
         for _ in range(args.repeat):
@@ -198,7 +167,7 @@ def main(argv=None):
     times = {}
     for _ in range(2):
         for name, lib in libs.items():
-            for what in kinds:
+            for what in VARIANTS[name][2]:
                 times.setdefault((name, what), []).append(
                     time_ms(lambda: launch(lib, what), args.reps))
     for (name, what), ms in times.items():
