@@ -2811,6 +2811,9 @@ PROBE_MAINS = (
 # rows of phase 16a's ragged tile products: not a multiple of the TF32
 # kernel's 64-row tile nor of the FP64 kernel's 32
 PROBE_RAGGED_ROWS = {"tf32": 1040, "3xtf32": 1040, "f64": 1032}
+# phase 16a's ragged stream planes: a multiple of 4 elements, not of the
+# stream kernel's chunks (256 float4s a block)
+PROBE_STREAM_RAGGED = (1 << 20) + 1028
 # name: (op, planes, chain, mul, scale, tolerance relative to max|plain|;
 # 0 = bit for bit: the kernel adds in the plain version's order)
 PROBE_STREAM_CHECKS = {
@@ -2914,7 +2917,9 @@ def probe_checks(device, big, s16):
     from quantumpropagators_torch.profiling.roofline import smem_limit
 
     errs = {}
-    for xs in (s16, big):
+    # whole chunks of the stream kernel's blocks, and a length that is not
+    ragged = [x[:PROBE_STREAM_RAGGED] for x in s16]
+    for xs in (s16, big, ragged):
         n = xs[0].numel()
         for name, (op, n_in, chain, mul, scale, rel) in \
                 PROBE_STREAM_CHECKS.items():
@@ -2922,7 +2927,7 @@ def probe_checks(device, big, s16):
             _hold(errs, f"probe_stream<{op}>",
                   probes.probe_stream(xs[:n_in], op, **kw),
                   probes.probe_stream_plain(xs[:n_in], op, **kw), rel,
-                  f"{name} 2^{n.bit_length() - 1}")
+                  f"{name} {n} elements")
     n = s16[0].numel()
     tile_bits = 17  # tiles of 1024 rows, as probe_scatter_r4.py
     for mode in scatter.MODES:
@@ -3009,7 +3014,8 @@ def probe_times(device, card, big, s16, errs):
     exactness bodies at theirs), its plain version, the one PyTorch call
     that computes the same function where there is one, and the bound.
     Each kernel's output on the timed inputs is held against the plain
-    version's first, at phase 16a's tolerances.  Returns
+    version's first, at phase 16a's tolerances; kernel and library are
+    read twice in turn and the lower reading kept.  Returns
     ``{kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}``."""
     from quantumpropagators_torch.ops import cheby_flip as cf
     from quantumpropagators_torch.ops import probes
@@ -3122,18 +3128,23 @@ def probe_times(device, card, big, s16, errs):
         if rel is not None:
             _hold(errs, key, kernel(), plain(), rel, f"{what} (timed inputs)")
         # kernel and library call as the probe modules time them (a CUDA
-        # graph of the launches: no host cost); the plain version, which
-        # copies its scalars to the card, eagerly
-        ms = graph_ms(kernel, 10)
+        # graph of the launches: no host cost), twice in turn, the lower
+        # reading kept (a first reading after the host's work ran up to 3 %
+        # slow); the plain version, which copies its scalars to the card,
+        # eagerly
+        reads = [(graph_ms(kernel, 10),
+                  None if library is None else graph_ms(library, 10))
+                 for _ in range(2)]
+        ms = min(k for k, _ in reads)
         plain_ms = time_ms(plain, 3)
-        lib_ms = None if library is None else graph_ms(library, 10)
+        lib_ms = None if library is None else min(lib for _, lib in reads)
         bound_ms, bound_by = bound(n_bytes, ops, peak)
         times[key] = (ms, plain_ms, bound_ms, bound_by, lib_ms)
-        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        lib = "" if lib_ms is None else (
+            f", library {lib_ms:.4f} ms ({ms / lib_ms:.3f} x the library's "
+            f"time)")
         if key.startswith("probe_tile_mma<"):
-            mode = key[len("probe_tile_mma<"):-1]
-            lib += (f" ({ms / lib_ms:.3f} x the library's time), "
-                    f"{P.MMA_INSTRUCTIONS[mode]}")
+            lib += f", {P.MMA_INSTRUCTIONS[key[len('probe_tile_mma<'):-1]]}"
         log(f"phase 16b time {key} {what}: {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
             f"{100 * bound_ms / ms:.1f} % of it reached){lib} [{card}]")

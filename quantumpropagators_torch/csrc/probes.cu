@@ -13,10 +13,11 @@
 //     replaces docs/profiling/scratch_roofline.py:19 (mk), :59's stream
 //     companions, scratch_r3_roofline.py:20, scratch_r3_probe2.py:50,
 //     scratch_r3_probe3.py:44, probe_scatter_r4.py:113 (build, kernel).
-//     Bound: bytes, and the loads a thread keeps in flight: a grid-stride
-//     loop over at most 16 blocks per SM loads every input of its float4s
-//     before it uses the first, four float4s a thread for bodies of up to
-//     4 planes and one for the 16-plane sums.
+//     Bound: bytes.  One block a chunk of 256 float4s (no stride loop),
+//     one float4 of each input a thread, in registers sized to the body's
+//     plane count; map kinds are compile-time, so all-self bodies are a
+//     straight 16-byte stream.  tools/stream_variants.py times the
+//     alternatives.
 //   probe_stream_pipelined  the same 16-plane sum through a two-stage
 //                           cp.async ring in shared memory (persistent
 //                           blocks, wait_group completion).
@@ -32,17 +33,20 @@
 //     scratch_roofline.py:19, scratch_r3_roofline.py:20 and
 //     scratch_r3_probe2.py:50.  Bound: bytes (one read, one write).
 //   probe_tile_mma          an (R, 128) plane times a (128, 128) matrix:
-//                           TF32 by wgmma m64n128k8 (A from registers, B
-//                           from shared memory); FP64 by mma.sync
-//                           m16n8k16; 3xTF32 (hi*hi + hi*lo + lo*hi) by
-//                           mma.sync m16n8k8 on 16-row slabs, M through L1.
+//                           TF32 and 3xTF32 (lo*Mhi + hi*Mlo + hi*Mhi, the
+//                           operands split in registers and in shared
+//                           memory) by wgmma m64n128k8 (A from registers,
+//                           B from shared memory); FP64 by mma.sync
+//                           m16n8k16.
 //     replaces scratch_roofline.py:59, scratch_flips.py:132 and
 //     scratch_r3_probe4.py:50.  Bound: bytes at the timed sizes ((2^19,
 //     128) f32, (2^18, 128) f64: 0.1603 ms at 3.35 TB/s), the FP64
-//     operations close behind (0.128 ms at 67 TFLOP/s).  So the TF32 and
-//     FP64 kernels hold M in shared memory for a persistent block's life,
-//     in the layout the MMA reads, and stream x through a three-stage ring
-//     of TMA bulk copies that run under the MMAs and the stores.
+//     operations (0.128 ms at 67 TFLOP/s) and 3xTF32's three TF32 passes
+//     (0.104 ms at 495 TFLOP/s) close behind.  So each kernel holds M (for
+//     3xTF32 its hi and lo parts) in shared memory for a persistent
+//     block's life, in the layout the MMA reads, and streams x through a
+//     three-stage ring of TMA bulk copies that run under the MMAs and the
+//     stores.
 //   probe_smem              one block with `bytes` of dynamic shared memory:
 //                           x is staged at the top of the allocation and
 //                           written back doubled; launching proves the size.
@@ -79,7 +83,6 @@ namespace {
 
 constexpr int kMaxPlanes = 16;
 constexpr int kThreads = 256;
-constexpr int kMmaThreads = 128;
 constexpr int kOrderThreads = 512;
 constexpr int kMaxFlipBits = 16;
 constexpr int kMaxBits = 30;
@@ -155,17 +158,31 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 
 // ---------------------------------------------------------------- stream
 
-__device__ __forceinline__ float4 load_mapped(const Planes& p, int k,
-                                              int64_t e, int tile_bits,
-                                              int64_t n_tiles) {
+// Streaming loads and stores, 16 bytes each, in the default cache policy:
+// with the evict-first hints (ld.global.cs / st.global.cs) the triad and
+// the 16-plane sums read as fast in one process and 2-4 % slower in
+// another (tools/stream_variants.py, tools/probe_ab.py).
+__device__ __forceinline__ float4 ld_stream(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void st_stream(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+// Element e's float4 of plane k: with Mapped, through the plane's tile map;
+// without, at e itself (every plane `self`: a straight stream).
+template <bool Mapped>
+__device__ __forceinline__ float4 load_plane(const Planes& p, int k,
+                                             int64_t e, int tile_bits,
+                                             int64_t n_tiles) {
   int64_t idx = e;
-  if (p.kind[k] != kSelf) {
+  if (Mapped && p.kind[k] != kSelf) {
     const int64_t t = e >> tile_bits;
     const int64_t t2 = p.kind[k] == kStride ? (t + p.dist[k]) % n_tiles
                                             : (t ^ int64_t(p.dist[k]));
     idx = (t2 << tile_bits) | (e & ((int64_t(1) << tile_bits) - 1));
   }
-  return *reinterpret_cast<const float4*>(p.in[k] + idx);
+  return ld_stream(p.in[k] + idx);
 }
 
 // One output float4 of probe_stream from its inputs y[0 .. n_in):
@@ -206,34 +223,42 @@ __device__ __forceinline__ float4 stream_body(const float4 (&y)[MaxIn],
   }
 }
 
-// Each thread takes U float4s a step, one grid stride apart, and loads all
-// of their inputs before it uses the first: with few planes (MaxIn = 4) U =
-// 4 keeps as many loads in flight as a 16-plane body has.
-template <int Op, int MaxIn, int U>
+// Each block covers one chunk of kThreads x U float4s of every plane
+// (exact cover: one chunk a block, no stride loop); thread i takes float4s
+// i, i + kThreads, ... of it, so that each load instruction of a warp reads
+// 512 contiguous bytes, and loads all U x MaxIn of them before it uses the
+// first.  U = 1: at 2^26 elements one float4 a thread, more threads
+// resident, read faster than 4 or 8 a thread, and the grid-stride loop of
+// 16 blocks an SM was 2-11 % slower (tools/stream_variants.py).  MaxIn is
+// the plane count of the small bodies (copy 1, add and chain 2, triad 3,
+// sums of 3 or 4: 4) and 16 for the n-input sums, so that registers go to
+// loads in flight and not to planes a body lacks.  Half: the second
+// output s/2 exists.
+template <int Op, int MaxIn, int U, bool Mapped, bool Half>
 __global__ void __launch_bounds__(kThreads)
     probe_stream_kernel(const Planes p, float* __restrict__ o1,
                         float* __restrict__ o2, int n_in, int64_t n4,
                         int tile_bits, int64_t n_tiles, int chain, float mul,
                         float scale) {
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t v0 = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; v0 < n4;
-       v0 += U * stride) {
+  const int64_t n_chunks = (n4 + kThreads * U - 1) / (kThreads * U);
+  for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const int64_t v0 = c * (kThreads * U) + threadIdx.x;
     float4 y[U][MaxIn];
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
       for (int k = 0; k < MaxIn; ++k)
-        if (k < n_in && v0 + u * stride < n4)
-          y[u][k] = load_mapped(p, k, (v0 + u * stride) << 2, tile_bits,
-                                n_tiles);
+        if (k < n_in && v0 + u * kThreads < n4)
+          y[u][k] = load_plane<Mapped>(p, k, (v0 + u * kThreads) << 2,
+                                       tile_bits, n_tiles);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int64_t v = v0 + u * stride;
+      const int64_t v = v0 + u * kThreads;
       if (v < n4) {
         float4 half;
-        reinterpret_cast<float4*>(o1)[v] =
-            stream_body<Op, MaxIn>(y[u], n_in, chain, mul, scale, half);
-        if (o2 != nullptr) reinterpret_cast<float4*>(o2)[v] = half;
+        st_stream(o1 + (v << 2),
+                  stream_body<Op, MaxIn>(y[u], n_in, chain, mul, scale, half));
+        if constexpr (Half) st_stream(o2 + (v << 2), half);
       }
     }
   }
@@ -442,62 +467,9 @@ __global__ void __launch_bounds__(kThreads)
 
 // ------------------------------------------------------------ tile MMA
 
-// out = x M in 3xTF32 for an (R, 128) f32 plane, R = 16 slabs: each warp
-// takes one 16-row slab at a time and all 16 column tiles of it; M is read
-// through L1.  The products lo*Mhi + hi*Mlo + hi*Mhi, small terms first.
-__global__ void __launch_bounds__(kMmaThreads)
-    probe_tile_mma_3xtf32_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ m,
-                                 float* __restrict__ out, int64_t slabs) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int64_t warps = int64_t(gridDim.x) * (blockDim.x >> 5);
-  for (int64_t sl = int64_t(blockIdx.x) * (blockDim.x >> 5) +
-                    (threadIdx.x >> 5);
-       sl < slabs; sl += warps) {
-    const float* xs = x + (sl << 11);
-    float c[16][4];
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) c[nt][q] = 0.f;
-    for (int ks = 0; ks < 16; ++ks) {
-      const int k0 = ks << 3;
-      const float av[4] = {xs[(g << 7) + k0 + t], xs[((g + 8) << 7) + k0 + t],
-                           xs[(g << 7) + k0 + t + 4],
-                           xs[((g + 8) << 7) + k0 + t + 4]};
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        ah[q] = tf32_bits(av[q]);
-        al[q] = tf32_bits(av[q] - __uint_as_float(ah[q]));
-      }
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
-        const float m0 = __ldg(m + ((k0 + t) << 7) + (nt << 3) + g);
-        const float m1 = __ldg(m + ((k0 + t + 4) << 7) + (nt << 3) + g);
-        const uint32_t bh0 = tf32_bits(m0);
-        const uint32_t bh1 = tf32_bits(m1);
-        const uint32_t bl0 = tf32_bits(m0 - __uint_as_float(bh0));
-        const uint32_t bl1 = tf32_bits(m1 - __uint_as_float(bh1));
-        mma_tf32(c[nt], al, bh0, bh1);
-        mma_tf32(c[nt], ah, bl0, bl1);
-        mma_tf32(c[nt], ah, bh0, bh1);
-      }
-    }
-    float* os = out + (sl << 11);
-#pragma unroll
-    for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        os[((g + ((q >> 1) << 3)) << 7) + (nt << 3) + 2 * t + (q & 1)] =
-            c[nt][q];
-  }
-}
-
-// The TF32 and FP64 products below share one pipeline.  A persistent block
-// (one an SM) holds M in shared memory for its whole life, in the layout its
+// The TF32, 3xTF32 and FP64 products below share one pipeline.  A
+// persistent block (one an SM) holds M in shared memory for its whole
+// life, in the layout its
 // MMA reads, and walks the tiles blockIdx.x, + gridDim.x, ... of x.  One
 // producer thread streams those tiles through a ring of stages (as many
 // as shared memory holds beside M) with TMA bulk copies (cp.async.bulk,
@@ -652,6 +624,10 @@ constexpr int kTf32MBytes = 128 * 128 * 4;
 constexpr int kTf32StageBytes = kTf32TileRows * 128 * 4;
 constexpr int kTf32Smem = kTf32MBytes + (kTf32Stages + 2) * kTf32StageBytes +
                           2 * kTf32Stages * 8;
+// 3xTF32: M's hi and lo parts and the ring fill 224 KB, no output buffers
+constexpr int k3xTf32Smem =
+    2 * kTf32MBytes + kTf32Stages * kTf32StageBytes + 2 * kTf32Stages * 8;
+static_assert(k3xTf32Smem <= kMaxSmem, "3xTF32 shared memory");
 
 // D (64 x 128, f32) += A (64 x 8, TF32, registers) B (8 x 128, TF32, the
 // shared-memory matrix `desc` describes).  D of warp w of the warpgroup,
@@ -700,24 +676,83 @@ __device__ __forceinline__ uint64_t tf32_b_desc(const float* b, int ks) {
          (uint64_t(4096 >> 4) << 32);
 }
 
-// out = x M for an (R, 128) f32 plane (R a multiple of 16), the operands
-// rounded to TF32 (nearest, ties away), f32 sums.  Each consumer group is
-// one warpgroup taking a whole 64-row tile: it loads and rounds all of its
-// A fragments (16 float4 loads a thread, 64 registers), frees the stage,
-// runs 16 wgmma steps on them and M, and writes the tile into its own
-// 32 KB output buffer, from which one TMA bulk store sends it out (stores
-// of 8 B a thread from registers, 8 rows an instruction, were slower).
-// Shared memory: M 64 KB,
-// the ring 3 x 32 KB, the output buffers 2 x 32 KB.
+// wgmma reads its A and D registers asynchronously: every write to them
+// must come before the wgmma.fence that precedes the MMAs.  The compiler
+// sees no tie between a register and the fence and may sink a conversion
+// or a zero fill past it; these empty statements mark the values complete
+// where they stand.
+__device__ __forceinline__ void pin(uint32_t (&a)[4]) {
+  asm volatile("" : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]));
+}
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int q = 0; q < 64; q += 8)
+    asm volatile(""
+                 : "+f"(d[q]), "+f"(d[q + 1]), "+f"(d[q + 2]), "+f"(d[q + 3]),
+                   "+f"(d[q + 4]), "+f"(d[q + 5]), "+f"(d[q + 6]),
+                   "+f"(d[q + 7]));
+}
+
+// Fragment value v: its TF32 rounding in `hi` and, with Split, the TF32
+// rounding of the remainder v - hi (exact in f32) in `lo`.
+template <bool Split>
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(v);
+  if constexpr (Split) lo = tf32_bits(v - __uint_as_float(hi));
+}
+
+// The A fragments of k-steps 0 .. N-1 from a thread's row pair of a stage
+// (`xs` at its row 16w+g, column 4t; row 16w+g+8 is 1024 floats on): the
+// float4 of columns 16q + 4t .. + 3 of each row feeds steps 2q and 2q+1
+// (tf32_hw_k's order), split as tf32_split does.
+template <bool Split, int N>
+__device__ __forceinline__ void tile_fragments(const float* xs,
+                                               uint32_t (&a)[N][4],
+                                               uint32_t (&al)[N][4]) {
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {
+    const float4 r0 = *reinterpret_cast<const float4*>(xs + 16 * q);
+    const float4 r8 = *reinterpret_cast<const float4*>(xs + 1024 + 16 * q);
+    tf32_split<Split>(r0.x, a[2 * q][0], al[2 * q][0]);
+    tf32_split<Split>(r8.x, a[2 * q][1], al[2 * q][1]);
+    tf32_split<Split>(r0.y, a[2 * q][2], al[2 * q][2]);
+    tf32_split<Split>(r8.y, a[2 * q][3], al[2 * q][3]);
+    tf32_split<Split>(r0.z, a[2 * q + 1][0], al[2 * q + 1][0]);
+    tf32_split<Split>(r8.z, a[2 * q + 1][1], al[2 * q + 1][1]);
+    tf32_split<Split>(r0.w, a[2 * q + 1][2], al[2 * q + 1][2]);
+    tf32_split<Split>(r8.w, a[2 * q + 1][3], al[2 * q + 1][3]);
+  }
+}
+
+// out = x M for an (R, 128) f32 plane (R a multiple of 16), f32 sums.
+// TF32 (Split = false): the operands rounded to TF32 (nearest, ties away).
+// 3xTF32 (Split = true): each operand split into hi (its TF32 rounding)
+// and lo (the TF32 rounding of the remainder), and per k-step the products
+// lo Mhi, hi Mlo, then hi Mhi: the small terms first.
+// Each consumer group is one warpgroup taking a whole 64-row tile.  TF32
+// loads and rounds all of its A fragments (16 float4 loads a thread, 64
+// registers), frees the stage, and runs 16 wgmma steps on them and M;
+// 3xTF32 does so in two halves of 8 k-steps (24 wgmmas each) and keeps
+// the stage.  TF32 writes the tile into the group's own 32 KB output
+// buffer, from which one TMA bulk store sends it out (stores of 8 B a
+// thread from registers, 8 rows an instruction, were slower).  3xTF32 has
+// no room for those buffers beside M's two parts: it writes the tile back
+// into its stage and stores it from there (4 % faster than from
+// registers, tools/tile_mma_variants.py).  Shared memory: M 64 KB (hi and
+// lo: 128 KB), the ring 3 x 32 KB, TF32's output buffers 2 x 32 KB.
+template <bool Split>
 __global__ void __launch_bounds__(kPipeThreads, 1)
     probe_tile_mma_tf32_kernel(const float* __restrict__ x,
                                const float* __restrict__ m,
                                float* __restrict__ out, int64_t rows) {
   extern __shared__ __align__(128) unsigned char smem[];
-  float* bs = reinterpret_cast<float*>(smem);
-  unsigned char* ring = smem + kTf32MBytes;
+  float* bs = reinterpret_cast<float*>(smem);  // M, or M's hi part
+  float* bl = bs + 128 * 128;                  // Split: M's lo part
+  unsigned char* ring = smem + (Split ? 2 : 1) * kTf32MBytes;
   float* obufs = reinterpret_cast<float*>(ring + kTf32Stages * kTf32StageBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(obufs + 2 * 64 * 128);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(Split ? obufs : obufs + 2 * 64 * 128);
   uint64_t* empty = full + kTf32Stages;
   init_ring<kTf32Stages>(full, empty);
   const int warp = threadIdx.x >> 5;
@@ -729,12 +764,16 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
                            kTf32TileRows, 512);
     return;
   }
-  // M, rounded once, into the core-matrix layout (rows in tf32_hw_k's
-  // order); made visible to the tensor cores' (async proxy) reads
+  // M, rounded (and split) once, into the core-matrix layout (rows in
+  // tf32_hw_k's order); made visible to the tensor cores' (async proxy)
+  // reads
   load_m(m, [&](int e, float v) {
     const int n = e & 127, kp = tf32_hw_k(e >> 7);
-    bs[(n >> 3) * 1024 + (kp >> 2) * 32 + (n & 7) * 4 + (kp & 3)] =
-        __uint_as_float(tf32_bits(v));
+    const int at = (n >> 3) * 1024 + (kp >> 2) * 32 + (n & 7) * 4 + (kp & 3);
+    uint32_t hi, lo;
+    tf32_split<Split>(v, hi, lo);
+    bs[at] = __uint_as_float(hi);
+    if constexpr (Split) bl[at] = __uint_as_float(lo);
   });
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   consumers_sync();
@@ -751,35 +790,63 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
     const int s = consume_wait<kTf32Stages>(full, empty, i);
     const float* xs = reinterpret_cast<const float*>(
         ring + s * kTf32StageBytes) + ((16 * w + g) << 7) + 4 * t;
-    uint32_t a[16][4];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const float4 lo = *reinterpret_cast<const float4*>(xs + 16 * q);
-      const float4 hi = *reinterpret_cast<const float4*>(xs + 1024 + 16 * q);
-      a[2 * q][0] = tf32_bits(lo.x);
-      a[2 * q][1] = tf32_bits(hi.x);
-      a[2 * q][2] = tf32_bits(lo.y);
-      a[2 * q][3] = tf32_bits(hi.y);
-      a[2 * q + 1][0] = tf32_bits(lo.z);
-      a[2 * q + 1][1] = tf32_bits(hi.z);
-      a[2 * q + 1][2] = tf32_bits(lo.w);
-      a[2 * q + 1][3] = tf32_bits(hi.w);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
+    const int64_t r0 = tile * kTf32TileRows;
     float d[64];
 #pragma unroll
     for (int q = 0; q < 64; ++q) d[q] = 0.f;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    if constexpr (Split) {
+      // the k-steps in two halves of 8: a half's hi and lo fragments (64
+      // registers) beside the accumulators leave ptxas room to keep its
+      // 24 wgmmas in flight (all 16 k-steps at once did not fit: ptxas
+      // serialized them, and results went wrong once a block took more
+      // than one tile)
 #pragma unroll
-    for (int ks = 0; ks < 16; ++ks) wgmma_tf32(d, a[ks], tf32_b_desc(bs, ks));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    // the tile goes out through the group's output buffer, one bulk store
-    // of its valid rows, once the previous store has read the buffer
-    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    group_sync(group);
-    float* o = obuf + ((16 * w + g) << 7) + 2 * t;
+      for (int h = 0; h < 2; ++h) {
+        uint32_t a[8][4], al[8][4];
+        tile_fragments<true, 8>(xs + 64 * h, a, al);
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          pin(a[ks]);
+          pin(al[ks]);
+        }
+        pin(d);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks) {
+          wgmma_tf32(d, al[ks], tf32_b_desc(bs, 8 * h + ks));
+          wgmma_tf32(d, a[ks], tf32_b_desc(bl, 8 * h + ks));
+          wgmma_tf32(d, a[ks], tf32_b_desc(bs, 8 * h + ks));
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      }
+    } else {
+      uint32_t a[16][4], unused[16][4];
+      tile_fragments<false, 16>(xs, a, unused);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int ks = 0; ks < 16; ++ks) pin(a[ks]);
+      pin(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < 16; ++ks)
+        wgmma_tf32(d, a[ks], tf32_b_desc(bs, ks));
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      // the group's output buffer is free once its previous store has
+      // read it
+      if (leader)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      group_sync(group);
+    }
+    // the tile goes out through shared memory, one bulk store of its valid
+    // rows: TF32's through the group's output buffer, 3xTF32's through the
+    // stage it came in by (each warp writes its 16 rows back where it read
+    // them), which is freed once that store has read it
+    float* buf =
+        Split ? reinterpret_cast<float*>(ring + s * kTf32StageBytes) : obuf;
+    float* o = buf + ((16 * w + g) << 7) + 2 * t;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       *reinterpret_cast<float2*>(o + 8 * j) =
@@ -790,9 +857,14 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     group_sync(group);
     if (leader) {
-      const int64_t r0 = tile * kTf32TileRows;
       const int n = int(rows - r0 < kTf32TileRows ? rows - r0 : kTf32TileRows);
-      bulk_store(out + (r0 << 7), obuf, uint32_t(n * 512));
+      bulk_store(out + (r0 << 7), buf, uint32_t(n * 512));
+      if (Split)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    if constexpr (Split) {
+      group_sync(group);
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
   }
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -1206,6 +1278,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// probe_stream's arguments, as its C entry checked them.
+struct StreamArgs {
+  Planes p;
+  float* o1;
+  float* o2;
+  int n_in;
+  int64_t n4;
+  int tile_bits;
+  int64_t n_tiles;
+  int chain;
+  float mul;
+  float scale;
+  cudaStream_t st;
+};
+
+// The kernel for this body, map and output count, one block a chunk.
+template <int Op, int MaxIn, int U, bool Mapped, bool Half>
+int launch_stream_kernel(const StreamArgs& a) {
+  const int64_t n_chunks = (a.n4 + kThreads * U - 1) / (kThreads * U);
+  const int blocks = int(n_chunks);
+  probe_stream_kernel<Op, MaxIn, U, Mapped, Half>
+      <<<blocks, kThreads, 0, a.st>>>(a.p, a.o1, a.o2, a.n_in, a.n4,
+                                      a.tile_bits, a.n_tiles, a.chain, a.mul,
+                                      a.scale);
+  return int(cudaGetLastError());
+}
+template <int Op, int MaxIn, int U>
+int launch_stream(const StreamArgs& a, bool mapped) {
+  const bool half = a.o2 != nullptr;  // only kSum has it
+  if (mapped)
+    return half ? launch_stream_kernel<Op, MaxIn, U, true, Op == kSum>(a)
+                : launch_stream_kernel<Op, MaxIn, U, true, false>(a);
+  return half ? launch_stream_kernel<Op, MaxIn, U, false, Op == kSum>(a)
+              : launch_stream_kernel<Op, MaxIn, U, false, false>(a);
+}
+
+// One persistent block an SM (at most one a tile).
+template <bool Split>
+int launch_tile_mma_tf32(const void* x, const void* m, void* out,
+                         int64_t rows, cudaStream_t st) {
+  constexpr int bytes = Split ? k3xTf32Smem : kTf32Smem;
+  static int granted = 0;  // one per instantiation
+  const cudaError_t rc =
+      allow_smem(probe_tile_mma_tf32_kernel<Split>, bytes, granted);
+  if (rc != cudaSuccess) return int(rc);
+  const int64_t tiles = (rows + kTf32TileRows - 1) / kTf32TileRows;
+  const int blocks = int(tiles < sm_count() ? tiles : sm_count());
+  probe_tile_mma_tf32_kernel<Split><<<blocks, kPipeThreads, bytes, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(m),
+      static_cast<float*>(out), rows);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Each returns the CUDA error of its
@@ -1221,32 +1346,23 @@ int probe_stream(const void* planes, void* o1, void* o2, int op, int n_in,
       (op == kTriad && n_in != 3) || (op == kChain && n_in != 2) ||
       op < kSum || op > kChain || o1 == nullptr ||
       (reinterpret_cast<uintptr_t>(o1) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(o2) & 15) != 0)
+      (reinterpret_cast<uintptr_t>(o2) & 15) != 0 ||
+      (o2 != nullptr && op != kSum))
     return int(cudaErrorInvalidValue);
   const int64_t n_tiles = n >> tile_bits;
   if (n_tiles < 1 || (n_tiles << tile_bits) != n || !planes_ok(p, n_in, n_tiles))
     return int(cudaErrorInvalidValue);
-  const int64_t n4 = n >> 2;
-  cudaStream_t st = (cudaStream_t)stream;
-  float* f1 = static_cast<float*>(o1);
-  float* f2 = static_cast<float*>(o2);
-  if (n_in > 4) {  // the 16-plane sums
-    probe_stream_kernel<kSum, kMaxPlanes, 1>
-        <<<grid_for(n4, kThreads), kThreads, 0, st>>>(
-            p, f1, f2, n_in, n4, tile_bits, n_tiles, chain, mul, scale);
-    return int(cudaGetLastError());
-  }
-  const int blocks = grid_for((n4 + 3) / 4, kThreads);
-  if (op == kSum)
-    probe_stream_kernel<kSum, 4, 4><<<blocks, kThreads, 0, st>>>(
-        p, f1, f2, n_in, n4, tile_bits, n_tiles, chain, mul, scale);
-  else if (op == kTriad)
-    probe_stream_kernel<kTriad, 4, 4><<<blocks, kThreads, 0, st>>>(
-        p, f1, nullptr, n_in, n4, tile_bits, n_tiles, chain, mul, scale);
-  else
-    probe_stream_kernel<kChain, 4, 4><<<blocks, kThreads, 0, st>>>(
-        p, f1, nullptr, n_in, n4, tile_bits, n_tiles, chain, mul, scale);
-  return int(cudaGetLastError());
+  bool mapped = false;
+  for (int k = 0; k < n_in; ++k) mapped = mapped || p.kind[k] != kSelf;
+  const StreamArgs a{p,     static_cast<float*>(o1), static_cast<float*>(o2),
+                     n_in,  n >> 2, tile_bits,       n_tiles,
+                     chain, mul,    scale,           (cudaStream_t)stream};
+  if (n_in > 4) return launch_stream<kSum, kMaxPlanes, 1>(a, mapped);
+  if (op == kTriad) return launch_stream<kTriad, 3, 1>(a, mapped);
+  if (op == kChain) return launch_stream<kChain, 2, 1>(a, mapped);
+  if (n_in == 1) return launch_stream<kSum, 1, 1>(a, mapped);
+  if (n_in == 2) return launch_stream<kSum, 2, 1>(a, mapped);
+  return launch_stream<kSum, 4, 1>(a, mapped);
 }
 
 int probe_stream_pipelined(const void* planes, void* out, int n_in, int64_t n,
@@ -1330,28 +1446,13 @@ int probe_flipsum(const void* x, void* out, int variant, int64_t n, int lo,
 
 int probe_tile_mma_f32(const void* x, const void* m, void* out, int mode,
                        int64_t rows, void* stream) {
-  if (rows < 16 || rows % 16 != 0 || mode < 0 || mode > 1)
-    return int(cudaErrorInvalidValue);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (mode == 1) {
-    const int64_t slabs = rows / 16;
-    probe_tile_mma_3xtf32_kernel<<<grid_for(slabs, kMmaThreads / 32),
-                                   kMmaThreads, 0, st>>>(
-        (const float*)x, (const float*)m, (float*)out, slabs);
-    return int(cudaGetLastError());
-  }
-  if ((reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+  if (rows < 16 || rows % 16 != 0 || mode < 0 || mode > 1 ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
       (reinterpret_cast<uintptr_t>(out) & 15) != 0)  // bulk copies' rule
     return int(cudaErrorInvalidValue);
-  static int granted = 0;
-  const cudaError_t rc =
-      allow_smem(probe_tile_mma_tf32_kernel, kTf32Smem, granted);
-  if (rc != cudaSuccess) return int(rc);
-  const int64_t tiles = (rows + kTf32TileRows - 1) / kTf32TileRows;
-  const int blocks = int(tiles < sm_count() ? tiles : sm_count());
-  probe_tile_mma_tf32_kernel<<<blocks, kPipeThreads, kTf32Smem, st>>>(
-      (const float*)x, (const float*)m, (float*)out, rows);
-  return int(cudaGetLastError());
+  cudaStream_t st = (cudaStream_t)stream;
+  return mode == 1 ? launch_tile_mma_tf32<true>(x, m, out, rows, st)
+                   : launch_tile_mma_tf32<false>(x, m, out, rows, st);
 }
 
 int probe_tile_mma_f64(const void* x, const void* m, void* out, int64_t rows,

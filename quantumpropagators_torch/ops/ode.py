@@ -48,13 +48,18 @@ def dopri5_integrate(
 ):
     """Integrate ``dy/dt = f(t, y)`` from ``t0`` to ``t1`` adaptively.
 
-    ``f`` takes a float ``t`` and a tensor ``y``.  Supports backward
-    integration (``t1 < t0``).  Returns ``y(t1)``; if ``max_steps``
-    attempted steps do not reach ``t1`` the result is whatever was
-    reached, as in the JAX function."""
+    ``f`` takes ``t`` as a 0-d float64 tensor on the CPU (the JAX
+    function's traced scalar: ``torch.*`` math on it works, and it
+    multiplies a state on any device) and a tensor ``y``.  Supports
+    backward integration (``t1 < t0``).  Returns ``y(t1)``; if
+    ``max_steps`` attempted steps do not reach ``t1`` the result is
+    whatever was reached, as in the JAX function."""
     t0, t1 = float(t0), float(t1)
     direction = float(np.sign(t1 - t0))
     h = abs(t1 - t0) / 100.0 if first_step is None else abs(float(first_step))
+
+    def time(t):
+        return torch.tensor(t, dtype=torch.float64)
 
     def rk_step(t, y, h, k0):
         ks = [k0]
@@ -63,7 +68,7 @@ def dopri5_integrate(
             for j in range(i):
                 if _A[i, j] != 0.0:
                     yi = yi + (h * _A[i, j]) * ks[j]
-            ks.append(f(t + _C[i] * h, yi))
+            ks.append(f(time(t + _C[i] * h), yi))
         y5, err = y, torch.zeros_like(y)
         for i in range(7):
             y5 = y5 + (h * _B5[i]) * ks[i]
@@ -74,7 +79,7 @@ def dopri5_integrate(
         scale = atol + rtol * torch.maximum(y.abs(), y_new.abs())
         return float(torch.sqrt(torch.mean((err.abs() / scale) ** 2)))
 
-    t, y, k = t0, y0, f(t0, y0)
+    t, y, k = t0, y0, f(time(t0), y0)
     err_prev = 1.0
     for _ in range(max_steps):
         h_signed = direction * min(h, abs(t1 - t))

@@ -65,7 +65,7 @@ MMA_MODES = {"tf32": 0, "3xtf32": 1, "f64": None}
 # the tensor-core instruction each mode's kernel runs
 MMA_INSTRUCTIONS = {
     "tf32": "wgmma.mma_async.m64n128k8.f32.tf32.tf32",
-    "3xtf32": "mma.sync.m16n8k8.f32.tf32.tf32",
+    "3xtf32": "wgmma.mma_async.m64n128k8.f32.tf32.tf32",
     "f64": "mma.sync.m16n8k16.f64",
 }
 ORDER_BODIES = {"full": 0, "copy": 1, "noflips": 2}
@@ -261,6 +261,10 @@ def probe_stream(inputs, op="sum", *, maps=None, tile_bits=None, chain=0,
     - ``triad``: ``(in_0 + in_1·in_2,)``;
     - ``chain``: ``a = in_0``, ``chain`` times ``a = a·mul + in_1``;
       ``(a,)``.
+
+    On the card one block covers 256 float4s of every plane, one float4
+    of each a thread, with the map kinds fixed at compile time
+    (``csrc/probes.cu``).
     """
     if _device_of(inputs[0]) == "cpu":
         return probe_stream_plain(inputs, op, maps=maps, tile_bits=tile_bits,
@@ -408,23 +412,23 @@ def probe_tile_mma(x, M, mode="tf32"):
     """``x @ M`` for an ``(R, 128)`` plane and a ``(128, 128)`` matrix on
     the tensor cores: ``tf32`` (float32 operands rounded to TF32, one
     ``wgmma`` pass), ``3xtf32`` (each operand split hi + lo: lo·Mhi +
-    hi·Mlo + hi·Mhi, ``mma.sync.m16n8k8``) or ``f64`` (float64,
+    hi·Mlo + hi·Mhi, three ``wgmma`` passes) or ``f64`` (float64,
     ``mma.sync.m16n8k16``); :data:`MMA_INSTRUCTIONS` names each.
 
-    The TF32 and FP64 kernels replace the Pallas bodies of
-    ``scratch_roofline.py:59``, ``scratch_flips.py:132`` and
-    ``scratch_r3_probe4.py:50``.  At (2^19, 128) f32 and (2^18, 128) f64
-    they are bound by bytes (x read and out written once: 0.1603 ms at
-    3.35 TB/s), with the FP64 operations close behind (2^33 at 67
-    TFLOP/s, 0.128 ms).  So each persistent block (one an SM) reads M
-    once into shared memory, in the layout its MMA reads, and streams x
-    through a ring of three stages of TMA bulk copies, so that the loads
-    run under the MMAs and the stores; ``csrc/probes.cu`` gives the
-    layouts."""
+    The kernels replace the Pallas bodies of ``scratch_roofline.py:59``,
+    ``scratch_flips.py:132`` and ``scratch_r3_probe4.py:50``.  At (2^19,
+    128) f32 and (2^18, 128) f64 they are bound by bytes (x read and out
+    written once: 0.1603 ms at 3.35 TB/s), with the FP64 operations
+    (2^33 at 67 TFLOP/s, 0.128 ms) and 3xTF32's three passes (3·2^34 at
+    495 TFLOP/s, 0.104 ms) close behind.  So each persistent block (one
+    an SM) reads M once into shared memory (3xTF32: its hi and lo parts,
+    128 KB), in the layout its MMA reads, and streams x through a ring of
+    three stages of TMA bulk copies, so that the loads run under the MMAs
+    and the stores; ``csrc/probes.cu`` gives the layouts."""
     if _device_of(x) == "cpu":
         return probe_tile_mma_plain(x, M, mode)
     _check_mma(x, M, mode)
-    if mode != "3xtf32" and x.data_ptr() % 16:
+    if x.data_ptr() % 16:
         raise ValueError(f"{mode} streams x through TMA bulk copies, which "
                          f"need a plane that starts 16-byte aligned")
     out = torch.empty_like(x)

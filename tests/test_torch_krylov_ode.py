@@ -219,14 +219,19 @@ def test_ode_propagator(pwc):
 
 
 def test_ode_backward_and_fallback():
-    """test_expv_ode.py:106-115, and the fall back to the piecewise
-    variant when an amplitude is not a function of t."""
+    """test_expv_ode.py:106-115 (a ``numpy`` control with no flag: the
+    piecewise variant, as the JAX package's rule picks), and the fall
+    back to the piecewise variant when an amplitude is not a function of
+    t."""
     rng = np.random.default_rng(55)
     N = 8
     H0 = _t(random_matrix(N, hermitian=True, spectral_radius=2, rng=rng))
     gen = qt.hamiltonian(H0, (H0, lambda t: 0.1 * np.sin(t)))
     tlist = np.linspace(0, 2, 21)
     psi0 = _t(random_state_vector(N, rng=rng))
+    with pytest.warns(UserWarning, match="piecewise"):
+        prop = qt.init_prop(psi0, gen, tlist, method="ode")
+    assert isinstance(prop, qt.propagators.ode.ODEPWCPropagator)
     fwd = qt.propagate(psi0, gen, tlist, method="ode")
     back = qt.propagate(fwd, gen, tlist, method="ode", backward=True)
     assert np.linalg.norm(back.numpy() - psi0.numpy()) < 1e-7

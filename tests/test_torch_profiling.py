@@ -421,6 +421,9 @@ def test_tile_mma_modes_name_their_instruction():
     (``chip_smoke.py`` phase 16b prints it); on CPU tensors each mode is
     its plain version and launches nothing."""
     assert set(probes.MMA_INSTRUCTIONS) == set(probes.MMA_MODES)
+    # TF32 and 3xTF32 run Hopper's warpgroup MMA from the same ring
+    for mode in ("tf32", "3xtf32"):
+        assert probes.MMA_INSTRUCTIONS[mode].startswith("wgmma.mma_async")
     probes.reset_launches()
     x = _T(planes_np(1, rows=24)[0]).double()
     M = _T(planes_np(1, rows=LANE, seed=3)[0]).double()
@@ -428,7 +431,7 @@ def test_tile_mma_modes_name_their_instruction():
     assert not any(probes.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("mode", ["tf32", "f64"])
+@pytest.mark.parametrize("mode", ["tf32", "3xtf32", "f64"])
 def test_tile_mma_on_cpu_takes_an_offset_plane(mode):
     """Only the card's bulk copies need a 16-byte aligned plane: on the
     CPU a contiguous view one element into its storage is the plain

@@ -65,6 +65,54 @@ def test_stream_matches_plain(cuda, name):
     assert probes.LAUNCHES[f"probe_stream<{op}>"] == before + 1
 
 
+# plane lengths: whole chunks of the kernel's blocks (256 float4s), and
+# multiples of 4 that are not
+_STREAM_LENGTHS = (1 << 16, (1 << 16) + 4, (1 << 16) + 1028, 4)
+
+
+@pytest.mark.parametrize("n", _STREAM_LENGTHS)
+@pytest.mark.parametrize("name", sorted(_STREAM) + ["sum3"])
+def test_stream_lengths_match_plain(cuda, name, n):
+    op, n_in, chain, mul, scale, tol = _STREAM.get(
+        name, ("sum", 3, 0, 1.0, 1.0, 0))
+    xs = _planes(n, n_in, cuda, seed=5)
+    (got,) = probes.probe_stream(xs, op, chain=chain, mul=mul, scale=scale)
+    (want,) = probes.probe_stream_plain(xs, op, chain=chain, mul=mul,
+                                        scale=scale)
+    _assert_close(got, want, tol)
+
+
+@pytest.mark.parametrize("kind", list(probes.MAP_KINDS))
+@pytest.mark.parametrize("n_in", [1, 2, 16])
+def test_stream_map_kinds_match_plain(cuda, kind, n_in):
+    """Each map kind on every plane, in the small bodies and the 16-plane
+    sum, on a length that is not a whole number of chunks."""
+    n, tile_bits = (1 << 16) + 1024, 10
+    xs = _planes(n, n_in, cuda, seed=6)
+    maps = [(kind, 0 if kind == "self" else 1 + 2 * (k % 2))
+            for k in range(n_in)]
+    if kind == "xor":
+        n, tile_bits = 1 << 16, 10  # xor needs a power-of-two tile count
+        xs = [x[:n] for x in xs]
+    got = probes.probe_stream(xs, "sum", maps=maps, tile_bits=tile_bits,
+                              n_out=2)
+    want = probes.probe_stream_plain(xs, "sum", maps=maps,
+                                     tile_bits=tile_bits, n_out=2)
+    _assert_close(got[0], want[0], 0)
+    _assert_close(got[1], want[1], 0)
+
+
+@pytest.mark.parametrize("name", ["copy", "triad", "sum7"])
+def test_stream_repeated_launches_agree(cuda, name):
+    op, n_in, chain, mul, scale, _ = _STREAM[name]
+    xs = _planes((1 << 20) + 4, n_in, cuda, seed=7)
+    (first,) = probes.probe_stream(xs, op, chain=chain, mul=mul, scale=scale)
+    for _ in range(50):
+        (got,) = probes.probe_stream(xs, op, chain=chain, mul=mul,
+                                     scale=scale)
+        assert torch.equal(got, first)
+
+
 @pytest.mark.parametrize("mode", scatter.MODES)
 @pytest.mark.parametrize("flops", [0, 400])
 def test_scatter_matches_plain(cuda, mode, flops):
@@ -131,11 +179,12 @@ def test_tile_mma_random_matches_plain(cuda, mode):
                   1e-14 if mode == "f64" else 2e-6)
 
 
-# row counts that are not multiples of the kernels' tiles (64 rows TF32,
-# 32 rows FP64), and the timed sizes of chip_smoke.py phase 16b
-_RAGGED_ROWS = {"tf32": (16, 48, 80, 1040), "f64": (8, 24, 72, 1032)}
-_TIMED_ROWS = {"tf32": 1 << 19, "f64": 1 << 18}
-_MMA_TOL = {"tf32": 2e-6, "f64": 1e-14}
+# row counts that are not multiples of the kernels' tiles (64 rows TF32 and
+# 3xTF32, 32 rows FP64), and the timed sizes of chip_smoke.py phase 16b
+_RAGGED_ROWS = {"tf32": (16, 48, 80, 1040), "3xtf32": (16, 48, 80, 1040),
+                "f64": (8, 24, 72, 1032)}
+_TIMED_ROWS = {"tf32": 1 << 19, "3xtf32": 1 << 19, "f64": 1 << 18}
+_MMA_TOL = {"tf32": 2e-6, "3xtf32": 2e-6, "f64": 1e-14}
 
 
 def _mma_operands(mode, rows, cuda, seed=0):
@@ -155,7 +204,7 @@ def test_tile_mma_ragged_rows_match_plain(cuda, mode, rows):
     assert probes.LAUNCHES[f"probe_tile_mma<{mode}>"] == before + 1
 
 
-@pytest.mark.parametrize("mode", ["tf32", "f64"])
+@pytest.mark.parametrize("mode", list(probes.MMA_MODES))
 def test_tile_mma_ties_bit_for_bit(cuda, mode):
     """Operands on a TF32 rounding tie, through each flip permutation: a
     kernel that truncated in place of rounding (ties away) would differ."""
@@ -172,14 +221,14 @@ def test_tile_mma_ties_bit_for_bit(cuda, mode):
                       probes.probe_tile_mma_plain(x, P, mode), 0)
 
 
-@pytest.mark.parametrize("mode", ["tf32", "f64"])
+@pytest.mark.parametrize("mode", list(probes.MMA_MODES))
 def test_tile_mma_timed_size_matches_plain(cuda, mode):
     x, M = _mma_operands(mode, _TIMED_ROWS[mode], cuda)
     _assert_close(probes.probe_tile_mma(x, M, mode),
                   probes.probe_tile_mma_plain(x, M, mode), _MMA_TOL[mode])
 
 
-@pytest.mark.parametrize("mode", ["tf32", "f64"])
+@pytest.mark.parametrize("mode", list(probes.MMA_MODES))
 def test_tile_mma_repeated_launches_agree(cuda, mode):
     """The ring's barriers: 50 launches at the timed size, each output
     equal bit for bit to the first."""
@@ -189,9 +238,9 @@ def test_tile_mma_repeated_launches_agree(cuda, mode):
         assert torch.equal(probes.probe_tile_mma(x, M, mode), first)
 
 
-@pytest.mark.parametrize("mode", ["tf32", "f64"])
+@pytest.mark.parametrize("mode", list(probes.MMA_MODES))
 def test_tile_mma_records_into_a_cuda_graph(cuda, mode):
-    x, M = _mma_operands(mode, 1040 if mode == "tf32" else 1032, cuda)
+    x, M = _mma_operands(mode, 1032 if mode == "f64" else 1040, cuda)
     want = probes.probe_tile_mma(x, M, mode)
     assert time_ms(lambda: probes.probe_tile_mma(x, M, mode), 3) > 0
     out = {}
@@ -203,7 +252,7 @@ def test_tile_mma_records_into_a_cuda_graph(cuda, mode):
     _assert_close(out["got"], want, 0)
 
 
-@pytest.mark.parametrize("mode", ["tf32", "f64"])
+@pytest.mark.parametrize("mode", list(probes.MMA_MODES))
 def test_tile_mma_refuses_a_misaligned_plane(cuda, mode):
     """The ring's bulk copies need 16-byte aligned rows: a plane that
     starts one element into its storage raises, naming the rule, and
