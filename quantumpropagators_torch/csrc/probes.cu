@@ -31,7 +31,11 @@
 //                           the tile above.
 //     replaces scratch_flips.py:20, and the roll / grouped-roll flip sums of
 //     scratch_roofline.py:19, scratch_r3_roofline.py:20 and
-//     scratch_r3_probe2.py:50.  Bound: bytes (one read, one write).
+//     scratch_r3_probe2.py:50.  Bound: bytes (one read, one write).  (b)
+//     and (d) load their tiles by TMA bulk copies: (b) one block a tile, a
+//     float4 of outputs a thread, its in-tile partners one LDS.128 each;
+//     (d) the TF32 tile product's pipeline (persistent blocks, a ring of
+//     stages) with B = A01.
 //   probe_tile_mma          an (R, 128) plane times a (128, 128) matrix:
 //                           TF32 and 3xTF32 (lo*Mhi + hi*Mlo + hi*Mhi, the
 //                           operands split in registers and in shared
@@ -342,19 +346,6 @@ __device__ __forceinline__ uint32_t tf32_bits(float f) {
   return r;
 }
 
-// D += A B for one 16x8 tile: A 16x8 (row), B 8x8 (col), TF32 in, f32 out.
-// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g+8, t),
-// a2 (g, t+4), a3 (g+8, t+4); b0 (t, g), b1 (t+4, g); c0 (g, 2t),
-// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // A01[k][n] = 1 where k and n differ in exactly one of bits 0-6.
 __device__ __forceinline__ uint32_t adjacency(int k, int n) {
   const int d = k ^ n;
@@ -362,8 +353,12 @@ __device__ __forceinline__ uint32_t adjacency(int k, int n) {
 }
 
 // out[i] = x[i] + sum_{lo <= j < hi} x[i ^ 2^j], the terms added in
-// ascending j (the MMA variant: x + (bits 0-6 by the tensor cores) + the
-// rest).  Tile variants: block b owns elements [b 2^tile_bits, ...).
+// ascending j.  The gather and shuffle variants; the tile and MMA variants
+// are the TMA kernels below (probe_flipsum_tile_kernel,
+// probe_flipsum_mma_kernel).  kShfl: block b owns elements [b 2^tile_bits,
+// ...), loads them into shared memory, and sums bits 0-4 by warp shuffles,
+// the rest of the tile from shared memory and the bits above from global
+// memory.
 template <int V>
 __global__ void __launch_bounds__(kThreads)
     probe_flipsum_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -391,65 +386,15 @@ __global__ void __launch_bounds__(kThreads)
       cp_async16(tile + 4 * q, x + base + 4 * q);
     cp_async_wait_all();
     __syncthreads();
-    int first = lo;  // the first bit the element loop below adds
-    float* lane_sum = nullptr;
-    if constexpr (V == kMma) {
-      // bits 0-6 of every element: (x_hi + x_lo) A01 over 16-row slabs,
-      // one slab a warp at a time, into a second tile
-      lane_sum = tile + tn;
-      const int lane = threadIdx.x & 31;
-      const int g = lane >> 2;
-      const int t = lane & 3;
-      for (int sl = threadIdx.x >> 5; sl < (tn >> 11);
-           sl += blockDim.x >> 5) {
-        const int r0 = sl << 4;
-        float c[16][4];
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) c[nt][q] = 0.f;
-        for (int ks = 0; ks < 16; ++ks) {
-          const int k0 = ks << 3;
-          const float av[4] = {tile[((r0 + g) << 7) + k0 + t],
-                               tile[((r0 + g + 8) << 7) + k0 + t],
-                               tile[((r0 + g) << 7) + k0 + t + 4],
-                               tile[((r0 + g + 8) << 7) + k0 + t + 4]};
-          uint32_t ah[4], al[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            ah[q] = tf32_bits(av[q]);
-            al[q] = tf32_bits(av[q] - __uint_as_float(ah[q]));
-          }
-#pragma unroll
-          for (int nt = 0; nt < 16; ++nt) {
-            const int col = (nt << 3) + g;
-            const uint32_t b0 = adjacency(k0 + t, col);
-            const uint32_t b1 = adjacency(k0 + t + 4, col);
-            mma_tf32(c[nt], al, b0, b1);
-            mma_tf32(c[nt], ah, b0, b1);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            lane_sum[((r0 + g + ((q >> 1) << 3)) << 7) + (nt << 3) + 2 * t +
-                     (q & 1)] = c[nt][q];
-      }
-      __syncthreads();
-      first = 7;
-    }
     const int mid = hi < tile_bits ? hi : tile_bits;
-    const int g0 = first > tile_bits ? first : tile_bits;
+    const int g0 = lo > tile_bits ? lo : tile_bits;
     for (int k = threadIdx.x; k < tn; k += blockDim.x) {
       const int64_t i = base + k;
       const float v = tile[k];
       float acc = v;
-      if constexpr (V == kMma) acc += lane_sum[k];
-      int j = first;
-      if constexpr (V == kShfl)
-        for (; j < mid && j < 5; ++j)
-          acc += __shfl_xor_sync(0xffffffffu, v, 1 << j);
+      int j = lo;
+      for (; j < mid && j < 5; ++j)
+        acc += __shfl_xor_sync(0xffffffffu, v, 1 << j);
       for (; j < mid; ++j) acc += tile[k ^ (1 << j)];
       // bits above the tile: partners in other tiles, all loads of an
       // element in flight before the first is added
@@ -543,34 +488,35 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src,
 }
 
 // Barriers: full[s] (one arrival, the producer's, plus the stage's bytes)
-// and empty[s] (one arrival from each warp of the group that read it).
-template <int Stages>
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
+// and empty[s] (one arrival from each of the `readers` warps that read it:
+// the 4 of a consumer group, or all 8 where every warp reads every stage).
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty,
+                                          int stages, int readers) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < Stages; ++s) {
+    for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4);
+      mbar_init(&empty[s], readers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 }
 
-// The producer: tile i of this block goes into stage i % Stages once
-// the group that read the stage's previous tile has freed it.  Tiles of
+// The producer: tile i of this block goes into stage i % stages once
+// the warps that read the stage's previous tile have freed it.  Tiles of
 // `tile_rows` rows of `row_bytes`, copied as one block of rows (stride
 // 0) or one copy a row into rows `stride` bytes apart.
-template <int Stages>
 __device__ __forceinline__ void produce(const unsigned char* x,
                                         unsigned char* ring, int stage_bytes,
                                         int stride, uint64_t* full,
                                         uint64_t* empty, int64_t rows,
-                                        int tile_rows, int row_bytes) {
+                                        int tile_rows, int row_bytes,
+                                        int stages) {
   const int64_t n_tiles = (rows + tile_rows - 1) / tile_rows;
   int64_t i = 0;
   for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++i) {
-    const int s = int(i % Stages);
-    mbar_wait(&empty[s], uint32_t((i / Stages) & 1) ^ 1u);
+    const int s = int(i % stages);
+    mbar_wait(&empty[s], uint32_t((i / stages) & 1) ^ 1u);
     const int64_t r0 = tile * tile_rows;
     const int n = int(rows - r0 < tile_rows ? rows - r0 : tile_rows);
     mbar_expect_tx(&full[s], uint32_t(n * row_bytes));
@@ -754,14 +700,14 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
   uint64_t* full =
       reinterpret_cast<uint64_t*>(Split ? obufs : obufs + 2 * 64 * 128);
   uint64_t* empty = full + kTf32Stages;
-  init_ring<kTf32Stages>(full, empty);
+  init_ring(full, empty, kTf32Stages, 4);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (warp == kProducerWarp) {
     if (lane == 0)
-      produce<kTf32Stages>(reinterpret_cast<const unsigned char*>(x), ring,
-                           kTf32StageBytes, 0, full, empty, rows,
-                           kTf32TileRows, 512);
+      produce(reinterpret_cast<const unsigned char*>(x), ring,
+              kTf32StageBytes, 0, full, empty, rows, kTf32TileRows, 512,
+              kTf32Stages);
     return;
   }
   // M, rounded (and split) once, into the core-matrix layout (rows in
@@ -870,6 +816,255 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// ---- flip sums through a TMA ring: probe_flipsum<tile> and <mma>
+
+// The tile variant.  Block b walks a chunk of `per_block` consecutive
+// stages of 2^stage_bits elements (stage_bits = tile_bits raised to 10,
+// 256 float4s, one a consumer thread, and cut to the plane) through a
+// ring of TMA bulk copies filled by one producer thread; its 8 consumer
+// warps read every stage.  Partners of bits below stage_bits are read from
+// the stage, those above from global memory.  A stage larger than the tile
+// moves the partners of bits tile_bits .. stage_bits - 1 from global to
+// shared memory; the terms and their order, and so the sum, are the same.
+// Each thread makes a float4 of outputs q: bits 0-1 swap values inside its
+// own float4, bit j >= 2 is one LDS.128 of float4 q ^ 2^(j-2) (a warp reads
+// 512 contiguous bytes in some order: no bank conflicts), the bits above
+// are float4 loads from global memory, all in flight before the first add;
+// the sum runs in ascending j (bit for bit the plain version's); one
+// STG.128 stores it.  The in-stage bit loop is unrolled to a fixed maximum
+// and predicated on a mask of the bits wanted.  Bound: bytes (one read,
+// one write).
+constexpr int kFlipConsumers = 256;  // the 8 consumer warps
+constexpr int kFlipStageMinBits = 10;
+constexpr int kFlipStageMaxBits = 15;  // 128 KB: the largest tile accepted
+
+// The partner of float4 q (value v) of a stage `s4` across bit j.
+__device__ __forceinline__ float4 flip_partner(const float4* s4, int q,
+                                               float4 v, int j) {
+  if (j == 0) return make_float4(v.y, v.x, v.w, v.z);
+  if (j == 1) return make_float4(v.z, v.w, v.x, v.y);
+  return s4[q ^ (1 << (j - 2))];
+}
+
+// Above: some bit lies above the stage (hi > stage_bits).
+template <bool Above>
+__global__ void __launch_bounds__(kPipeThreads)
+    probe_flipsum_tile_kernel(const float* __restrict__ x,
+                              float* __restrict__ out, int64_t n, int lo,
+                              int hi, int stage_bits, int stages,
+                              int64_t per_block) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int stage_bytes = 4 << stage_bits;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * stage_bytes);
+  uint64_t* empty = full + stages;
+  init_ring(full, empty, stages, kFlipConsumers / 32);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t n_tiles = n >> stage_bits;
+  // this block's stages: first, first + step, ..., count of them (a chunk;
+  // tools/flipsum_variants.py also times step = gridDim.x)
+  const int64_t first = int64_t(blockIdx.x) * per_block;
+  const int64_t step = 1;
+  int64_t count = (n_tiles - first + step - 1) / step;
+  if (count > per_block) count = per_block;
+  if (warp == kProducerWarp) {
+    if (lane == 0)
+      for (int64_t i = 0; i < count; ++i) {
+        const int s = int(i % stages);
+        mbar_wait(&empty[s], uint32_t((i / stages) & 1) ^ 1u);
+        mbar_expect_tx(&full[s], uint32_t(stage_bytes));
+        bulk_load(smem + s * stage_bytes,
+                  x + ((first + i * step) << stage_bits),
+                  uint32_t(stage_bytes), &full[s]);
+      }
+    return;
+  }
+  const int mid = hi < stage_bits ? hi : stage_bits;
+  const uint32_t in_stage =
+      lo < mid ? ((1u << mid) - 1u) & ~((1u << lo) - 1u) : 0u;
+  const int g0 = lo > stage_bits ? lo : stage_bits;  // first bit above
+  const int n4 = 1 << (stage_bits - 2);
+  for (int64_t i = 0; i < count; ++i) {
+    // every warp reads every stage in order, so fill k - 1 of this stage
+    // was read by this warp itself: its full barrier is in phase k
+    const int s = int(i % stages);
+    mbar_wait(&full[s], uint32_t((i / stages) & 1));
+    const float4* s4 =
+        reinterpret_cast<const float4*>(smem + s * stage_bytes);
+    const int64_t base = (first + i * step) << stage_bits;
+    for (int q = threadIdx.x; q < n4; q += kFlipConsumers) {
+      const int64_t e = base + 4 * q;
+      float4 far[Above ? kMaxFlipBits : 1];
+      if constexpr (Above) {
+#pragma unroll
+        for (int c = 0; c < kMaxFlipBits; ++c)
+          if (g0 + c < hi)
+            far[c] = ld_stream(x + (e ^ (int64_t(1) << (g0 + c))));
+      }
+      const float4 v = s4[q];
+      float4 acc = v;
+#pragma unroll
+      for (int j = 0; j < kFlipStageMaxBits; ++j)
+        if ((in_stage >> j) & 1u) acc = add4(acc, flip_partner(s4, q, v, j));
+      if constexpr (Above) {
+#pragma unroll
+        for (int c = 0; c < kMaxFlipBits; ++c)
+          if (g0 + c < hi) acc = add4(acc, far[c]);
+      }
+      st_stream(out + e, acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+}
+
+// The MMA variant: probe_tile_mma_tf32_kernel<true>'s pipeline (one
+// persistent block an SM walking the tiles blockIdx.x, + gridDim.x, ...,
+// one producer thread, two consumer groups taking the block's tiles in
+// turn) with B = A01 (exact in TF32, so no lo part: 64 KB) and a 4-stage
+// ring of 64-row (2^13-element) tiles.  Bits 0-6 of a 64 x 128 tile are
+// x_hi A01 + x_lo A01: per k-step the lo pass, then the hi pass, the 16
+// k-steps in two halves of 8 as 3xTF32 runs them.  B's columns are stored
+// in tf32_hw_n's order, so that the accumulator a thread holds for row r,
+// n-tiles 2q and 2q + 1, is columns 16q + 4t .. + 3: the float4 its A
+// fragment loads read.  The epilogue adds, per float4, x and the row
+// partners of bits 7 .. 12 (rows r ^ 2^(j-7)) from the stage, then the
+// bits above from global memory, and stores it (STG.128); each warp frees
+// the stage once it has read its partners.  Sending the tile out through
+// its stage with one TMA bulk store, as 3xTF32 does, was slower
+// (tools/flipsum_variants.py): it holds the stage and the group until the
+// store has read it.  The kernel stages 64 rows whatever tile_bits
+// (11-14): with 11 or 12 the partners of bits 11-12 come from the stage,
+// with 14 that of bit 13 from global memory; that changes where a partner
+// is read, not the terms or their order.  Shared memory: A01 64 KB, the
+// ring 4 x 32 KB.
+constexpr int kFlipMmaStages = 4;
+constexpr int kFlipMmaTileBits = 13;
+constexpr int kFlipMmaMaxAbove = kMaxFlipBits - kFlipMmaTileBits;  // lo = 0
+constexpr int kFlipMmaSmem =
+    kTf32MBytes + kFlipMmaStages * kTf32StageBytes + 2 * kFlipMmaStages * 8;
+static_assert(kFlipMmaSmem <= kMaxSmem, "flip-sum MMA shared memory");
+
+// Column n of a 128-wide row as a hardware column of wgmma's B and D:
+// n = 16q + 4t + c goes to n-tile 2q + c / 2, column 2t + c % 2 in it.
+__device__ __forceinline__ int tf32_hw_n(int n) {
+  return (n & ~15) + ((n & 2) << 2) + ((n >> 2) & 3) * 2 + (n & 1);
+}
+
+template <bool Above>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+    probe_flipsum_mma_kernel(const float* __restrict__ x,
+                             float* __restrict__ out, int64_t n, int hi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* bs = reinterpret_cast<float*>(smem);  // A01
+  unsigned char* ring = smem + kTf32MBytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kFlipMmaStages * kTf32StageBytes);
+  uint64_t* empty = full + kFlipMmaStages;
+  init_ring(full, empty, kFlipMmaStages, 4);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t rows = n >> 7;
+  if (warp == kProducerWarp) {
+    if (lane == 0)
+      produce(reinterpret_cast<const unsigned char*>(x), ring,
+              kTf32StageBytes, 0, full, empty, rows, kTf32TileRows, 512,
+              kFlipMmaStages);
+    return;
+  }
+  // A01 into the core-matrix layout, rows in tf32_hw_k's order, columns in
+  // tf32_hw_n's; made visible to the tensor cores' (async proxy) reads
+  for (int e = threadIdx.x; e < 128 * 128; e += 256) {
+    const int k = e >> 7, kp = tf32_hw_k(k), nh = tf32_hw_n(e & 127);
+    bs[(nh >> 3) * 1024 + (kp >> 2) * 32 + (nh & 7) * 4 + (kp & 3)] =
+        __uint_as_float(adjacency(k, e & 127));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync();
+  const int group = warp >> 2;
+  const int w = warp & 3;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r = 16 * w + g;  // the thread's rows r and r + 8 of a tile
+  const int mid = hi < kFlipMmaTileBits ? hi : kFlipMmaTileBits;
+  const uint32_t row_bits = mid > 7 ? (1u << (mid - 7)) - 1u : 0u;
+  const int64_t n_tiles = (rows + kTf32TileRows - 1) / kTf32TileRows;
+  int64_t i = group;
+  for (int64_t tile = blockIdx.x + int64_t(group) * gridDim.x; tile < n_tiles;
+       tile += 2 * int64_t(gridDim.x), i += 2) {
+    const int s = consume_wait<kFlipMmaStages>(full, empty, i);
+    const float* st =
+        reinterpret_cast<const float*>(ring + s * kTf32StageBytes);
+    const int64_t r0 = tile * kTf32TileRows;
+    // rows of the tile in the plane: a multiple of 16 (the plane is a
+    // power of two of at least 2^11 elements), so a warp's rows are all
+    // in or all out
+    const int valid =
+        int(rows - r0 < kTf32TileRows ? rows - r0 : kTf32TileRows);
+    float d[64];
+#pragma unroll
+    for (int q = 0; q < 64; ++q) d[q] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t a[8][4], al[8][4];
+      tile_fragments<true, 8>(st + (r << 7) + 4 * t + 64 * h, a, al);
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        pin(a[ks]);
+        pin(al[ks]);
+      }
+      pin(d);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < 8; ++ks) {
+        wgmma_tf32(d, al[ks], tf32_b_desc(bs, 8 * h + ks));
+        wgmma_tf32(d, a[ks], tf32_b_desc(bs, 8 * h + ks));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    }
+    // the epilogue: d[8q + 4(c/2) + 2hr + c%2] is column 16q + 4t + c of
+    // row r + 8hr
+    if (16 * w < valid) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int rr = r + 8 * hr;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int col = 16 * q + 4 * t;
+          const int64_t e = ((r0 + rr) << 7) + col;
+          float4 far[Above ? kFlipMmaMaxAbove : 1];
+          if constexpr (Above) {
+#pragma unroll
+            for (int c = 0; c < kFlipMmaMaxAbove; ++c)
+              if (kFlipMmaTileBits + c < hi)
+                far[c] = ld_stream(
+                    x + (e ^ (int64_t(1) << (kFlipMmaTileBits + c))));
+          }
+          const float4 v =
+              *reinterpret_cast<const float4*>(st + (rr << 7) + col);
+          const float* dq = d + 8 * q + 2 * hr;
+          float4 acc = make_float4(v.x + dq[0], v.y + dq[1], v.z + dq[4],
+                                   v.w + dq[5]);
+#pragma unroll
+          for (int b = 0; b < kFlipMmaTileBits - 7; ++b)
+            if ((row_bits >> b) & 1u)
+              acc = add4(acc, *reinterpret_cast<const float4*>(
+                                  st + ((rr ^ (1 << b)) << 7) + col));
+          if constexpr (Above) {
+#pragma unroll
+            for (int c = 0; c < kFlipMmaMaxAbove; ++c)
+              if (kFlipMmaTileBits + c < hi) acc = add4(acc, far[c]);
+          }
+          st_stream(out + e, acc);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+}
+
 // ---- FP64: mma.sync m16n8k16, both operands from shared memory
 
 constexpr int kF64TileRows = 32;
@@ -916,14 +1111,14 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(
       ring + kF64Stages * kF64StageBytes);
   uint64_t* empty = full + kF64Stages;
-  init_ring<kF64Stages>(full, empty);
+  init_ring(full, empty, kF64Stages, 4);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (warp == kProducerWarp) {
     if (lane == 0)
-      produce<kF64Stages>(reinterpret_cast<const unsigned char*>(x), ring,
-                          kF64StageBytes, kF64Stride * 8, full, empty, rows,
-                          kF64TileRows, 1024);
+      produce(reinterpret_cast<const unsigned char*>(x), ring,
+              kF64StageBytes, kF64Stride * 8, full, empty, rows,
+              kF64TileRows, 1024, kF64Stages);
     return;
   }
   // M[k][n] is b[k % 4] of lane 4 (n % 8) + (k % 16) / 4 in (k / 16, n / 8)
@@ -1331,6 +1526,59 @@ int launch_tile_mma_tf32(const void* x, const void* m, void* out,
   return int(cudaGetLastError());
 }
 
+// The tile variant's chunks and ring: kFlipTilesPerBlock stages a block,
+// through a ring of kFlipStages (fewer where they do not fit), the grid
+// as large as the chunks; the card schedules the blocks.  One stage a
+// block streams at the rate of copy_: seven blocks an SM keep the loads in
+// flight, and chunks of 2 or 4 stages through rings of 2 or 3, or
+// persistent blocks through 7, were 1-16 % slower
+// (tools/flipsum_variants.py varies these two constants).
+constexpr int kFlipTilesPerBlock = 1;
+constexpr int kFlipStages = 1;
+template <bool Above>
+int launch_flipsum_tile(const float* x, float* out, int64_t n, int lo,
+                        int hi, int stage_bits, cudaStream_t st) {
+  const int stage_bytes = 4 << stage_bits;
+  const int barrier_bytes = 16;  // a stage's full and empty barriers
+  const int64_t per_block = kFlipTilesPerBlock;
+  int stages = kFlipStages;
+  if (stages > kMaxSmem / (stage_bytes + barrier_bytes))
+    stages = kMaxSmem / (stage_bytes + barrier_bytes);
+  const int bytes = stages * (stage_bytes + barrier_bytes);
+  static int granted = 0;  // one per instantiation
+  cudaError_t rc =
+      allow_smem(probe_flipsum_tile_kernel<Above>, bytes, granted);
+  if (rc != cudaSuccess) return int(rc);
+  static bool carved = false;  // blocks an SM by shared memory, not L1
+  if (!carved) {
+    rc = cudaFuncSetAttribute(probe_flipsum_tile_kernel<Above>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
+    if (rc != cudaSuccess) return int(rc);
+    carved = true;
+  }
+  const int64_t tiles = n >> stage_bits;
+  const int blocks = int((tiles + per_block - 1) / per_block);
+  probe_flipsum_tile_kernel<Above><<<blocks, kPipeThreads, bytes, st>>>(
+      x, out, n, lo, hi, stage_bits, stages, per_block);
+  return int(cudaGetLastError());
+}
+
+// One persistent block an SM (at most one a tile).
+template <bool Above>
+int launch_flipsum_mma(const float* x, float* out, int64_t n, int hi,
+                       cudaStream_t st) {
+  static int granted = 0;  // one per instantiation
+  const cudaError_t rc =
+      allow_smem(probe_flipsum_mma_kernel<Above>, kFlipMmaSmem, granted);
+  if (rc != cudaSuccess) return int(rc);
+  const int64_t tiles = ((n >> 7) + kTf32TileRows - 1) / kTf32TileRows;
+  const int blocks = int(tiles < sm_count() ? tiles : sm_count());
+  probe_flipsum_mma_kernel<Above>
+      <<<blocks, kPipeThreads, kFlipMmaSmem, st>>>(x, out, n, hi);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes.  Each returns the CUDA error of its
@@ -1414,33 +1662,34 @@ int probe_flipsum(const void* x, void* out, int variant, int64_t n, int lo,
   }
   if (tile_bits < 8 || (int64_t(1) << tile_bits) > n ||
       (variant == kMma && (tile_bits < 11 || lo != 0 || hi < 7)) ||
-      (reinterpret_cast<uintptr_t>(x) & 15) != 0)
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)  // bulk copies' rule
     return int(cudaErrorInvalidValue);
+  // the tile sizes the variants accepted with a whole tile (the MMA
+  // variant's and its lane sums) in shared memory
   const int64_t bytes =
       (variant == kMma ? 2 : 1) * (int64_t(4) << tile_bits);
   if (bytes > kMaxSmem) return int(cudaErrorInvalidValue);
-  const int blocks = int(n >> tile_bits);
-  cudaError_t rc = cudaSuccess;
   if (variant == kTile) {
-    static int granted = 0;
-    rc = allow_smem(probe_flipsum_kernel<kTile>, int(bytes), granted);
-    if (rc == cudaSuccess)
-      probe_flipsum_kernel<kTile><<<blocks, kThreads, int(bytes), st>>>(
-          xf, of, n, lo, hi, tile_bits);
-  } else if (variant == kShfl) {
-    static int granted = 0;
-    rc = allow_smem(probe_flipsum_kernel<kShfl>, int(bytes), granted);
-    if (rc == cudaSuccess)
-      probe_flipsum_kernel<kShfl><<<blocks, kThreads, int(bytes), st>>>(
-          xf, of, n, lo, hi, tile_bits);
-  } else {
-    static int granted = 0;
-    rc = allow_smem(probe_flipsum_kernel<kMma>, int(bytes), granted);
-    if (rc == cudaSuccess)
-      probe_flipsum_kernel<kMma><<<blocks, kThreads, int(bytes), st>>>(
-          xf, of, n, lo, hi, tile_bits);
+    int log_n = 0;
+    while ((int64_t(1) << log_n) < n) ++log_n;
+    int stage_bits = tile_bits > kFlipStageMinBits ? tile_bits
+                                                   : kFlipStageMinBits;
+    if (stage_bits > log_n) stage_bits = log_n;
+    return hi > stage_bits
+               ? launch_flipsum_tile<true>(xf, of, n, lo, hi, stage_bits, st)
+               : launch_flipsum_tile<false>(xf, of, n, lo, hi, stage_bits,
+                                            st);
   }
+  if (variant == kMma)
+    return hi > kFlipMmaTileBits ? launch_flipsum_mma<true>(xf, of, n, hi, st)
+                                 : launch_flipsum_mma<false>(xf, of, n, hi, st);
+  static int granted = 0;
+  const cudaError_t rc =
+      allow_smem(probe_flipsum_kernel<kShfl>, int(bytes), granted);
   if (rc != cudaSuccess) return int(rc);
+  probe_flipsum_kernel<kShfl><<<int(n >> tile_bits), kThreads, int(bytes),
+                                st>>>(xf, of, n, lo, hi, tile_bits);
   return int(cudaGetLastError());
 }
 

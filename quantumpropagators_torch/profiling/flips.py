@@ -26,8 +26,8 @@ from .exactness import permutation_products
 
 SHAPES = {"l2": 1 << 20, "hbm": 1 << 26}
 BITS = (0, 9)
-# formulation: tile bits (the mma variant needs tiles of 16 rows and
-# keeps a second tile of its lane sums)
+# formulation: tile bits (the mma variant needs tiles of 16 rows; its
+# kernel stages 64 rows, 2^13 elements, whatever the tile)
 VARIANTS = {"gather": 12, "tile": 12, "shfl": 12, "mma": 13}
 
 

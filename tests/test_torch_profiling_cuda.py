@@ -137,17 +137,49 @@ def test_pipelined_matches_plain(cuda, chunk, flops):
                   1e-5 if flops else 0)
 
 
+def _flip_plane_bits(plane, variant, tile_bits):
+    """log2 of the plane: 2^18; 2^22, more tiles than the card holds at
+    once (132 SMs: 7 blocks an SM of the tile variant, 264 consumer groups
+    of the persistent mma one, which takes 512 tiles unevenly); one stage
+    (the tile variant stages at least 2^10 elements, the mma one 64
+    rows); 2^11, part of the mma variant's stage."""
+    stage = 13 if variant == "mma" else max(tile_bits, 10)
+    return {"2^18": 18, "2^22": 22, "one stage": stage, "2^11": 11}[plane]
+
+
 @pytest.mark.parametrize("variant, tile_bits",
                          [("gather", 12), ("tile", 12), ("tile", 8),
-                          ("shfl", 12), ("mma", 13), ("mma", 11)])
-@pytest.mark.parametrize("lo, hi", [(0, 9), (0, 12), (7, 17), (3, 5)])
-def test_flipsum_matches_plain(cuda, variant, tile_bits, lo, hi):
+                          ("tile", 14), ("tile", 15), ("shfl", 12),
+                          ("mma", 13), ("mma", 11)])
+@pytest.mark.parametrize("lo, hi", [(0, 9), (0, 12), (7, 17), (3, 5),
+                                    (0, 16), (13, 22)])
+@pytest.mark.parametrize("plane", ["2^18", "2^22", "one stage", "2^11"])
+def test_flipsum_matches_plain(cuda, variant, tile_bits, lo, hi, plane):
     if variant == "mma" and (lo != 0 or hi < 7):
         pytest.skip("the mma variant sums bits 0-6 on the tensor cores")
-    (x,) = _planes(1 << 18, 1, cuda)
+    n_bits = _flip_plane_bits(plane, variant, tile_bits)
+    if hi > n_bits or tile_bits > n_bits:
+        pytest.skip(f"bits [{lo}, {hi}) or tiles of 2^{tile_bits} do not "
+                    f"fit a plane of 2^{n_bits}")
+    (x,) = _planes(1 << n_bits, 1, cuda)
     got = probes.probe_flipsum(x, lo, hi, variant, tile_bits)
     want = probes.probe_flipsum_plain(x, lo, hi, variant, tile_bits)
     _assert_close(got, want, 2e-6 if variant == "mma" else 0)
+
+
+@pytest.mark.parametrize("variant, tile_bits", [("tile", 12), ("mma", 13)])
+def test_flipsum_repeated_launches_agree(cuda, variant, tile_bits):
+    """A race in the ring shows as a launch that differs from the first:
+    200 more launches on the same plane, each into memory that held NaNs,
+    equal the first bit for bit."""
+    (x,) = _planes(1 << 22, 1, cuda, seed=3)
+    first = probes.probe_flipsum(x, 0, 9, variant, tile_bits)
+    for _ in range(200):
+        # freed at once: the next output's block is handed back full of NaNs
+        torch.full_like(x, float("nan"))
+        got = probes.probe_flipsum(x, 0, 9, variant, tile_bits)
+        assert torch.equal(got, first)
+        del got
 
 
 @pytest.mark.parametrize("mode", list(probes.MMA_MODES))

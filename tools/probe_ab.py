@@ -1,5 +1,5 @@
-"""The stream and tile-product probe kernels of two checkouts, timed in turn
-on one card.
+"""The stream, tile-product and flip-sum probe kernels of two checkouts,
+timed in turn on one card.
 
     python3 tools/probe_ab.py PARENT CHANGE [--rounds N] [--reps N]
 
@@ -11,8 +11,10 @@ at ``chip_smoke.py`` phase 16's sizes: copy, triad and the 64-link FMA
 chain on planes of 2^26 elements, the 16-plane sums (``seq``, ``stride``,
 ``xor``, tiles of 1024 rows, flops 0) on planes of 2^22, and the TF32,
 3xTF32 and FP64 tile products on (2^19, 128) f32 and (2^18, 128) f64
-planes; ``Tensor.copy_``, ``torch.addcmul`` and ``torch.matmul`` f32 on
-the same inputs beside them.  ``--warm S`` keeps the card busy with
+planes, the four flip sums of bits 0-8 (``gather``, ``tile``, ``shfl``,
+``mma`` at ``profiling/flips.py``'s tile sizes) on the plane of 2^26;
+``Tensor.copy_``, ``torch.addcmul`` and ``torch.matmul`` f32 on the same
+inputs beside them.  ``--warm S`` keeps the card busy with
 copies for S seconds before the readings; the SM and memory clocks are
 read before and after that and after the readings.  The runs go parent, change, change,
 parent, ``N`` times over.  Prints one JSON line (milliseconds) per run
@@ -33,6 +35,7 @@ import torch
 sys.path.insert(0, ".")
 from quantumpropagators_torch.ops import probes as P
 from quantumpropagators_torch.profiling import planes, scatter, time_ms
+from quantumpropagators_torch.profiling.flips import VARIANTS as FLIPS
 
 import subprocess, time
 reps, warm = int(sys.argv[1]), float(sys.argv[2])
@@ -72,6 +75,8 @@ calls = {
     **{f"tile {m}": (lambda m=m: P.probe_tile_mma(
         x64 if m == "f64" else x2, M64 if m == "f64" else M, m))
        for m in ("tf32", "3xtf32", "f64")},
+    **{f"flips {v}": (lambda v=v, t=t: P.probe_flipsum(x, 0, 9, v, t))
+       for v, t in FLIPS.items()},
     "copy_": lambda: out.copy_(x),
     "addcmul": lambda: torch.addcmul(x, y, z, out=out),
     "matmul f32": matmul_f32,
