@@ -24,18 +24,22 @@
 //     replaces probe_scatter_r4.py:225 (build_manual).  Bound: bytes.
 //   probe_flipsum<V>        x[i] + sum_{lo <= j < hi} x[i ^ 2^j] as
 //                           (a) gather from global memory through L1/L2,
-//                           (b) a shared-memory tile, (c) __shfl_xor_sync
-//                           for bits 0-4 and the tile above, (d) bits 0-6
-//                           as a 0/1 (128, 128) product on the tensor cores
-//                           (two TF32 passes, the plane split hi + lo) and
-//                           the tile above.
+//                           (b) a shared-memory tile, (c) bits 0-1 inside a
+//                           thread's float4, bits 2-6 by __shfl_xor_sync
+//                           and the tile above, (d) bits 0-6 as a 0/1
+//                           (128, 128) product on the tensor cores (two
+//                           TF32 passes, the plane split hi + lo) and the
+//                           tile above.
 //     replaces scratch_flips.py:20, and the roll / grouped-roll flip sums of
 //     scratch_roofline.py:19, scratch_r3_roofline.py:20 and
-//     scratch_r3_probe2.py:50.  Bound: bytes (one read, one write).  (b)
-//     and (d) load their tiles by TMA bulk copies: (b) one block a tile, a
-//     float4 of outputs a thread, its in-tile partners one LDS.128 each;
-//     (d) the TF32 tile product's pipeline (persistent blocks, a ring of
-//     stages) with B = A01.
+//     scratch_r3_probe2.py:50.  Bound: bytes (one read, one write).  Each
+//     thread makes a float4 of outputs and stores it by one STG.128.  (a)
+//     one block a chunk of 256 float4s, every partner above bit 1 one
+//     LDG.128 through the read-only L1 path, in a run-time bit loop; (b)
+//     and (c) one kernel, one block a tile by a TMA bulk copy, its in-tile
+//     partners one LDS.128 each, (c) those of the lane bits 2-6 by four
+//     shuffles each; (d) the TF32 tile product's pipeline (persistent
+//     blocks, a ring of stages) with B = A01.
 //   probe_tile_mma          an (R, 128) plane times a (128, 128) matrix:
 //                           TF32 and 3xTF32 (lo*Mhi + hi*Mlo + hi*Mhi, the
 //                           operands split in registers and in shared
@@ -352,62 +356,36 @@ __device__ __forceinline__ uint32_t adjacency(int k, int n) {
   return (d != 0 && (d & (d - 1)) == 0) ? kOneTf32 : 0u;
 }
 
-// out[i] = x[i] + sum_{lo <= j < hi} x[i ^ 2^j], the terms added in
-// ascending j.  The gather and shuffle variants; the tile and MMA variants
-// are the TMA kernels below (probe_flipsum_tile_kernel,
-// probe_flipsum_mma_kernel).  kShfl: block b owns elements [b 2^tile_bits,
-// ...), loads them into shared memory, and sums bits 0-4 by warp shuffles,
-// the rest of the tile from shared memory and the bits above from global
-// memory.
-template <int V>
+// The gather variant: out[i] = x[i] + sum_{lo <= j < hi} x[i ^ 2^j], the
+// terms added in ascending j (bit for bit the plain version's), every
+// partner read from global memory.  One block a chunk of 256 float4s (4 KB,
+// element bits 0-9; no stride loop, as probe_stream), a float4 of outputs
+// q a thread: bits 0-1 swap values inside its own float4, bit j >= 2 is one
+// LDG.128 of float4 q ^ 2^(j-2) through the read-only path, which
+// allocates in L1 (partners of bits 2-9 lie in the block's own 4 KB), added
+// as it arrives; one STG.128 stores the sum.  Bound: bytes (one read, one
+// write).  The bit loop runs at run time, one load at a time: 20 registers,
+// 8 blocks an SM, whose warps hide the loads' latency.  All of a float4's
+// loads in flight before its first add (a compile-time loop of 16 masked
+// slots) took 80-96 registers, 2-3 blocks an SM, and 1.5-1.9x the time;
+// the compile-time loop adding each load as it comes took 32 and 4 % more
+// (tools/flipsum_variants.py).
+__device__ __forceinline__ float4 ld_nc(const float4* p) { return __ldg(p); }
+
 __global__ void __launch_bounds__(kThreads)
-    probe_flipsum_kernel(const float* __restrict__ x, float* __restrict__ out,
-                         int64_t n, int lo, int hi, int tile_bits) {
-  if constexpr (V == kGather) {
-    const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-    for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-         i += stride) {
-      float y[kMaxFlipBits];
-#pragma unroll
-      for (int c = 0; c < kMaxFlipBits; ++c)
-        if (lo + c < hi) y[c] = x[i ^ (int64_t(1) << (lo + c))];
-      float acc = x[i];
-#pragma unroll
-      for (int c = 0; c < kMaxFlipBits; ++c)
-        if (lo + c < hi) acc += y[c];
-      out[i] = acc;
-    }
-  } else {
-    extern __shared__ __align__(16) unsigned char smem[];
-    float* tile = reinterpret_cast<float*>(smem);
-    const int tn = 1 << tile_bits;
-    const int64_t base = int64_t(blockIdx.x) << tile_bits;
-    for (int q = threadIdx.x; q < (tn >> 2); q += blockDim.x)
-      cp_async16(tile + 4 * q, x + base + 4 * q);
-    cp_async_wait_all();
-    __syncthreads();
-    const int mid = hi < tile_bits ? hi : tile_bits;
-    const int g0 = lo > tile_bits ? lo : tile_bits;
-    for (int k = threadIdx.x; k < tn; k += blockDim.x) {
-      const int64_t i = base + k;
-      const float v = tile[k];
-      float acc = v;
-      int j = lo;
-      for (; j < mid && j < 5; ++j)
-        acc += __shfl_xor_sync(0xffffffffu, v, 1 << j);
-      for (; j < mid; ++j) acc += tile[k ^ (1 << j)];
-      // bits above the tile: partners in other tiles, all loads of an
-      // element in flight before the first is added
-      float y[kMaxFlipBits];
-#pragma unroll
-      for (int c = 0; c < kMaxFlipBits; ++c)
-        if (g0 + c < hi) y[c] = x[i ^ (int64_t(1) << (g0 + c))];
-#pragma unroll
-      for (int c = 0; c < kMaxFlipBits; ++c)
-        if (g0 + c < hi) acc += y[c];
-      out[i] = acc;
-    }
-  }
+    probe_flipsum_gather_kernel(const float4* __restrict__ x,
+                                float4* __restrict__ out, int64_t n4, int lo,
+                                int hi) {
+  const int64_t q = int64_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (q >= n4) return;
+  const float4 v = ld_nc(x + q);
+  float4 acc = v;
+  if (lo == 0 && hi > 0) acc = add4(acc, make_float4(v.y, v.x, v.w, v.z));
+  if (lo <= 1 && hi > 1) acc = add4(acc, make_float4(v.z, v.w, v.x, v.y));
+#pragma unroll 1
+  for (int j = lo > 2 ? lo : 2; j < hi; ++j)
+    acc = add4(acc, ld_nc(x + (q ^ (int64_t(1) << (j - 2)))));
+  out[q] = acc;
 }
 
 // ------------------------------------------------------------ tile MMA
@@ -816,38 +794,52 @@ __global__ void __launch_bounds__(kPipeThreads, 1)
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// ---- flip sums through a TMA ring: probe_flipsum<tile> and <mma>
+// ---- flip sums through a TMA ring: probe_flipsum<tile>, <shfl> and <mma>
 
-// The tile variant.  Block b walks a chunk of `per_block` consecutive
-// stages of 2^stage_bits elements (stage_bits = tile_bits raised to 10,
-// 256 float4s, one a consumer thread, and cut to the plane) through a
-// ring of TMA bulk copies filled by one producer thread; its 8 consumer
-// warps read every stage.  Partners of bits below stage_bits are read from
-// the stage, those above from global memory.  A stage larger than the tile
-// moves the partners of bits tile_bits .. stage_bits - 1 from global to
-// shared memory; the terms and their order, and so the sum, are the same.
-// Each thread makes a float4 of outputs q: bits 0-1 swap values inside its
-// own float4, bit j >= 2 is one LDS.128 of float4 q ^ 2^(j-2) (a warp reads
-// 512 contiguous bytes in some order: no bank conflicts), the bits above
-// are float4 loads from global memory, all in flight before the first add;
-// the sum runs in ascending j (bit for bit the plain version's); one
-// STG.128 stores it.  The in-stage bit loop is unrolled to a fixed maximum
-// and predicated on a mask of the bits wanted.  Bound: bytes (one read,
-// one write).
+// The tile and shuffle variants.  Block b walks a chunk of `per_block`
+// consecutive stages of 2^stage_bits elements (stage_bits = tile_bits raised to
+// 10, 256 float4s, one a consumer thread, and cut to the plane) through a ring
+// of TMA bulk copies filled by one producer thread; its 8 consumer warps read
+// every stage.  Partners of bits below stage_bits are read from the stage,
+// those above from global memory.  A stage larger than the tile moves the
+// partners of bits tile_bits .. stage_bits - 1 from global to shared memory;
+// the terms and their order, and so the sum, are the same.  Each thread makes a
+// float4 of outputs q: bits 0-1 swap values inside its own float4, bit j >= 2
+// is one LDS.128 of float4 q ^ 2^(j-2) (a warp reads 512 contiguous bytes in
+// some order: no bank conflicts), the bits above are float4 loads from global
+// memory, all in flight before the first add; the sum runs in ascending j (bit
+// for bit the plain version's); one STG.128 stores it.  The in-stage bit loop
+// is unrolled to a fixed maximum and predicated on a mask of the bits wanted.
+// Bound: bytes (one read, one write).
+// Shfl: the partners of bits 2-6 come from the threads that hold them, by
+// four __shfl_xor_sync a bit (one a component) in place of one LDS.128.
+// q = threadIdx.x + 256 r, so a consumer warp's lanes are its float4s' bits
+// 0-4, element bits 2-6, and lane ^ 2^(j-2) holds float4 q ^ 2^(j-2).  The
+// full mask is safe: stage_bits >= 8 (tiles of 2^8 or more, in the plane)
+// makes n4 a multiple of 64, so a warp is wholly inside the q loop or
+// wholly outside it, and the mask of bits is the same in every thread.
 constexpr int kFlipConsumers = 256;  // the 8 consumer warps
 constexpr int kFlipStageMinBits = 10;
 constexpr int kFlipStageMaxBits = 15;  // 128 KB: the largest tile accepted
 
 // The partner of float4 q (value v) of a stage `s4` across bit j.
+template <bool Shfl>
 __device__ __forceinline__ float4 flip_partner(const float4* s4, int q,
                                                float4 v, int j) {
   if (j == 0) return make_float4(v.y, v.x, v.w, v.z);
   if (j == 1) return make_float4(v.z, v.w, v.x, v.y);
+  if (Shfl && j < 7) {
+    const int m = 1 << (j - 2);
+    return make_float4(__shfl_xor_sync(0xffffffffu, v.x, m),
+                       __shfl_xor_sync(0xffffffffu, v.y, m),
+                       __shfl_xor_sync(0xffffffffu, v.z, m),
+                       __shfl_xor_sync(0xffffffffu, v.w, m));
+  }
   return s4[q ^ (1 << (j - 2))];
 }
 
 // Above: some bit lies above the stage (hi > stage_bits).
-template <bool Above>
+template <bool Above, bool Shfl>
 __global__ void __launch_bounds__(kPipeThreads)
     probe_flipsum_tile_kernel(const float* __restrict__ x,
                               float* __restrict__ out, int64_t n, int lo,
@@ -905,7 +897,8 @@ __global__ void __launch_bounds__(kPipeThreads)
       float4 acc = v;
 #pragma unroll
       for (int j = 0; j < kFlipStageMaxBits; ++j)
-        if ((in_stage >> j) & 1u) acc = add4(acc, flip_partner(s4, q, v, j));
+        if ((in_stage >> j) & 1u)
+          acc = add4(acc, flip_partner<Shfl>(s4, q, v, j));
       if constexpr (Above) {
 #pragma unroll
         for (int c = 0; c < kMaxFlipBits; ++c)
@@ -1535,7 +1528,7 @@ int launch_tile_mma_tf32(const void* x, const void* m, void* out,
 // (tools/flipsum_variants.py varies these two constants).
 constexpr int kFlipTilesPerBlock = 1;
 constexpr int kFlipStages = 1;
-template <bool Above>
+template <bool Above, bool Shfl>
 int launch_flipsum_tile(const float* x, float* out, int64_t n, int lo,
                         int hi, int stage_bits, cudaStream_t st) {
   const int stage_bytes = 4 << stage_bits;
@@ -1547,11 +1540,11 @@ int launch_flipsum_tile(const float* x, float* out, int64_t n, int lo,
   const int bytes = stages * (stage_bytes + barrier_bytes);
   static int granted = 0;  // one per instantiation
   cudaError_t rc =
-      allow_smem(probe_flipsum_tile_kernel<Above>, bytes, granted);
+      allow_smem(probe_flipsum_tile_kernel<Above, Shfl>, bytes, granted);
   if (rc != cudaSuccess) return int(rc);
   static bool carved = false;  // blocks an SM by shared memory, not L1
   if (!carved) {
-    rc = cudaFuncSetAttribute(probe_flipsum_tile_kernel<Above>,
+    rc = cudaFuncSetAttribute(probe_flipsum_tile_kernel<Above, Shfl>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               int(cudaSharedmemCarveoutMaxShared));
     if (rc != cudaSuccess) return int(rc);
@@ -1559,8 +1552,20 @@ int launch_flipsum_tile(const float* x, float* out, int64_t n, int lo,
   }
   const int64_t tiles = n >> stage_bits;
   const int blocks = int((tiles + per_block - 1) / per_block);
-  probe_flipsum_tile_kernel<Above><<<blocks, kPipeThreads, bytes, st>>>(
-      x, out, n, lo, hi, stage_bits, stages, per_block);
+  probe_flipsum_tile_kernel<Above, Shfl>
+      <<<blocks, kPipeThreads, bytes, st>>>(x, out, n, lo, hi, stage_bits,
+                                             stages, per_block);
+  return int(cudaGetLastError());
+}
+
+// The gather variant: one block a chunk of 256 float4s.
+int launch_flipsum_gather(const float* x, float* out, int64_t n, int lo,
+                          int hi, cudaStream_t st) {
+  const int64_t n4 = n >> 2;
+  const int blocks = int((n4 + kThreads - 1) / kThreads);
+  probe_flipsum_gather_kernel<<<blocks, kThreads, 0, st>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), n4,
+      lo, hi);
   return int(cudaGetLastError());
 }
 
@@ -1648,49 +1653,41 @@ int probe_stream_pipelined(const void* planes, void* out, int n_in, int64_t n,
 
 int probe_flipsum(const void* x, void* out, int variant, int64_t n, int lo,
                   int hi, int tile_bits, void* stream) {
-  if (n < 1 || (n & (n - 1)) != 0 || lo < 0 || hi < lo ||
+  if (n < 4 || (n & (n - 1)) != 0 || lo < 0 || hi < lo ||
       hi - lo > kMaxFlipBits || (int64_t(1) << hi) > n || variant < kGather ||
-      variant > kMma)
-    return int(cudaErrorInvalidValue);
+      variant > kMma || (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)  // float4s' and bulk
+    return int(cudaErrorInvalidValue);                // copies' rule
   cudaStream_t st = (cudaStream_t)stream;
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(out);
-  if (variant == kGather) {
-    probe_flipsum_kernel<kGather><<<grid_for(n, kThreads), kThreads, 0, st>>>(
-        xf, of, n, lo, hi, tile_bits);
-    return int(cudaGetLastError());
-  }
+  if (variant == kGather) return launch_flipsum_gather(xf, of, n, lo, hi, st);
   if (tile_bits < 8 || (int64_t(1) << tile_bits) > n ||
-      (variant == kMma && (tile_bits < 11 || lo != 0 || hi < 7)) ||
-      (reinterpret_cast<uintptr_t>(x) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(out) & 15) != 0)  // bulk copies' rule
+      (variant == kMma && (tile_bits < 11 || lo != 0 || hi < 7)))
     return int(cudaErrorInvalidValue);
   // the tile sizes the variants accepted with a whole tile (the MMA
   // variant's and its lane sums) in shared memory
   const int64_t bytes =
       (variant == kMma ? 2 : 1) * (int64_t(4) << tile_bits);
   if (bytes > kMaxSmem) return int(cudaErrorInvalidValue);
-  if (variant == kTile) {
-    int log_n = 0;
-    while ((int64_t(1) << log_n) < n) ++log_n;
-    int stage_bits = tile_bits > kFlipStageMinBits ? tile_bits
-                                                   : kFlipStageMinBits;
-    if (stage_bits > log_n) stage_bits = log_n;
-    return hi > stage_bits
-               ? launch_flipsum_tile<true>(xf, of, n, lo, hi, stage_bits, st)
-               : launch_flipsum_tile<false>(xf, of, n, lo, hi, stage_bits,
-                                            st);
-  }
   if (variant == kMma)
     return hi > kFlipMmaTileBits ? launch_flipsum_mma<true>(xf, of, n, hi, st)
                                  : launch_flipsum_mma<false>(xf, of, n, hi, st);
-  static int granted = 0;
-  const cudaError_t rc =
-      allow_smem(probe_flipsum_kernel<kShfl>, int(bytes), granted);
-  if (rc != cudaSuccess) return int(rc);
-  probe_flipsum_kernel<kShfl><<<int(n >> tile_bits), kThreads, int(bytes),
-                                st>>>(xf, of, n, lo, hi, tile_bits);
-  return int(cudaGetLastError());
+  int log_n = 0;
+  while ((int64_t(1) << log_n) < n) ++log_n;
+  int stage_bits =
+      tile_bits > kFlipStageMinBits ? tile_bits : kFlipStageMinBits;
+  if (stage_bits > log_n) stage_bits = log_n;
+  const bool above = hi > stage_bits;
+  if (variant == kShfl)
+    return above ? launch_flipsum_tile<true, true>(xf, of, n, lo, hi,
+                                                   stage_bits, st)
+                 : launch_flipsum_tile<false, true>(xf, of, n, lo, hi,
+                                                    stage_bits, st);
+  return above ? launch_flipsum_tile<true, false>(xf, of, n, lo, hi,
+                                                  stage_bits, st)
+               : launch_flipsum_tile<false, false>(xf, of, n, lo, hi,
+                                                   stage_bits, st);
 }
 
 int probe_tile_mma_f32(const void* x, const void* m, void* out, int mode,

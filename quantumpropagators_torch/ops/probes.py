@@ -356,12 +356,19 @@ def probe_flipsum(x, lo, hi, variant="tile", tile_bits=12):
     ``2^L`` elements, the terms in ascending ``j``, by ``variant``:
     ``gather`` (partners from global memory), ``tile`` (tiles of
     ``2^tile_bits`` elements in shared memory, partners above from global
-    memory), ``shfl`` (bits 0-4 by warp shuffles, then as ``tile``) or
-    ``mma`` (bits 0-6 as a 0/1 product on the tensor cores in two TF32
-    passes, then as ``tile``; sums in another order)."""
+    memory), ``shfl`` (bits 0-1 inside a thread's float4, bits 2-6 by warp
+    shuffles, then as ``tile``) or ``mma`` (bits 0-6 as a 0/1 product on
+    the tensor cores in two TF32 passes, then as ``tile``; sums in another
+    order).  On the card every variant reads and writes float4s (``tile``,
+    ``shfl`` and ``mma`` load by TMA bulk copies), so the plane must start
+    16-byte aligned and hold at least 4 elements."""
     if _device_of(x) == "cpu":
         return probe_flipsum_plain(x, lo, hi, variant, tile_bits)
     n = _check_flipsum(x, lo, hi, variant, tile_bits)
+    if x.data_ptr() % 16 or n < 4:
+        raise ValueError(f"{variant} reads the plane as float4s, which need "
+                         f"a plane of 4 or more elements that starts 16-byte "
+                         f"aligned")
     out = torch.empty_like(x)
     _cuda.launch("probe_flipsum", (x.data_ptr(), out.data_ptr(),
                                    FLIP_VARIANTS[variant], n, lo, hi,

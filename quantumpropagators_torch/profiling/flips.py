@@ -7,12 +7,13 @@ The 9-bit flip sum ``x[i] + Σ_{j<9} x[i ^ 2^j]`` of one float32 plane
 (index bits 0-6 are the TPU's lanes, 7-8 its rows) by each Hopper
 formulation of ``probe_flipsum``: ``gather`` (partners from global
 memory through L1/L2), ``tile`` (a shared-memory tile, as the flip
-order's tiled pass), ``shfl`` (warp shuffles for bits 0-4, the tile
-above) and ``mma`` (bits 0-6 as a 0/1 (128, 128) product on the tensor
-cores, two TF32 passes, the tile above).  Plane sizes: ``l2``, the
-script's (2^13, 128) = 2^20 elements (4 MB, L2-resident), and ``hbm``,
-2^26 elements.  Then the script's exactness probe: one (512, 128) tile
-times a permutation and times the 7-bit adjacency on the tensor cores
+order's tiled pass), ``shfl`` (bits 0-1 inside a thread's float4, bits
+2-6 by warp shuffles, the tile above) and ``mma`` (bits 0-6 as a 0/1
+(128, 128) product on the tensor cores, two TF32 passes, the tile
+above).  Plane sizes: ``l2``, the script's (2^13, 128) = 2^20 elements
+(4 MB, L2-resident), and ``hbm``, 2^26 elements.  Then the script's
+exactness probe: one (512, 128) tile times a permutation and times the
+7-bit adjacency on the tensor cores
 (:func:`.exactness.permutation_products`).
 """
 

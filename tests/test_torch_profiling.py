@@ -445,6 +445,21 @@ def test_tile_mma_on_cpu_takes_an_offset_plane(mode):
                        probes.probe_tile_mma_plain(x.clone(), M, mode))
 
 
+@pytest.mark.parametrize("variant, tile_bits", [("gather", 12), ("tile", 12),
+                                                ("shfl", 12), ("mma", 13)])
+def test_flipsum_on_cpu_takes_an_offset_plane(variant, tile_bits):
+    """Only the card's float4 loads need a 16-byte aligned plane: on the
+    CPU a contiguous view one element into its storage is the plain sum."""
+    flat = _T(planes_np(1, rows=129)[0]).reshape(-1)[:(1 << 14) + 1]
+    x = flat[1:]
+    assert x.data_ptr() % 16
+    probes.reset_launches()
+    assert torch.equal(probes.probe_flipsum(x, 0, 9, variant, tile_bits),
+                       probes.probe_flipsum_plain(x.clone(), 0, 9, variant,
+                                                  tile_bits))
+    assert not any(probes.LAUNCHES.values())
+
+
 def test_wrappers_on_cpu_run_the_plain_versions():
     probes.reset_launches()
     xs = [_T(x).reshape(-1) for x in planes_np(3, rows=32)]

@@ -150,6 +150,7 @@ def _flip_plane_bits(plane, variant, tile_bits):
 @pytest.mark.parametrize("variant, tile_bits",
                          [("gather", 12), ("tile", 12), ("tile", 8),
                           ("tile", 14), ("tile", 15), ("shfl", 12),
+                          ("shfl", 8), ("shfl", 14), ("shfl", 15),
                           ("mma", 13), ("mma", 11)])
 @pytest.mark.parametrize("lo, hi", [(0, 9), (0, 12), (7, 17), (3, 5),
                                     (0, 16), (13, 22)])
@@ -167,7 +168,8 @@ def test_flipsum_matches_plain(cuda, variant, tile_bits, lo, hi, plane):
     _assert_close(got, want, 2e-6 if variant == "mma" else 0)
 
 
-@pytest.mark.parametrize("variant, tile_bits", [("tile", 12), ("mma", 13)])
+@pytest.mark.parametrize("variant, tile_bits", [("tile", 12), ("mma", 13),
+                                                ("shfl", 12), ("gather", 12)])
 def test_flipsum_repeated_launches_agree(cuda, variant, tile_bits):
     """A race in the ring shows as a launch that differs from the first:
     200 more launches on the same plane, each into memory that held NaNs,
@@ -180,6 +182,21 @@ def test_flipsum_repeated_launches_agree(cuda, variant, tile_bits):
         got = probes.probe_flipsum(x, 0, 9, variant, tile_bits)
         assert torch.equal(got, first)
         del got
+
+
+@pytest.mark.parametrize("variant, tile_bits", [("gather", 12), ("tile", 12),
+                                                ("shfl", 12), ("mma", 13)])
+def test_flipsum_misaligned_plane_raises(cuda, variant, tile_bits):
+    """Every variant reads float4s (and all but gather TMA bulk copies):
+    a plane that starts 4 bytes into its allocation is refused by name,
+    not launched."""
+    (flat,) = _planes((1 << 14) + 1, 1, cuda)
+    x = flat[1:]
+    assert x.data_ptr() % 16
+    before = probes.LAUNCHES[f"probe_flipsum<{variant}>"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        probes.probe_flipsum(x, 0, 9, variant, tile_bits)
+    assert probes.LAUNCHES[f"probe_flipsum<{variant}>"] == before
 
 
 @pytest.mark.parametrize("mode", list(probes.MMA_MODES))

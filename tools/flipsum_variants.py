@@ -1,6 +1,6 @@
-"""Time the flip-sum kernels of ``csrc/probes.cu`` that load their tiles
-by TMA bulk copies (``probe_flipsum`` ``tile`` and ``mma``) against
-variants of themselves on one NVIDIA GPU.
+"""Time the flip-sum kernels of ``csrc/probes.cu`` (``probe_flipsum``
+``tile``, ``shfl``, ``mma`` and ``gather``) against variants of
+themselves on one NVIDIA GPU.
 
     python3 tools/flipsum_variants.py [--reps N] [--repeat N]
 
@@ -8,8 +8,10 @@ Each variant is a copy of ``probes.cu`` with one change made by text
 substitution, built with the package's ``nvcc`` flags into
 ``quantumpropagators_torch/_build/flipsum_variants/``:
 
-- ``as built``: tile one block a stage (2^12 elements), mma persistent
-  blocks through a 4-stage ring;
+- ``as built``: tile and shfl one block a stage (2^12 elements), mma
+  persistent blocks through a 4-stage ring, gather one block a chunk of
+  256 float4s; ``tile`` as built is ``shfl`` with the partners of bits
+  2-6 read from shared memory in place of shuffled;
 - ``ring: chunks of 2, 2 stages`` and ``ring: chunks of 4, 3 stages``
   (tile): each block walks 2 or 4 consecutive stages through a ring, so
   that its next loads run under its sums and stores;
@@ -19,8 +21,10 @@ substitution, built with the package's ``nvcc`` flags into
 - ``run-time bit loop`` (tile): the in-stage bit loop ``lo .. mid`` at run
   time, not unrolled, in place of the unrolled loop over a fixed maximum
   with a mask;
-- ``scalar`` (tile): one element a thread in place of a float4, every
-  in-stage partner (bits 0 and 1 too) one 4-byte shared load;
+- ``scalar`` (tile, shfl): one element a thread in place of a float4,
+  every in-stage partner (bits 0 and 1 too) one 4-byte shared load; for
+  shfl those of bits 0-4 (the lane bits of one element a thread) by one
+  scalar shuffle each;
 - ``no producer warp`` (tile): 256 threads, thread 0 issues the block's
   bulk copy;
 - ``cp.async`` (tile): 256 threads, each copies its share of the tile with
@@ -31,17 +35,30 @@ substitution, built with the package's ``nvcc`` flags into
   out by one TMA bulk store, the stage freed once that store has read it,
   in place of each thread's float4 stores;
 - ``no MMA`` (mma): the ``wgmma`` instructions taken out (the ring, the
-  fragment loads and the epilogue alone; the result lacks bits 0-6).
+  fragment loads and the epilogue alone; the result lacks bits 0-6);
+- ``scalar gather`` (gather): one element a thread in a grid-stride loop
+  of at most 16 blocks an SM, every partner one 4-byte load (the kernel
+  before its float4 redesign);
+- ``gather: loads in flight first``: the bit loop at compile time over
+  16 slots masked by ``lo`` and ``hi``, every load of a float4 issued
+  before its first add, in place of the run-time loop that adds each load
+  as it comes;
+- ``gather: compile-time bit loop``: the same masked loop over 16 slots,
+  each load added as it comes;
+- ``gather: grid-stride, 16 blocks an SM``: the float4 kernel in a
+  grid-stride loop of ``grid_for``'s size in place of one block a chunk;
+- ``gather: plain loads``: ``ld.global`` in place of the read-only path
+  (``ld.global.nc``, ``__ldg``).
 
 Each times the 9-bit flip sum (bits 0-8) of a 2^26-element f32 plane at
-``profiling/flips.py``'s tile sizes (tile 12, mma 13), as ``chip_smoke.py``
-phase 16b does, with ``profiling.time_ms`` (a replayed CUDA graph of
-``reps`` launches), twice in turn (every variant, then every variant
-again).  A variant that computes the flip sum is held against the plain
-version first (tile bit for bit, mma 2e-6 of the largest value), and
-``as built`` is launched ``repeat`` more times on the same plane, each
-output equal bit for bit to the first.  ``Tensor.copy_`` of the plane is
-timed beside them.
+``profiling/flips.py``'s tile sizes (tile, shfl and gather 12, mma 13), as
+``chip_smoke.py`` phase 16b does, with ``profiling.time_ms`` (a replayed
+CUDA graph of ``reps`` launches), twice in turn (every variant, then every
+variant again).  A variant that computes the flip sum is held against the
+plain version first (tile, shfl and gather bit for bit, mma 2e-6 of the
+largest value), and ``as built`` is launched ``repeat`` more times on the
+same plane, each output equal bit for bit to the first.
+``Tensor.copy_`` of the plane is timed beside them.
 """
 
 from __future__ import annotations
@@ -69,10 +86,13 @@ SCALAR_LOOP = r"""    const float* sf = reinterpret_cast<const float*>(s4);
         for (int c = 0; c < kMaxFlipBits; ++c)
           if (g0 + c < hi) far[c] = x[e ^ (int64_t(1) << (g0 + c))];
       }
-      float acc = sf[k];
+      const float v = sf[k];
+      float acc = v;
 #pragma unroll
       for (int j = 0; j < kFlipStageMaxBits; ++j)
-        if ((in_stage >> j) & 1u) acc += sf[k ^ (1 << j)];
+        if ((in_stage >> j) & 1u)
+          acc += Shfl && j < 5 ? __shfl_xor_sync(0xffffffffu, v, 1 << j)
+                               : sf[k ^ (1 << j)];
       if constexpr (Above) {
 #pragma unroll
         for (int c = 0; c < kMaxFlipBits; ++c)
@@ -151,8 +171,8 @@ GRID = ("  const int64_t per_block = kFlipTilesPerBlock;\n",
 PRODUCER = ("  if (count > per_block) count = per_block;\n"
             "  if (warp == kProducerWarp) {\n    if (lane == 0)\n",
             "    return;\n  }\n  const int mid = hi < stage_bits")
-LAUNCH = ("probe_flipsum_tile_kernel<Above><<<blocks, kPipeThreads, bytes, "
-          "st>>>(")
+LAUNCH = ("      <<<blocks, kPipeThreads, bytes, st>>>(x, out, n, lo, hi, "
+          "stage_bits,\n")
 FULL_WAIT = "    mbar_wait(&full[s], uint32_t((i / stages) & 1));\n"
 CP_ASYNC_LOAD = r"""    {
       const float* src = x + ((first + i * step) << stage_bits);
@@ -163,6 +183,61 @@ CP_ASYNC_LOAD = r"""    {
       __syncthreads();
     }
 """
+
+GATHER_Q = ("  const int64_t q = int64_t(blockIdx.x) * kThreads + threadIdx.x;\n"
+            "  if (q >= n4) return;\n")
+GATHER_END = "  out[q] = acc;\n}\n"
+GATHER_GRID = "  const int blocks = int((n4 + kThreads - 1) / kThreads);\n"
+GATHER_LOOP = ("#pragma unroll 1\n"
+               "  for (int j = lo > 2 ? lo : 2; j < hi; ++j)\n"
+               "    acc = add4(acc, ld_nc(x + (q ^ (int64_t(1) << (j - 2)))));"
+               "\n")
+GATHER_MASK = r"""  const int g = lo > 2 ? lo : 2;  // the first bit read from memory
+  const uint32_t far = hi > g ? (1u << (hi - g)) - 1u : 0u;  // bits g + c
+"""
+# every load of a float4 in flight before its first add
+GATHER_IN_FLIGHT = GATHER_MASK + r"""  float4 y[kMaxFlipBits];
+#pragma unroll
+  for (int c = 0; c < kMaxFlipBits; ++c)
+    if ((far >> c) & 1u) y[c] = ld_nc(x + (q ^ (int64_t(1) << (g + c - 2))));
+#pragma unroll
+  for (int c = 0; c < kMaxFlipBits; ++c)
+    if ((far >> c) & 1u) acc = add4(acc, y[c]);
+"""
+# the same loop, each load added as it comes
+GATHER_UNROLLED = GATHER_MASK + r"""#pragma unroll
+  for (int c = 0; c < kMaxFlipBits; ++c)
+    if ((far >> c) & 1u)
+      acc = add4(acc, ld_nc(x + (q ^ (int64_t(1) << (g + c - 2)))));
+"""
+# the gather kernel before its float4 redesign, on the float4 kernel's
+# arguments
+GATHER_SCALAR = r"""  const float* xs = reinterpret_cast<const float*>(x);
+  float* os = reinterpret_cast<float*>(out);
+  const int64_t n = n4 << 2;
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float y[kMaxFlipBits];
+#pragma unroll
+    for (int c = 0; c < kMaxFlipBits; ++c)
+      if (lo + c < hi) y[c] = xs[i ^ (int64_t(1) << (lo + c))];
+    float acc = xs[i];
+#pragma unroll
+    for (int c = 0; c < kMaxFlipBits; ++c)
+      if (lo + c < hi) acc += y[c];
+    os[i] = acc;
+  }
+}
+"""
+LD_NC = "{ return __ldg(p); }"
+LD_PLAIN = r"""{
+  float4 v;
+  asm("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}"""
 
 
 def _block(src, start, end):
@@ -207,7 +282,7 @@ def substitutions(src):
     """name: ([(old, new) substitutions], computes the flip sum, variants
     run)."""
     return {
-        "as built": ([], True, ("tile", "mma")),
+        "as built": ([], True, ("tile", "shfl", "mma", "gather")),
         "ring: chunks of 2, 2 stages": (chunk(2, 2), True, ("tile",)),
         "ring: chunks of 4, 3 stages": (chunk(4, 3), True, ("tile",)),
         "persistent ring, 2 an SM x 7 stages": (persistent_strided(2, 7),
@@ -215,7 +290,7 @@ def substitutions(src):
         "run-time bit loop": ([(BIT_LOOP, RUNTIME_BIT_LOOP)], True,
                               ("tile",)),
         "scalar": ([(_block(src, TILE_LOOP_START, TILE_LOOP_END),
-                     SCALAR_LOOP)], True, ("tile",)),
+                     SCALAR_LOOP)], True, ("tile", "shfl")),
         "no producer warp": (no_producer(src, False), True, ("tile",)),
         "cp.async": (no_producer(src, True), True, ("tile",)),
         "x in the product": ([(FLIP_ONLY, SELF_OR_FLIP),
@@ -226,11 +301,27 @@ def substitutions(src):
                           (MMA_D, MMA_D.replace("const ", "")),
                           (MMA_TAIL, STAGE_STORE)], True, ("mma",)),
         "no MMA": ([(MMA_PASSES, "")], False, ("mma",)),
+        "scalar gather": ([(_block(src, GATHER_Q, GATHER_END), GATHER_SCALAR),
+                           (GATHER_GRID, "  const int blocks = grid_for(n, "
+                                         "kThreads);\n")], True,
+                          ("gather",)),
+        "gather: loads in flight first": ([(GATHER_LOOP, GATHER_IN_FLIGHT)],
+                                           True, ("gather",)),
+        "gather: compile-time bit loop": ([(GATHER_LOOP, GATHER_UNROLLED)],
+                                          True, ("gather",)),
+        "gather: grid-stride, 16 blocks an SM": (
+            [(GATHER_Q, "  for (int64_t q = int64_t(blockIdx.x) * kThreads "
+                        "+ threadIdx.x; q < n4;\n"
+                        "       q += int64_t(gridDim.x) * kThreads) {\n"),
+             (GATHER_END, "  out[q] = acc;\n  }\n}\n"),
+             (GATHER_GRID, "  const int blocks = grid_for(n4, kThreads);\n")],
+            True, ("gather",)),
+        "gather: plain loads": ([(LD_NC, LD_PLAIN)], True, ("gather",)),
     }
 
 
-TILE_BITS = {"tile": 12, "mma": 13}  # profiling/flips.py's
-TOL = {"tile": 0, "mma": 2e-6}
+TILE_BITS = {"tile": 12, "shfl": 12, "mma": 13, "gather": 12}  # flips.py's
+TOL = {"tile": 0, "shfl": 0, "mma": 2e-6, "gather": 0}
 BITS = (0, 9)
 
 
@@ -269,7 +360,7 @@ def build_variants(variants, src, out_dir):
         for ln in err.splitlines():  # the ring kernels' registers and spills
             if "Compiling entry function" in ln:
                 kernel = ln
-            elif "flipsum_tile" in kernel or "flipsum_mma" in kernel:
+            elif "flipsum_" in kernel:
                 if "registers" in ln or "spill" in ln:
                     regs.append(ln.split(":", 1)[-1].strip())
         print(f"variant {name}: built; ptxas {regs}", flush=True)

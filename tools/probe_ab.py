@@ -12,11 +12,12 @@ chain on planes of 2^26 elements, the 16-plane sums (``seq``, ``stride``,
 ``xor``, tiles of 1024 rows, flops 0) on planes of 2^22, and the TF32,
 3xTF32 and FP64 tile products on (2^19, 128) f32 and (2^18, 128) f64
 planes, the four flip sums of bits 0-8 (``gather``, ``tile``, ``shfl``,
-``mma`` at ``profiling/flips.py``'s tile sizes) on the plane of 2^26;
-``Tensor.copy_``, ``torch.addcmul`` and ``torch.matmul`` f32 on the same
-inputs beside them.  ``--warm S`` keeps the card busy with
-copies for S seconds before the readings; the SM and memory clocks are
-read before and after that and after the readings.  The runs go parent, change, change,
+``mma`` at ``profiling/flips.py``'s tile sizes) on the plane of 2^26 and
+on its first 2^20 elements; ``Tensor.copy_`` (at both sizes),
+``torch.addcmul`` and ``torch.matmul`` f32 on the same inputs beside
+them.  ``--warm S`` keeps the card busy with copies for S seconds before
+the readings; the SM and memory clocks are read before and after that
+and after the readings.  The runs go parent, change, change,
 parent, ``N`` times over.  Prints one JSON line (milliseconds) per run
 and the card's name and power limit last.
 """
@@ -77,7 +78,11 @@ calls = {
        for m in ("tf32", "3xtf32", "f64")},
     **{f"flips {v}": (lambda v=v, t=t: P.probe_flipsum(x, 0, 9, v, t))
        for v, t in FLIPS.items()},
+    **{f"flips {v} 2^20": (lambda v=v, t=t: P.probe_flipsum(x[:1 << 20], 0,
+                                                            9, v, t))
+       for v, t in FLIPS.items()},
     "copy_": lambda: out.copy_(x),
+    "copy_ 2^20": lambda: out[:1 << 20].copy_(x[:1 << 20]),
     "addcmul": lambda: torch.addcmul(x, y, z, out=out),
     "matmul f32": matmul_f32,
 }
