@@ -126,6 +126,7 @@ a result.  It refuses to run without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import logging
@@ -1657,6 +1658,128 @@ def batched_phase(device, card, L=L_CHECK, n_batch=8):
         f"{t_vmap:.4f} s vs loop {t_loop:.4f} s [{card}]")
 
 
+@contextlib.contextmanager
+def loop_scans():
+    """Every :class:`GraphedScan` runs the plain loop of its step inside
+    it: the scan under autograd before the tape (and the no-grad scan on
+    the CPU)."""
+    from quantumpropagators_torch.utils.scan import (GraphedScan, _length,
+                                                     _loop)
+
+    saved = GraphedScan._run
+    GraphedScan._run = lambda self, carry, xs, length: (
+        _loop(self.step, carry, xs, _length(xs, length)), False)
+    try:
+        yield
+    finally:
+        GraphedScan._run = saved
+
+
+@contextlib.contextmanager
+def counted_graphs():
+    """The CUDA graphs made inside it, counted (a list, one entry each)."""
+    real, made = torch.cuda.CUDAGraph, []
+
+    def counted(*args, **kwargs):
+        made.append(1)
+        return real(*args, **kwargs)
+
+    torch.cuda.CUDAGraph = counted
+    try:
+        yield made
+    finally:
+        torch.cuda.CUDAGraph = real
+
+
+def grad_ways(label, loss_and_grad, table, card, steady=1):
+    """``loss_and_grad(table) -> (loss, grad)`` three ways: as the loop
+    under autograd, then through the tape's graphs on its first call
+    (interval 0 eagerly, both captures) and on ``steady`` later calls
+    (replays only).  Each way's seconds a call (host clock to the
+    synchronize), peak allocated and peak reserved GiB (after an
+    ``empty_cache``) and captures a call; the gradients of both graphed
+    calls held against the loop's, bit for bit (the replays run the
+    loop's kernels on the same values in the same order).
+    Returns ``{way: (s, peak GiB, reserved GiB, captures, graph pools'
+    GiB)}`` and the first graphed call's ``(loss, grad)``."""
+    gib = 2.0 ** 30
+
+    def run(calls):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with counted_graphs() as made:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                out = loss_and_grad(table)
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) / calls
+        return out, (t, torch.cuda.max_memory_allocated() / gib,
+                     torch.cuda.max_memory_reserved() / gib,
+                     len(made) / calls, graph_pool_gib())
+
+    with loop_scans():
+        (_, g_loop), loop = run(1)
+    first_out, first = run(1)
+    (_, g_steady), steady_way = run(steady)
+    err = max(float((g - g_loop).abs().max())
+              for g in (first_out[1], g_steady))
+    if err != 0.0:
+        raise AssertionError(f"12c {label}: graphed gradient vs the loop's "
+                             f"max|d| {err} (must be 0)")
+    ways = {"loop": loop, "graph first": first, "graph": steady_way}
+    log(f"phase 12c {label}: graphed gradient vs the loop's max|d| "
+        f"{err:.3e} (= 0); forward + backward "
+        + "; ".join(f"{way} {t:.4f} s, peak {pk:.3f} GiB allocated, "
+                    f"{rs:.3f} reserved ({pool:.3f} in graph pools after "
+                    f"it), {c:g} captures a call"
+                    for way, (t, pk, rs, c, pool) in ways.items())
+        + f" [{card}]")
+    return ways, first_out
+
+
+def grape_grad_ways(device, card):
+    """Phase 12c on the GRAPE example's problem
+    (``examples/grape_state_transfer_torch.problem``: a two-level system,
+    80 intervals): a GRAPE iteration both ways (:func:`grad_ways`, 20
+    steady calls)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples"))
+    from grape_state_transfer_torch import problem
+
+    loss_and_grad, table0, _ = problem(device)
+    grad_ways("GRAPE example (2 levels, 80 intervals)", loss_and_grad,
+              table0, card, steady=20)
+
+
+def chain16_grad_ways(device, card, L=16, n=N_STEPS):
+    """Phase 12c on the 2^16 driven chain (phase 3's chain at L = 16,
+    ``n`` intervals, a manual envelope over the spectrum's bound):
+    the infidelity's gradient both ways (:func:`grad_ways`, 3 steady
+    calls)."""
+    from quantumpropagators_torch.fused import make_fused_cheby_propagator
+    from quantumpropagators_torch.models.generators import coeff_table
+
+    _, H = tfim_generator(L, device)
+    psi0 = random_state(L, torch.complex128, device, SEED + 170)
+    target = random_state(L, torch.complex128, device, SEED + 171)
+    tlist = np.linspace(0.0, n * DT, n + 1)
+    b = J * (L - 1) + H_FIELD * L + G_FIELD * L
+    fn = make_fused_cheby_propagator(psi0, H, tlist, E_min=-b, E_max=b,
+                                     specrange_method="manual")
+
+    def loss_and_grad(table):
+        table = table.detach().requires_grad_(True)
+        psi, _ = fn(psi0, table)
+        loss = 1.0 - torch.vdot(target, psi).abs() ** 2
+        (g,) = torch.autograd.grad(loss, table)
+        return loss.detach(), g
+
+    grad_ways(f"driven chain 2^{L}, {n} intervals", loss_and_grad,
+              coeff_table(H, tlist).to(device), card, steady=3)
+
+
 def gradient_phase(device, card, chain, p_xla, L=L_MAIN, n=5):
     """Phase 12c: gradients through ``make_fused_cheby_propagator`` on the
     first ``n`` intervals of phase 3's driven chain (complex128, phase
@@ -1666,8 +1789,12 @@ def gradient_phase(device, card, chain, p_xla, L=L_MAIN, n=5):
     differences at 3 table entries; (c) 3 gradient-descent steps each
     lower the infidelity; the trajectory cost on ⟨σz₀⟩ through
     ``observable_fn`` has a finite, nonzero gradient; (d) forward and
-    forward + backward seconds and the peak device memory.  Returns the
-    flip launches of the dd run."""
+    forward + backward seconds and the peak device memory.  Every
+    gradient runs through the scan's tape (forward and backward graph
+    replays); (b) and (d) hold its first and a later call against the
+    loop under autograd (:func:`grad_ways`), as do the GRAPE example's
+    problem and the 2^16 chain.  Returns the flip launches of the dd
+    run."""
     import quantumpropagators_torch as qt
     from quantumpropagators_torch.fused import make_fused_cheby_propagator
     from quantumpropagators_torch.models.generators import coeff_table
@@ -1718,17 +1845,15 @@ def gradient_phase(device, card, chain, p_xla, L=L_MAIN, n=5):
         (g,) = torch.autograd.grad(loss, table)
         return float(loss.detach()), g
 
-    # (b) and (d): one forward + backward, its time and peak memory
+    # (b) and (d): forward + backward as the loop and through the tape,
+    # its time and peak memory
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    loss0, g = loss_and_grad(table0)
-    torch.cuda.synchronize()
-    t_fb = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    ways, (loss0, g) = grad_ways(f"driven chain 2^{L}, {n} intervals",
+                                 loss_and_grad, table0, card)
+    t_fb, peak = ways["graph first"][0], ways["graph first"][1] * 2.0 ** 30
     fd_errs = []
     base_np = table0.cpu().numpy()
     for idx in [(0, 0), (2, 0), (4, 0)]:
@@ -1761,13 +1886,17 @@ def gradient_phase(device, card, chain, p_xla, L=L_MAIN, n=5):
         raise AssertionError(f"12c gradient descent did not lower the "
                              f"infidelity: {losses}")
 
-    # the trajectory cost on <sz_0> through observable_fn
+    # the trajectory cost on <sz_0> through observable_fn (the first
+    # propagator's tape, 2^24 stacks, freed first)
+    del fn
+    gc.collect()
+    torch.cuda.empty_cache()
     sz = sz0(L, device)
     fn_obs = make_fused_cheby_propagator(
         psi0, H, tlist, observable_fn=lambda psi: torch.vdot(
             psi, sz.apply(psi)).real, **envelope)
     table = table0.detach().requires_grad_(True)
-    _, vals = fn_obs(psi0, table)
+    vals = fn_obs(psi0, table)[1]
     (g_obs,) = torch.autograd.grad(torch.mean((vals + 1.0) ** 2), table)
     g_norm = float(torch.linalg.vector_norm(g_obs))
     if vals.shape != (n,) or not (bool(torch.isfinite(g_obs).all())
@@ -1786,11 +1915,33 @@ def gradient_phase(device, card, chain, p_xla, L=L_MAIN, n=5):
         f"{', '.join(f'{x:.6e}' for x in losses)}; trajectory cost on "
         f"<sz_0>: |grad|={g_norm:.3e} finite ok")
     log(f"phase 12c (d) forward {t_fwd:.3f} s, forward + backward "
-        f"{t_fb:.3f} s; peak device memory {peak / gib:.3f} GiB "
-        f"({(peak - base) / gib:.3f} GiB above the {base / gib:.3f} GiB "
-        f"live before it); reckoned saved tensors 15 x {n_orders}/16 x {n} "
-        f"x {state_gib:.3f} GiB = {reckoned:.3f} GiB [{card}]")
+        f"{t_fb:.3f} s (first graphed call); peak device memory "
+        f"{peak / gib:.3f} GiB ({(peak - base) / gib:.3f} GiB above the "
+        f"{base / gib:.3f} GiB live before it); reckoned saved tensors 15 "
+        f"x {n_orders}/16 x {n} x {state_gib:.3f} GiB = {reckoned:.3f} GiB "
+        f"[{card}]")
+    # a tape's stacks live as long as its propagator, and as long as an
+    # output autograd can still differentiate (vals)
+    del fn_obs, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+    grape_grad_ways(device, card)
+    chain16_grad_ways(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12c after it: {torch.cuda.memory_allocated() / gib:.3f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / gib:.3f} GiB reserved, "
+        f"{graph_pool_gib():.3f} GiB of it in CUDA graph pools")
     return counts
+
+
+def graph_pool_gib():
+    """GiB the caching allocator holds in the private pools of CUDA
+    graphs (the scan's one pool per device among them): not released by
+    ``empty_cache`` while a graph uses its pool."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0)) \
+        / 2.0 ** 30
 
 
 def native_phase(device, card, L=L_CHECK, lattice=(4, 5)):
@@ -2189,7 +2340,6 @@ def entry_points_phase(device, card, L=L_MAIN, n_steps=3):
     run by its ``main`` in this process (no process start-up), each run
     alone on the card, each printed JSON line held against
     ``scaling.py``'s.  Returns the flip launches of (a)."""
-    import contextlib
     import io
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2732,7 +2882,7 @@ def graph_phase(device, card, chain, ctx):
             summary[f"busy {how} {label}"] = busy
         del g5
 
-    # make_fused_cheby_propagator: one capture for three tables
+    # make_fused_cheby_propagator: the captures for three tables
     _, H20 = tfim_generator(L_CHECK, device)
     psi_c = random_state(L_CHECK, torch.complex128, device, SEED + 150)
     short = tlist[:6]
@@ -2740,32 +2890,28 @@ def graph_phase(device, card, chain, ctx):
     fn = make_fused_cheby_propagator(
         psi_c, H20, short, specrange_method="manual", E_min=-bound20,
         E_max=bound20, observable_fn=lambda p: torch.vdot(p, p).real)
-    real_graph = torch.cuda.CUDAGraph
-    made = []
-
-    def counted_graph(*args, **kwargs):
-        made.append(1)
-        return real_graph(*args, **kwargs)
-
     rng = np.random.default_rng(SEED + 160)
     errs = []
-    torch.cuda.CUDAGraph = counted_graph
-    try:
+    with counted_graphs() as made:
         for _ in range(3):
             table = torch.as_tensor(rng.uniform(0.5, 1.5, (5, 1)),
                                     device=device)
             with torch.no_grad():
                 got = fn(psi_c, table)
-            want = fn(psi_c, table.clone().requires_grad_(True))  # the loop
-            errs.append(_max_diff(got, tuple(t.detach() for t in want)))
-    finally:
-        torch.cuda.CUDAGraph = real_graph
-    if len(made) != 1 or max(errs) != 0.0:
+            with loop_scans():
+                want = fn(psi_c, table.clone().requires_grad_(True))
+            # under autograd: the tape's forward and backward graphs
+            taped = fn(psi_c, table.clone().requires_grad_(True))
+            want = tuple(t.detach() for t in want)
+            errs.append(max(_max_diff(got, want), _max_diff(
+                tuple(t.detach() for t in taped), want)))
+    if len(made) != 3 or max(errs) != 0.0:
         raise AssertionError(f"phase 15 make_fused_cheby_propagator: "
                              f"{len(made)} captures, max|d| {errs}")
     summary["captures for 3 tables"] = len(made)
     log(f"phase 15 make_fused_cheby_propagator L={L_CHECK} 5 intervals, 3 "
-        f"tables: {len(made)} capture, graph vs eager loop max|d| "
+        f"tables: {len(made)} captures (one without autograd, the tape's "
+        f"forward and backward under it), graphs vs eager loop max|d| "
         f"{max(errs):.3e} (= 0) ok")
 
     # a step that reads the host raises at capture, and the card goes on
@@ -3151,6 +3297,57 @@ def probe_times(device, card, big, s16, errs):
     return times
 
 
+def probe_floor_times(device, card, big, times):
+    """Phase 16b, the one-tile probes (``probe_smem``, ``probe_extract``,
+    ``probe_fma_residual``, ``probe_xor_permute``) against the launch
+    floor: ``zero_`` of one float, a kernel that does nothing else,
+    timed as the probes are (a replayed CUDA graph of 10 launches).  The
+    grid kernels also on planes of 2^26 elements against their byte
+    bounds (held against their plain versions first); ``probe_extract``
+    (one block: σ over the whole input) and ``probe_smem`` (a proof that
+    the size allocates) keep their own shapes, where the floor is their
+    bound."""
+    from quantumpropagators_torch.ops import probes as P
+    from quantumpropagators_torch.profiling import time_ms as graph_ms
+
+    one = torch.empty(1, device=device)
+    floor = min(graph_ms(lambda: one.zero_(), 10) for _ in range(2))
+    log(f"phase 16b launch floor: zero_ of one float, a replayed CUDA graph "
+        f"of 10 launches, {floor:.4f} ms a launch [{card}]")
+    own = ", ".join(f"{key} {times[key][0]:.4f} ms "
+                    f"({times[key][0] / floor:.2f} x the floor)" for key in (
+                        "probe_smem", "probe_extract",
+                        "probe_fma_residual<float>",
+                        "probe_fma_residual<double>",
+                        "probe_xor_permute<shfl>", "probe_xor_permute<smem>"))
+    log(f"phase 16b one-tile probes at their own shapes: {own} [{card}]")
+    x32 = big[3]
+    n = x32.numel()
+    held = {}
+    grid = {}
+    # two distinct operands: four streams of n elements to move
+    for a, b in ((x32, big[4]), (big[5].double(), big[6].double())):
+        _hold_fma(held, a, b)
+        ctype = "float" if a.dtype == torch.float32 else "double"
+        grid[f"probe_fma_residual<{ctype}>"] = (
+            lambda a=a, b=b: P.probe_fma_residual(a, b),
+            4 * n * a.element_size(), 3 * n, ctype)
+    for variant, bit in (("shfl", 2), ("smem", 8)):
+        key = f"probe_xor_permute<{variant}>"
+        _hold(held, key, P.probe_xor_permute(x32, bit, variant),
+              P.probe_xor_permute_plain(x32, bit, variant), 0,
+              f"2^{n.bit_length() - 1}, bit {bit}")
+        grid[key] = (lambda v=variant, b=bit: P.probe_xor_permute(x32, b, v),
+                     8 * n, 0, "float")
+    for key, (kernel, n_bytes, ops, peak) in grid.items():
+        ms = min(graph_ms(kernel, 10) for _ in range(2))
+        bound_ms, bound_by = bound(n_bytes, ops, peak)
+        log(f"phase 16b time {key} 2^{n.bit_length() - 1} elements: "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.1f} % of it reached; {ms / floor:.1f} x "
+            f"the launch floor) [{card}]")
+
+
 def probe_phase(device, card):
     """Phase 16: the TPU probes of ``docs/profiling/`` on the card.
     (a) every kernel of ``csrc/probes.cu`` against its plain version;
@@ -3172,6 +3369,7 @@ def probe_phase(device, card):
     s16 = planes(1 << 22, scatter.N_IN, device, SEED)
     errs = probe_checks(device, big, s16)
     times = probe_times(device, card, big, s16, errs)
+    probe_floor_times(device, card, big, times)
     del big, s16
     gc.collect()
     torch.cuda.empty_cache()

@@ -427,11 +427,14 @@ def make_fused_cheby_propagator(
     ``fn(psi0, coeffs_table) -> (psi_final, outputs)`` over the generic
     path, with the workspace fixed once.
 
-    On the card, while autograd does not record, the first call captures
-    the scan's graph and every later call with a table of the same shape
-    copies the table into its static buffer and replays: one capture
-    for every control update (:class:`.utils.scan.GraphedScan`).  While
-    autograd records (gradients, GRAPE), the step runs as a loop."""
+    On the card the first call captures the scan's graph and every later
+    call with a table of the same shape copies the table into its static
+    buffer and replays: one capture for every control update
+    (:class:`.utils.scan.GraphedScan`).  While autograd records
+    (gradients, GRAPE), the scan is one autograd node whose forward and
+    backward are two more captured graphs, kept the same way: a GRAPE
+    iteration is ``n`` forward and ``n`` backward replays, its residuals
+    stacked per interval as ``jax.lax.scan`` stacks them."""
     tlist = np.asarray(tlist, dtype=np.float64)
     if isinstance(generator, tuple):
         from .models.generators import hamiltonian

@@ -40,15 +40,43 @@ The kernel wrappers' launch counters (``ops/cheby_flip.py`` and
 captured, once; the scan takes that delta back and adds it on every
 replay, so ``LAUNCHES`` stays "launches issued to the device".
 
-On the CPU, and while autograd records, :func:`scan` is the plain loop
-of the same step (the graphed backward is not ported).  Autograd
-records when the carry or ``xs`` requires grad, or when the first
-interval's results do: the step closes over a tensor that requires
-grad.  A graph's saved tensors would be overwritten by every replay, so
-such a scan finishes as the loop after its eager first interval.
-:class:`GraphedScan` keeps its graph between calls: every call with
-inputs of the captured shapes copies them into the static buffers and
-replays, one capture for every control update.
+On the CPU, while autograd does not record, :func:`scan` is the plain
+loop of the same step.  :class:`GraphedScan` keeps its graph between
+calls: every call with inputs of the captured shapes copies them into
+the static buffers and replays, one capture for every control update.
+
+While autograd records through the carry or ``xs`` (gradients, GRAPE),
+the scan is one ``torch.autograd.Function`` (:class:`_Tape`),
+differentiated as ``jax.grad`` differentiates ``lax.scan``:
+
+- the forward runs interval 0 eagerly, then one interval captured with
+  autograd recording, replayed; a ``saved_tensors_hooks`` pack hook
+  writes each tensor autograd saves into a per-interval stack at the
+  device counter (the residuals ``lax.scan`` stacks, no recomputation).
+  A saved tensor whose storage the interval neither produces nor writes
+  (an operator's matrix, a lattice diagonal) is kept once, by reference;
+- the backward is a second captured graph, one interval's VJP
+  (``torch.autograd.grad`` of the captured interval), whose unpack hook
+  reads the stacks at a counter that runs from ``n − 1`` down to 0; each
+  replay writes its table row's cotangent into the ``(n, ...)`` gradient
+  of ``xs`` and the carry's cotangent into its buffer.
+
+Both graphs share the device's pool and live in the
+:class:`GraphedScan` between calls: a GRAPE iteration is ``n`` forward
+and ``n`` backward replays.  The stacks (the loop's saved tensors, once)
+live as long as the :class:`GraphedScan`, or an output of the scan,
+does.  On the CPU the same ``Function`` calls the
+same interval functions with no graphs.  Where the carry changes type
+at interval 0, that interval keeps its own autograd graph and its VJP
+runs eagerly.  Two routes stay the loop: a step that closes over a
+tensor requiring grad (its leaves are not inputs of the ``Function``;
+also without grad on the inputs, where the first interval's results
+require grad), and a backward with ``create_graph=True``, which reruns
+the loop's forward from the saved inputs and differentiates it, so
+second derivatives are the loop's.  A backward whose residuals a later
+forward of the same :class:`GraphedScan` has overwritten takes that
+route too.  A VJP that reads the host raises at its capture, naming
+the step.
 
 :func:`graphed` follows the same rules for one call of a function
 (:class:`Graphed`): eager first call, one capture per key (operator
@@ -60,11 +88,14 @@ mesh of more than one rank.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 
 import numpy as np
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..ops import banded_spmv as _banded
 from ..ops import cheby_flip as _flip
@@ -162,15 +193,19 @@ class GraphedScan:
     when the carry's type changes at the first interval, the first
     interval eagerly and ``length − 1`` replays).  A step without ``xs``
     and outputs replays for any ``length``; other shapes capture anew.
-    On the CPU, or while autograd records, it is :func:`scan`.  The
-    graph reads the tensors the step closes over as they were at its
-    capture: one that comes to require grad later needs a new
-    :class:`GraphedScan`.  The results are returned as new tensors: the
-    next call overwrites the static buffers."""
+    While autograd records through the carry or ``xs`` it keeps a
+    :class:`_Tape` under the same rules (on the card a second pair of
+    graphs, forward and backward; on the CPU too, with no graphs);
+    otherwise on the CPU it is :func:`scan`.  The graph reads the
+    tensors the step closes over as they were at its capture: one that
+    comes to require grad later needs a new :class:`GraphedScan`.  The
+    results are returned as new tensors: the next call overwrites the
+    static buffers."""
 
     def __init__(self, step):
         self.step = step
         self._graph = None
+        self._tape = None
 
     def __call__(self, carry, xs=None, length=None):
         out, static = self._run(carry, xs, length)
@@ -182,7 +217,9 @@ class GraphedScan:
         """``(carry, ys)`` and whether they are the graph's static
         buffers."""
         n = _length(xs, length)
-        if n == 0 or not _on_card(carry, xs) or _records_grad(carry, xs):
+        if n > 0 and _records_grad(carry, xs):
+            return self._differentiated(carry, xs, n), False
+        if n == 0 or not _on_card(carry, xs):
             return _loop(self.step, carry, xs, n), False
         key = (_signature(carry), _signature(xs))
         graph = self._graph
@@ -197,9 +234,54 @@ class GraphedScan:
         self._graph = graph
         return out, True
 
+    def _differentiated(self, carry, xs, n):
+        """The scan as one autograd node (:class:`_Tape`), or the loop
+        where the step closes over a tensor that requires grad or a
+        ``torch.func`` transform is active."""
+        if torch._C._are_functorch_transforms_active():
+            return _loop(self.step, carry, xs, n)
+        key = (_signature(carry), _signature(xs),
+               tuple(t.requires_grad for t in _leaves(xs)))
+        tape = self._tape
+        if tape is None or tape.key != key or tape.n != n:
+            self._tape = None  # its blocks go back to the pool first
+            tape = _Tape(self.step, key, n, _device(carry, xs))
+        if not tape.run(carry, xs):
+            return _loop(self.step, carry, xs, n)
+        self._tape = tape
+        return tape.apply(carry, xs)
+
 
 def _signature(tree):
     return tuple((tuple(t.shape), t.dtype, t.device) for t in _leaves(tree))
+
+
+def _device(carry, xs) -> torch.device:
+    leaves = _leaves(carry) + _leaves(xs)
+    device = leaves[0].device
+    for t in leaves:
+        if t.device != device:
+            raise ValueError(f"scan needs carry and xs on one device; got "
+                             f"{t.device} and {device}")
+    return device
+
+
+def _first_on_side(step, device, fn):
+    """``fn()``, the first interval ``(carry, y)`` of ``step``, run eagerly
+    on the device's side stream (where the captures run: the one-time
+    constants it makes belong to that stream)."""
+    cur = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        carry1, y0 = fn()
+    cur.wait_stream(side)
+    for t in _leaves(carry1) + _leaves(y0):
+        if t.device != device:
+            raise RuntimeError(_refused(
+                step, f"it returns a tensor on {t.device}"))
+        t.record_stream(cur)
+    return carry1, y0
 
 
 def _index(device) -> int:
@@ -253,9 +335,10 @@ def _captured(device, fn, refused):
     side.wait_stream(cur)
     before = [dict(c) for c in _COUNTERS]
     graph = torch.cuda.CUDAGraph()
+    pool = _graph_pool(device)
     try:
         with torch.cuda.stream(side):
-            graph.capture_begin(pool=_graph_pool(device))
+            graph.capture_begin(pool=pool)
             try:
                 out = fn()
             except Exception as exc:
@@ -263,10 +346,16 @@ def _captured(device, fn, refused):
                     graph.capture_end()
                 except RuntimeError:
                     # the capture was already invalidated by exc, and the
-                    # allocator still routes this stream's allocations
-                    # to the pool: capture on a new stream into a new
-                    # pool from now on
+                    # allocator still counts it as under way: end that,
+                    # or it keeps routing this stream's allocations to
+                    # the pool and keeps every freed block cached for
+                    # good (empty_cache frees nothing); capture on a new
+                    # stream into a new pool from now on
                     index = _index(device)
+                    try:
+                        torch._C._cuda_endAllocateToPool(index, pool)
+                    except RuntimeError:
+                        pass  # capture_end got that far itself
                     _SIDE_STREAMS.pop(index, None)
                     _POOLS.pop(index, None)
                 raise RuntimeError(refused(exc)) from exc
@@ -305,23 +394,10 @@ class _Graph:
         """Interval 0 eagerly, the capture, then ``n − 1`` intervals
         replayed.  Where the first interval's results require grad, the
         loop from interval 1 instead, and nothing is captured."""
-        leaves = _leaves(carry) + _leaves(xs)
-        device = self.device = leaves[0].device
-        for t in leaves:
-            if t.device != device:
-                raise ValueError(f"scan on the card needs carry and xs on "
-                                 f"one device; got {t.device} and {device}")
-        cur = torch.cuda.current_stream(device)
-        side = _side_stream(device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            carry1, y0 = self.step(carry, _map(lambda t: t[0], xs))
-        cur.wait_stream(side)
-        for t in _leaves(carry1) + _leaves(y0):
-            if t.device != device:
-                raise RuntimeError(_refused(
-                    self.step, f"it returns a tensor on {t.device}"))
-            t.record_stream(cur)
+        device = self.device = _device(carry, xs)
+        carry1, y0 = _first_on_side(
+            self.step, device, lambda: self.step(carry, _map(lambda t: t[0],
+                                                             xs)))
         if _records_grad(carry1, y0):
             # the step closes over a tensor that requires grad
             return _loop(self.step, carry1, xs, n, 1, [y0])
@@ -379,6 +455,537 @@ class _Graph:
 
         self.graph, _, self.delta = _captured(
             self.device, interval, lambda exc: _refused(self.step, exc))
+
+
+# -- the scan under autograd: jax.grad of lax.scan -------------------------
+
+_LIFT_FRESH = torch.ops.aten.lift_fresh.default
+
+
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def _differentiable(t: torch.Tensor) -> bool:
+    return t.is_floating_point() or t.is_complex()
+
+
+def _unflatten(tree, leaves):
+    """``tree``'s structure (tensors, or any other leaf) over ``leaves``,
+    in order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(u) for u in node)
+        return next(it)
+
+    return build(tree)
+
+
+class _Writes(TorchDispatchMode):
+    """The storages written by the operations run under it: their new
+    outputs, the tensors they change in place (a view writes nothing)
+    and tensors made from host data (``torch.tensor``, ``as_tensor``,
+    ``from_numpy``: ``lift_fresh``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.storages = set()
+
+    @classmethod
+    def _should_skip_dynamo(cls):
+        # nothing is compiled under it: no Dynamo guard around the
+        # dispatch (whose first use imports Dynamo, seconds)
+        return False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        schema = func._schema
+        given = dict(zip((a.name for a in schema.arguments), args), **kwargs)
+        for arg in schema.arguments:
+            if arg.alias_info is not None and arg.alias_info.is_write:
+                self._add(given.get(arg.name))
+        outs = out if len(schema.returns) > 1 else (out,)
+        for ret, value in zip(schema.returns, outs):
+            if ret.alias_info is None or func is _LIFT_FRESH:
+                self._add(value)
+        return out
+
+    def _add(self, value):
+        for t in value if isinstance(value, (tuple, list)) else (value,):
+            if isinstance(t, torch.Tensor):
+                self.storages.add(_storage(t))
+
+
+class _Saved:
+    """The tensors autograd saves in one interval, kept per interval as
+    ``lax.scan`` keeps its residuals.  A saved tensor whose storage the
+    interval produces (its inputs, any storage it writes) is a view of a
+    stack ``(slots, words)`` of that storage's bytes, copied once an
+    interval at ``write_at`` however many views of it are saved (as the
+    loop keeps each saved storage once); one the interval only reads (an
+    operator's matrix) is kept itself, once.  The first interval
+    recorded fixes the entries, one per saved tensor in the order the
+    interval saves them; every later one must save alike (the second is
+    also watched for writes to a tensor kept itself; later ones follow
+    the entries unwatched).  Unpacking reads a stack at ``read_at``."""
+
+    def __init__(self, step, slots, write_at, read_at):
+        self.step = step
+        self.slots = slots
+        self.write_at = write_at   # (1,) int64: the interval being run
+        self.read_at = read_at     # (1,) int64: the interval differentiated
+        self.stacks = []           # (slots, words), one per storage
+        self.entries = []          # (stack index, dtype, shape, stride,
+        #                            offset), or (None, the tensor kept)
+        self.fixed = False
+        self.runs = 0              # intervals recorded
+        self._pos = 0
+        self._inputs = set()
+        self._writes = None
+        self._copied = {}          # stack index -> its storage this run
+        self._stacked = {}         # storage -> (stack index, weak ref)
+
+    @classmethod
+    def grown(cls, first, slots, write_at, read_at):
+        """The entries of ``first`` (one slot, interval 0's) with
+        ``slots`` slots, interval 0's in slot 0; each of ``first``'s
+        stacks is freed once copied."""
+        saved = cls(first.step, slots, write_at, read_at)
+        for i, stack in enumerate(first.stacks):
+            grown = stack.new_empty((slots,) + tuple(stack.shape[1:]))
+            grown[0].copy_(stack[0])
+            first.stacks[i] = None
+            saved.stacks.append(grown)
+        saved.entries = list(first.entries)
+        saved.fixed, saved.runs = True, first.runs
+        return saved
+
+    @contextlib.contextmanager
+    def recording(self, inputs):
+        """Saves of the interval run inside it go into the entries;
+        ``inputs`` are its leaves."""
+        self._pos = 0
+        self._inputs = {_storage(t) for t in inputs}
+        self._copied = {}
+        self._writes = _Writes() if self.runs < 2 else None
+        with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                      self._unpack), \
+                self._writes or contextlib.nullcontext():
+            yield
+        if self.fixed and self._pos != len(self.entries):
+            self._differs(f"{self._pos} tensors saved, {len(self.entries)} "
+                          f"before")
+        for b, *view in self.entries if self._writes else ():
+            t = view[0]
+            if b is None and _storage(t) in self._writes.storages:
+                self._differs(f"a saved {tuple(t.shape)} {t.dtype} tensor "
+                              f"is written after it was saved")
+        self.fixed = True
+        self.runs += 1
+        self._writes = self._copied = None
+        self._stacked = {}
+
+    def _differs(self, why):
+        name = getattr(self.step, "__qualname__", None) or repr(self.step)
+        raise RuntimeError(f"scan: step {name} cannot be differentiated "
+                           f"interval by interval: {why}")
+
+    def _pack(self, t):
+        pos = self._pos
+        self._pos += 1
+        key = _storage(t)
+        if not self.fixed:
+            produced = t.device == self.write_at.device and (
+                key in self._inputs or key in self._writes.storages)
+            self.entries.append(self._new_entry(t) if produced
+                                else (None, t))
+        if pos >= len(self.entries):
+            self._differs(f"more than {len(self.entries)} tensors saved")
+        b, *view = self.entries[pos]
+        if b is None:
+            kept = view[0]
+            if t.device == self.write_at.device and (
+                    t.data_ptr(), t.shape, t.stride(), t.dtype) != (
+                    kept.data_ptr(), kept.shape, kept.stride(), kept.dtype):
+                self._differs(f"saved tensor {pos} is not the one saved "
+                              f"before")
+            return pos
+        if view != [t.dtype, tuple(t.shape), t.stride(), t.storage_offset()]:
+            self._differs(f"saved tensor {pos} is {tuple(t.shape)} {t.dtype}"
+                          f", before {tuple(view[1])} {view[0]}")
+        if b not in self._copied:
+            stack, words = self.stacks[b], _words(t)
+            if words.shape != stack.shape[1:] or words.dtype != stack.dtype:
+                self._differs(f"saved tensor {pos} lies in a storage of "
+                              f"another size")
+            with torch.no_grad():
+                stack.index_copy_(0, self.write_at, words[None])
+            self._copied[b] = key
+        elif self._copied[b] != key:
+            self._differs(f"saved tensor {pos} lies in another storage")
+        return pos
+
+    def _new_entry(self, t):
+        """The entry of a produced tensor: a view of the stack of its
+        storage, a new stack unless a tensor saved before in this
+        interval lies in the same storage, still alive."""
+        key = _storage(t)
+        b, alive = self._stacked.get(key, (None, None))
+        if b is None or alive.expired():
+            b = len(self.stacks)
+            words = _words(t)
+            self.stacks.append(words.new_empty((self.slots,) + words.shape))
+            self._stacked[key] = (b, StorageWeakRef(t.untyped_storage()))
+        return (b, t.dtype, tuple(t.shape), t.stride(), t.storage_offset())
+
+    def _unpack(self, pos):
+        b, *view = self.entries[pos]
+        if b is None:
+            return view[0]
+        dtype, shape, stride, offset = view
+        return self.stacks[b].index_select(0, self.read_at)[0].view(
+            dtype).as_strided(shape, stride, offset)
+
+
+def _words(t):
+    """The whole storage of ``t`` as a flat tensor of 8-byte words (of
+    bytes where its size is no multiple of 8): copied by wide loads."""
+    storage = t.untyped_storage()
+    dtype = torch.int64 if storage.nbytes() % 8 == 0 else torch.uint8
+    return torch.empty(0, dtype=dtype, device=t.device).set_(storage)
+
+
+class _Record:
+    """One interval run with autograd recording: its leaves and results
+    (and its own saves, where its VJP runs eagerly)."""
+
+    def __init__(self, carry, x, state, y, saved=None):
+        self.carry, self.x, self.state, self.y = carry, x, state, y
+        self.saved = saved
+
+    def closes_over_grad(self) -> bool:
+        """Whether the results depend on a tensor requiring grad other
+        than the leaves: the step closes over one."""
+        ours = _leaves(self.carry) + _leaves(self.x)
+        nodes = []
+        for t in _leaves(self.state) + _leaves(self.y):
+            if t.grad_fn is not None:
+                nodes.append(t.grad_fn)
+            elif t.requires_grad and not any(t is u for u in ours):
+                return True
+        seen = set()
+        while nodes:
+            node = nodes.pop()
+            if node is None or node in seen:
+                continue
+            seen.add(node)
+            if hasattr(node, "variable"):  # AccumulateGrad of a leaf
+                if not any(node.variable is u for u in ours):
+                    return True
+                continue
+            nodes.extend(fn for fn, _ in node.next_functions)
+        return False
+
+
+def _leaf(t, grad):
+    return t.detach().requires_grad_(grad and _differentiable(t))
+
+
+def _compact(t):
+    """``t``, or a copy of it where it is not the whole of its storage in
+    order: interval 0's leaves lie in storages like those of the static
+    buffers, so that its saves fit the stacks."""
+    if t.is_contiguous() and t.storage_offset() == 0 and \
+            t.untyped_storage().nbytes() == t.numel() * t.element_size():
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+class _Tape:
+    """The scan of ``step`` over ``n`` intervals as one autograd node
+    (module docstring): the forward records each interval's saves into
+    :class:`_Saved` stacks, the backward runs one interval's VJP per
+    interval from the last to the first.  On the card both are captured
+    CUDA graphs, replayed; on the CPU the same interval functions are
+    called.  :meth:`run` does the forward, :meth:`apply` returns its
+    results as outputs of :class:`_ScanVJP`."""
+
+    def __init__(self, step, key, n, device):
+        self.step, self.key, self.n, self.device = step, key, n, device
+        self.xs_grad = key[2]    # which xs leaves require grad
+        self.on_card = device.type == "cuda"
+        self.generation = 0      # forwards run: a backward reads its own
+        self.started = False
+        self.tpl = None          # the captured (last, on the CPU) interval
+        self.first = None        # interval 0's record, its VJP eager
+        self.first_eager = False
+        self.graph = self.vjp_graph = None
+        self.delta = self.vjp_delta = ()
+
+    # -- forward ----------------------------------------------------------
+
+    def run(self, carry, xs) -> bool:
+        """The forward into the static buffers; ``False`` (and nothing
+        kept) where the step closes over a tensor requiring grad."""
+        first = None
+        if not self.started or self.first_eager:
+            first = self._first(carry, xs)
+            if first.closes_over_grad():
+                return False
+        self.generation += 1
+        if not self.started:
+            self._start(carry, xs, first)
+            return True
+        with torch.no_grad():
+            _map(lambda buf, t: buf.copy_(t), self.xs, xs)
+            if first is not None:
+                self.first = first
+                _map(lambda buf, t: buf.copy_(t.detach()), self.carry,
+                     first.state)
+                _map(lambda buf, t: buf[0].copy_(t.detach()), self.ys,
+                     first.y)
+                self.counter.fill_(1)
+            else:
+                _map(lambda buf, t: buf.copy_(t), self.carry, carry)
+                self.counter.fill_(0)
+        self._forward(self.n - (first is not None))
+        return True
+
+    def _first(self, carry, xs):
+        """Interval 0 eagerly with autograd recording into a one-slot
+        :class:`_Saved` (on the card on the side stream)."""
+        zero = torch.zeros(1, dtype=torch.int64, device=self.device)
+        saved = _Saved(self.step, 1, zero, zero)
+        c = _map(lambda t: _leaf(_compact(t), True), carry)
+        x = _map(lambda t: _leaf(_compact(t[0]), t.requires_grad), xs)
+
+        def interval():
+            with torch.enable_grad(), saved.recording(_leaves(c)
+                                                      + _leaves(x)):
+                return self.step(c, x)
+
+        state, y = _first_on_side(self.step, self.device, interval) \
+            if self.on_card else interval()
+        return _Record(c, x, state, y, saved)
+
+    def _start(self, carry, xs, first):
+        """The first call after interval 0: static buffers, the stacks
+        (interval 0's in slot 0 unless its carry changes type), then on
+        the card both captures and ``n − 1`` forward replays."""
+        n, device = self.n, self.device
+        self.started = True
+        self.trees = (_map(lambda t: True, carry), _map(lambda t: True, xs))
+        self.first_eager = _signature(first.state) != _signature(carry)
+        with torch.no_grad():
+            self.carry = _map(lambda t: t.detach().clone(), first.state)
+            self.xs = _map(lambda t: t.detach().clone(), xs)
+            self.ys = _map(lambda t: t.new_empty((n,) + tuple(t.shape)),
+                           first.y)
+            _map(lambda buf, t: buf[0].copy_(t.detach()), self.ys, first.y)
+            self.gc = [torch.zeros_like(t) if _differentiable(t) else None
+                       for t in _leaves(self.carry)]
+            self.gys = [torch.zeros_like(t) if _differentiable(t) else None
+                        for t in _leaves(self.ys)]
+            self.gxs = [torch.zeros_like(t) if g else None
+                        for t, g in zip(_leaves(self.xs), self.xs_grad)]
+        self.counter = torch.ones(1, dtype=torch.int64, device=device)
+        self.bcounter = torch.zeros(1, dtype=torch.int64, device=device)
+        if self.first_eager:
+            self.first = first
+            self.saved = _Saved(self.step, n, self.counter, self.bcounter)
+        else:
+            self.saved = _Saved.grown(first.saved, n, self.counter,
+                                      self.bcounter)
+        del first
+        if not self.on_card:
+            self._forward(n - 1)
+            return
+        self.graph, _, self.delta = _captured(
+            device, self._interval, lambda exc: _refused(self.step, exc))
+        self._forward(n - 1)
+        # one VJP run eagerly first, as the forward's interval 0: the
+        # backward's kernels, library handles and the autograd engine's
+        # device thread come up outside the capture (what it writes, the
+        # backward overwrites)
+        cur, side = torch.cuda.current_stream(device), _side_stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.bcounter.fill_(n - 1)
+            self._vjp_interval()
+        cur.wait_stream(side)
+        self.vjp_graph, _, self.vjp_delta = _captured(
+            device, self._vjp_interval,
+            lambda exc: _refused(self.step, exc, "scan backward"))
+
+    def _interval(self):
+        """One interval from the static buffers with autograd recording
+        into the stacks at the counter; kept as the template of the
+        VJP."""
+        c = _map(lambda buf: _leaf(buf, True), self.carry)
+        x = _unflatten(self.xs, [
+            _leaf(buf.index_select(0, self.counter)[0], g)
+            for buf, g in zip(_leaves(self.xs), self.xs_grad)])
+        with torch.enable_grad(), self.saved.recording(_leaves(c)
+                                                       + _leaves(x)):
+            state, y = self.step(c, x)
+        if _signature(state) != _signature(self.carry):
+            raise ValueError(f"the carry changed from "
+                             f"{_signature(self.carry)} to "
+                             f"{_signature(state)}")
+        with torch.no_grad():
+            _map(lambda buf, t: buf.index_copy_(0, self.counter,
+                                                t.detach()[None]),
+                 self.ys, y)
+            self.counter.add_(1)
+            _map(lambda buf, t: buf.copy_(t.detach()), self.carry, state)
+        self.tpl = _Record(c, x, state, y)
+
+    def _forward(self, times):
+        if self.on_card:
+            for _ in range(times):
+                self.graph.replay()
+            _add_launches(self.delta, times)
+        else:
+            for _ in range(times):
+                self._interval()
+
+    def apply(self, carry, xs):
+        """The forward's results as outputs of :class:`_ScanVJP` (new
+        tensors), in ``(carry, ys)`` structure."""
+        outs = _ScanVJP.apply(self, *_leaves(carry), *_leaves(xs))
+        nc = len(_leaves(self.carry))
+        return (_unflatten(self.carry, outs[:nc]),
+                _unflatten(self.ys, outs[nc:]))
+
+    # -- backward ---------------------------------------------------------
+
+    def backward(self, grads, needs):
+        """The cotangents of the inputs (carry leaves, then ``xs``
+        leaves; ``None`` where ``needs`` is false) from those of the
+        outputs, by one VJP per interval from the last to the first."""
+        with torch.no_grad():
+            for buf, g in zip(self.gc + self.gys, grads):
+                if buf is not None:
+                    buf.copy_(g)
+            self.bcounter.fill_(self.n - 1)
+        times = self.n - (self.first is not None)
+        if self.on_card:
+            for _ in range(times):
+                self.vjp_graph.replay()
+            _add_launches(self.vjp_delta, times)
+        else:
+            for _ in range(times):
+                self._vjp_interval()
+        if self.first is not None:  # bcounter is 0
+            g_carry, g_xs = self._vjp(self.first)
+            self._write_xs(g_xs)
+        else:
+            g_carry = [None if g is None else g.clone() for g in self.gc]
+        g_xs = [None if g is None else g.clone() for g in self.gxs]
+        return tuple(g if need else None
+                     for g, need in zip(list(g_carry) + g_xs, needs))
+
+    def _vjp(self, rec):
+        """``rec``'s VJP at the counter: the cotangents of its carry and
+        ``xs`` leaves (``None`` for a leaf that takes none)."""
+        outs, gouts = [], []
+        for t, g in zip(_leaves(rec.state), self.gc):
+            if g is not None and t.requires_grad:
+                outs.append(t)
+                gouts.append(g)
+        # an output that is the new carry itself (stored states): the loop
+        # adds its cotangent to the carry's before the next interval's
+        # parts, so it enters the next interval's VJP first, as a seed of
+        # that interval's carry leaf (here only at the last interval)
+        states = _leaves(rec.state)
+        stored = {i: j for i, t in enumerate(_leaves(rec.y))
+                  for j, u in enumerate(states) if t is u}
+        k = self.bcounter
+        for i, (t, g) in enumerate(zip(_leaves(rec.y), self.gys)):
+            if g is not None and t.requires_grad:
+                row = g.index_select(0, k)[0]
+                outs.append(t)
+                gouts.append(torch.where((k == self.n - 1)[0], row, 0)
+                             if i in stored else row)
+        for i, j in stored.items() if rec is not self.first else ():
+            c, g = _leaves(rec.carry)[j], self.gys[i]
+            if g is not None and c.requires_grad:
+                row = g.index_select(0, (k - 1).clamp(min=0))[0]
+                outs.append(c)
+                gouts.append(torch.where((k > 0)[0], row, 0))
+        leaves = _leaves(rec.carry) + _leaves(rec.x)
+        ins = [t for t in leaves if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, ins, gouts, retain_graph=True,
+                                       allow_unused=True)
+                   if outs and ins else [None] * len(ins))
+        grads = [next(got) if t.requires_grad else None for t in leaves]
+        nc = len(_leaves(rec.carry))
+        return grads[:nc], grads[nc:]
+
+    def _write_xs(self, g_xs):
+        with torch.no_grad():
+            for buf, g in zip(self.gxs, g_xs):
+                if buf is not None:
+                    row = torch.zeros_like(buf[0]) if g is None else g
+                    buf.index_copy_(0, self.bcounter, row[None])
+
+    def _vjp_interval(self):
+        """One interval's VJP at the counter, from the template: the
+        ``xs`` row's cotangent into the gradient of ``xs``, the carry's
+        into its buffer; the counter counts down."""
+        g_carry, g_xs = self._vjp(self.tpl)
+        self._write_xs(g_xs)
+        with torch.no_grad():
+            for buf, g in zip(self.gc, g_carry):
+                if buf is not None:
+                    buf.zero_() if g is None else buf.copy_(g)
+            self.bcounter.sub_(1)
+
+    def recompute(self, inputs, grads):
+        """The loop's forward again from the saved inputs, and its
+        gradient: the backward with ``create_graph=True`` (grad mode on:
+        differentiable) and where a later forward overwrote the
+        stacks."""
+        create = torch.is_grad_enabled()
+        nc = len(self.key[0])
+        with torch.enable_grad():
+            if not create:
+                inputs = [_leaf(t, t.requires_grad) for t in inputs]
+            carry = _unflatten(self.trees[0], inputs[:nc])
+            xs = _unflatten(self.trees[1], inputs[nc:])
+            outs = _leaves(_loop(self.step, carry, xs, self.n))
+            pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+            ins = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(
+                [o for o, _ in pairs], ins, [g for _, g in pairs],
+                create_graph=create, allow_unused=True))
+        return tuple(next(got) if t.requires_grad else None for t in inputs)
+
+
+class _ScanVJP(torch.autograd.Function):
+    """The autograd node of a :class:`_Tape`: inputs the scan's carry and
+    ``xs`` leaves, outputs its final carry and ``ys`` leaves."""
+
+    @staticmethod
+    def forward(ctx, tape, *inputs):
+        ctx.tape, ctx.generation = tape, tape.generation
+        ctx.save_for_backward(*inputs)
+        outs = [t.clone() for t in _leaves(tape.carry) + _leaves(tape.ys)]
+        ctx.mark_non_differentiable(*[t for t in outs
+                                      if not _differentiable(t)])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        tape = ctx.tape
+        if torch.is_grad_enabled() or ctx.generation != tape.generation:
+            return (None,) + tape.recompute(ctx.saved_tensors, grads)
+        return (None,) + tape.backward(grads, ctx.needs_input_grad[1:])
 
 
 # -- jax.jit of one call --------------------------------------------------

@@ -4,9 +4,15 @@ kernel launches; one capture for three control tables through
 ``make_fused_cheby_propagator`` and for every length of a step without
 per-step inputs; a step that closes over a tensor requiring grad runs
 as the loop, with the loop's gradient; a step that reads the host
-raises at capture; repeated captures stay in one memory pool.  Needs
-an NVIDIA GPU with nvcc (``-m cuda``); skips without one.  Imports no
-jax: run with ``--noconftest``."""
+raises at capture; repeated captures stay in one memory pool.  The
+scan's gradient (``utils/scan._Tape``): the graphed forward and backward
+against the loop under autograd, bit for bit (the replays run the
+loop's kernels on the same values, and each interval's VJP sums the
+same cotangents in the loop's order); one forward and one backward
+capture for three tables; a VJP that reads the host raises at its
+capture; a 2^16 chain's stacks hold no constant.  Needs an NVIDIA GPU
+with nvcc (``-m cuda``); skips without one.  Imports no jax: run with
+``--noconftest``."""
 
 import numpy as np
 import pytest
@@ -191,10 +197,14 @@ def test_one_capture_for_three_tables(cuda, monkeypatch):
                                 device=cuda)
         with torch.no_grad():
             got = fn(psi, table)
-        want = fn(psi, table.clone().requires_grad_(True))  # the loop
-        for g, w in zip(got, want):
-            assert torch.equal(g, w.detach())
-    assert len(made) == 1
+        with monkeypatch.context() as m:
+            _loop_scans(m)
+            want = fn(psi, table.clone().requires_grad_(True))
+        # under autograd: the tape's own two graphs, captured once
+        graphed = fn(psi, table.clone().requires_grad_(True))
+        for g, w, a in zip(got, want, graphed):
+            assert torch.equal(g, w.detach()) and torch.equal(a.detach(), g)
+    assert len(made) == 3
 
 
 @pytest.mark.parametrize("where", ["host", "card"])
@@ -216,6 +226,26 @@ def test_host_read_raises_at_capture(cuda, where):
                                           observable_fn=_obs, **ENVELOPE)
     torch.cuda.synchronize()
     assert torch.isfinite(ys).all() and abs(float(ys[-1]) - 1.0) < 1e-12
+
+
+def test_refused_capture_leaves_the_cache_releasable(cuda):
+    """After a capture refused for a host read, memory freed later goes
+    back to the card on ``empty_cache``: the allocator no longer counts
+    the failed capture as under way."""
+    def reads_host(p):
+        return torch.tensor(p.abs().max().item(), device=p.device)
+
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        fused.cheby_propagate_fused(_state(2 ** L, 6, cuda), _chain(cuda),
+                                    TLIST, kernel="dd",
+                                    observable_fn=reads_host, **ENVELOPE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved(cuda)
+    x = torch.empty(1 << 28, device=cuda)
+    del x
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda) <= before
 
 
 def _counting_graphs(monkeypatch):
@@ -298,3 +328,140 @@ def test_captures_share_one_pool(cuda):
         torch.cuda.synchronize()
         reserved.append(torch.cuda.memory_reserved(cuda))
     assert reserved[1] == reserved[2] == reserved[3]
+
+
+# -- the scan's gradient ------------------------------------------------------
+
+def _loop_scans(monkeypatch):
+    """Route every :class:`GraphedScan` through the plain loop: the scan
+    under autograd before the tape."""
+    monkeypatch.setattr(scan_mod.GraphedScan, "_run",
+                        lambda self, carry, xs, length: (scan_mod._loop(
+                            self.step, carry, xs,
+                            scan_mod._length(xs, length)), False))
+
+
+def _grad_problem(name, device, output):
+    """``(fn, psi0, table)``: the two-level GRAPE problem of
+    ``examples/grape_state_transfer_torch.py`` (80 intervals) or the
+    L = 12 driven chain (5 intervals), through
+    ``make_fused_cheby_propagator`` with ``output`` per interval."""
+    if name == "grape":
+        sx = torch.tensor([[0, 1], [1, 0]], dtype=torch.complex128,
+                          device=device)
+        sz = torch.tensor([[1, 0], [0, -1]], dtype=torch.complex128,
+                          device=device)
+        gen = qt.hamiltonian(0.0 * sz, (sx, lambda t: 0.3 * qt.flattop(
+            t, T=2.0, t_rise=0.5)))
+        tlist = np.linspace(0, 2.0, 81)
+        psi = torch.tensor([1, 0], dtype=torch.complex128, device=device)
+        env = dict(E_min=-4.0, E_max=4.0, specrange_method="manual")
+    else:
+        gen, tlist, psi, env = _chain(device), TLIST, _state(2 ** L, 12,
+                                                              device), ENVELOPE
+    kw = {"observable": dict(observable_fn=_obs),
+          "states": dict(store_states=True), "final": {}}[output]
+    fn = fused.make_fused_cheby_propagator(psi, gen, tlist, **kw, **env)
+    return fn, psi, qt.coeff_table(gen, tlist).to(device)
+
+
+def _grads(fn, psi, table):
+    """A loss of the final state and the outputs, and its gradients with
+    respect to the table and ``psi0``."""
+    t = table.clone().requires_grad_(True)
+    p = psi.clone().requires_grad_(True)
+    fin, ys = fn(p, t)
+    w = torch.linspace(0.5, 1.5, fin.numel(), device=fin.device,
+                       dtype=torch.float64)
+    loss = (fin.abs() ** 2 * w).sum()
+    if ys is not None:
+        loss = loss + (ys.abs() ** 2).sum() * 0.5
+    return fin, loss, torch.autograd.grad(loss, (t, p))
+
+
+@pytest.mark.parametrize("output", ["final", "observable", "states"])
+@pytest.mark.parametrize("name", ["grape", "chain"])
+def test_graphed_gradient_equals_the_loop(cuda, name, output, monkeypatch):
+    """Forward and backward as replays of the tape's two graphs against
+    the loop under autograd: the final state, the loss and the table's
+    and ``psi0``'s gradients bit for bit, on the first call (interval 0
+    eager, slot 0 from it) and on the second (every interval
+    replayed)."""
+    fn, psi, table = _grad_problem(name, cuda, output)
+    got = [_grads(fn, psi, table), _grads(fn, psi, table * 1.1)]
+    assert type(got[0][0].grad_fn).__name__ == "_ScanVJPBackward"
+    _loop_scans(monkeypatch)
+    for (fin, loss, grads), tb in zip(got, (table, table * 1.1)):
+        w_fin, w_loss, want = _grads(fn, psi, tb)
+        assert torch.equal(fin, w_fin) and torch.equal(loss, w_loss)
+        for g, w in zip(grads, want):
+            assert torch.equal(g, w)
+
+
+def test_one_forward_and_one_backward_capture_for_three_tables(cuda,
+                                                               monkeypatch):
+    """GRAPE's loop on the card: three tables, each a forward and a
+    backward, replay one forward and one backward graph."""
+    fn, psi, table = _grad_problem("grape", cuda, "final")
+    made = _counting_graphs(monkeypatch)
+    grads = [_grads(fn, psi, table * s)[2][0] for s in (1.0, 0.8, 1.3)]
+    assert len(made) == 2
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+class _ReadsHostInBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x * 2
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * (2 + 0 * g.abs().max().item())
+
+
+def test_vjp_reading_the_host_raises(cuda):
+    """A step whose backward calls ``.item()``: the forward replays, the
+    backward's capture raises naming the step; the card runs on."""
+    def host_vjp_step(c, x):
+        return _ReadsHostInBackward.apply(c) * x, None
+
+    xs = torch.linspace(0.5, 1.0, 4, device=cuda,
+                        dtype=torch.float64).requires_grad_(True)
+    c0 = torch.ones(8, device=cuda, dtype=torch.float64)
+    with pytest.raises(RuntimeError,
+                       match="scan backward: step .*host_vjp_step.* cannot "
+                             "be captured"):
+        scan_mod.scan(host_vjp_step, c0, xs)
+    out, _ = scan_mod.scan(lambda c, x: (c * x, None), c0, xs)
+    g, = torch.autograd.grad(out.sum(), xs)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(g).all())
+
+
+def test_stack_of_a_2_16_chain_holds_no_constant(cuda):
+    """At 2^16 the chain's diagonal is kept by reference and no stack
+    holds it; the stacks take one slot an interval and one stack a saved
+    storage."""
+    L16 = 16
+    H_diag, H_x = qt.transverse_field_ising(L16, J=1.0, g=1.0, h=0.3,
+                                            dtype=torch.float64,
+                                            device=cuda)
+    gen = qt.hamiltonian((H_diag, lambda t: 1.0 + 0.3 * np.sin(0.9 * t)),
+                         (H_x, lambda t: 1.2 + 0.4 * np.cos(1.7 * t)),
+                         check=False)
+    bound = 1.3 * (1.0 * (L16 - 1) + 0.3 * L16) + 1.6 * L16
+    psi = _state(2 ** L16, 13, cuda)
+    fn = fused.make_fused_cheby_propagator(
+        psi, gen, TLIST, specrange_method="manual", E_min=-bound - 0.5,
+        E_max=bound)
+    table = qt.coeff_table(gen, TLIST).to(cuda).requires_grad_(True)
+    fn(psi, table)
+    run = fn.__closure__[fn.__code__.co_freevars.index("run")].cell_contents
+    saved = run._tape.saved
+    views = [e for e in saved.entries if e[0] is not None]
+    kept = {e[1].untyped_storage().data_ptr() for e in saved.entries
+            if e[0] is None}
+    assert H_diag.diag.untyped_storage().data_ptr() in kept
+    assert all(t.shape[0] == len(TLIST) - 1 for t in saved.stacks)
+    assert not any(dtype == torch.float64 and shape == (2 ** L16,)
+                   for _, dtype, shape, _, _ in views)
