@@ -1318,10 +1318,10 @@ def main():
                          "per-step budget under 1e-13, '0' = none)")
     ap.add_argument("--dd-remote-bits", type=int, default=0,
                     help="feed N self-copies of the state through the dd "
-                         "step's remote-bit hook (extra_nb_fn), the "
-                         "kernel-side cost of N sharded slot-bit "
-                         "exchanges; the result is non-physical (implies "
-                         "--no-oracle)")
+                         "step's remote-bit hook (extra_nb_fn), read by "
+                         "the high pass as N partner planes (N <= 4): the "
+                         "kernel-side cost of N sharded slot bits; the "
+                         "result is non-physical (implies --no-oracle)")
     ap.add_argument("--dd-variant",
                     choices=("twosum", "rows", "sigma", "lomxu", "tlane",
                              "xcross", "mxq"),

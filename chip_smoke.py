@@ -152,6 +152,7 @@ BANDED_SOURCE = "quantumpropagators_torch/csrc/banded_spmv.cu"
 BANDED = "banded_spmv<double>"
 BANDED_REPLACES = "quantumpropagators/ops/bsr_dd_pallas.py:267"
 N_BANDED = 2 ** 20   # bench.py --config banded20: 2^20 amplitudes
+PARTNER_L_SUM = 16   # phase 2's slots without top bits (h = 0): 4 x 2^16
 B_BANDED = 128       # 128-level units, dense blocks
 # H100 SXM peaks (NVIDIA data sheet): FP64 / FP32 FLOP/s outside the
 # tensor cores (the HBM rate is profiling.HBM_BYTES_S)
@@ -284,7 +285,8 @@ def check_cases(name):
 def compare_kernels(device):
     """Phase 2: every instantiation against its plain version at the
     cases of :func:`check_cases`, the inputs of each size and type built
-    once, and on :func:`slot_stack`'s 4-slot stack with a ``w``; returns
+    once, on :func:`slot_stack`'s 4-slot stack with a ``w``, and with the
+    slot bits' partners (:func:`compare_partners`); returns
     ``{name: max_abs_err}`` over all of them."""
     errs = {}
     for ctype in ("float", "double"):
@@ -302,13 +304,75 @@ def compare_kernels(device):
                     errs[name] = max(compare_case(
                         name, ctype, stack, L_MAIN - 2, None, w), errs[name])
                 del stack, w
+            if L == L_MAIN:
+                for name, err in compare_partners(ctype, inputs).items():
+                    errs[name] = max(err, errs[name])
             del inputs
+        inputs = kernel_inputs(PARTNER_L_SUM + 2, ctype, device, SEED)
+        for name, err in compare_partners(ctype, inputs).items():
+            errs[name] = max(err, errs[name])
+        del inputs
         for name, name_cases in cases.items():
             where = ", ".join(f"{L}" if h is None else f"{L} (h={h})"
                               for L, h in name_cases)
             log(f"phase 2 kernel-vs-plain {name}: ok at L = {where} and "
-                f"on a 4 x 2^{L_MAIN - 2} slot stack with w, "
+                f"on a 4 x 2^{L_MAIN - 2} slot stack with w and with the "
+                f"slot bits' partners (and on 4 x 2^{PARTNER_L_SUM}), "
                 f"max|d| = {errs[name]:.3e}")
+    return errs
+
+
+def partner_inputs(inputs, slots=4):
+    """The one-rank sharded step's partner launches on ``inputs`` seen
+    as a ``slots``-slot stack: the stack ``x`` (``v1``'s rows), the
+    slot-local flip coefficients followed by the two slot bits', and the
+    slot bits' partners, rows ``s ^ 1`` and ``s ^ 2`` of ``x`` itself."""
+    v0, v1, phi, dmb, G, s = inputs
+    L = G.numel() - 2
+    x = v1.view(slots, -1)
+    return x, G, [(x, 1), (x, 2)], L
+
+
+def compare_partners(ctype, inputs):
+    """Phase 2's partner cases on :func:`partner_inputs`' stack (4 x
+    2^22 at L_MAIN: h = 4; 4 x 2^PARTNER_L_SUM: h = 0): the high pass
+    with the two partners against its plain version, with and without a
+    ``w``, and the whole setup and order with them; returns
+    ``{name: max_abs_err}``."""
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    v0, v1, phi, dmb, G, s = inputs
+    x, G_all, parts, L = partner_inputs(inputs)
+    h = cf.flip_split(L, v1.dtype)[1]
+    y0, d4, ph = (t.view(x.shape) for t in (v0, dmb, phi))
+    calls = {
+        f"cheby_flip_high<{ctype}>": lambda f: (
+            f(x, G_all, h, partners=parts), f(x, G_all, h, y0, parts)),
+        f"cheby_flip_first<{ctype}>": lambda f: f(
+            x, d4, G_all, s, 0.81, -0.45, partners=parts),
+        f"cheby_flip_iter<{ctype}>": lambda f: (f(
+            y0.clone(), x, ph.clone(), d4, G_all, 2.0 * s, 0.13,
+            partners=parts),),
+    }
+    plains = {"cheby_flip_high": cf.cheby_flip_high_plain,
+              "cheby_flip_first": cf.cheby_flip_first_plain,
+              "cheby_flip_iter": cf.cheby_flip_iter_plain}
+    errs = {}
+    for name, call in calls.items():
+        kind = name.split("<")[0]
+        got = call(getattr(cf, kind))
+        want = call(plains[kind])
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.abs().max()) for b in want)
+        ok = err <= (1e-13 if ctype == "double" else 1e-5 * scale)
+        log(f"phase 2 kernel-vs-plain {name} 4 x 2^{L} slot stack with the "
+            f"slot bits' 2 partners (h={h}): max|d|={err:.3e} "
+            f"max|ref|={scale:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} with partners disagrees with its "
+                                 f"plain version at 4 x 2^{L}")
+        errs[name] = err
     return errs
 
 
@@ -574,6 +638,8 @@ def time_kernels(device, card):
         log(f"phase 6 time {name} L={L_MAIN}: {what} {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}, {100 * bound_ms / ms:.1f} % of it reached) [{card}]")
+        if kind == "cheby_flip_high":
+            time_partners(name, (v0, v1, phi, dmb, G, s), card)
         if kind == "cheby_flip_first":
             # each pass alone, beside the bytes it moves: the high pass
             # reads v0 and writes w_hi; the tiled pass reads v0, dmb and
@@ -600,6 +666,42 @@ def time_kernels(device, card):
             del w_hi
         del v0, v1, phi, dmb
     return times
+
+
+def time_partners(name, inputs, card):
+    """Phase 6: the high pass as the one-rank 4-slot sharded step runs it
+    at L_MAIN (:func:`partner_inputs`: 4 x 2^22, h = 4, the two slot
+    bits' partners read in the kernel) beside its plain version, its
+    bound (each slot's x and 2 partners read and w_hi written once: 64
+    bytes an element in double, 32 in float) and the same sum the way
+    the step made it before: the partner rows copied into a stack, their
+    weighted sum in PyTorch, and the high pass reading it as its w."""
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    ctype = name[:-1].split("<")[1]
+    x, G_all, parts, L = partner_inputs(inputs)
+    h = cf.flip_split(L, x.dtype)[1]
+    G_loc = G_all[:L].contiguous()
+    g1, g2 = G_all[L], G_all[L + 1]
+    n, vec = x.numel(), x.numel() * x.element_size()
+    ms = time_ms(lambda: cf.cheby_flip_high(x, G_all, h, partners=parts), 20)
+    plain_ms = time_ms(lambda: cf.cheby_flip_high_plain(
+        x, G_all, h, partners=parts), 3)
+
+    def copies_then_sum():
+        rows = [torch.stack([x[r ^ k] for r in range(x.shape[0])])
+                for k in (1, 2)]
+        return cf.cheby_flip_high(x, G_loc, h, g1 * rows[0] + g2 * rows[1])
+
+    old_ms = time_ms(copies_then_sum, 20)
+    b_ms, b_by = bound(G_all.numel() * G_all.element_size()
+                       + (2 + len(parts)) * vec, 4 * (h + len(parts)) * n,
+                       ctype)
+    log(f"phase 6 time {name} 4 x 2^{L} slot stack with the slot bits' "
+        f"{len(parts)} partners (h={h}): {ms:.4f} ms a step's order "
+        f"({x.shape[0]} slot launches), plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f} % of it reached); "
+        f"copies + PyTorch sum + high pass with w {old_ms:.4f} ms [{card}]")
 
 
 def trace_steps(run, label, n_steps, card, top=8, regions=None):
@@ -1161,6 +1263,7 @@ def sharded_phase(device, card, chain, finals, ctx, rates, group):
             state = step_dd(dmb, state, c64, flip_scale=Gbits[k])
         return state
 
+    exchanges = count_exchanges(mesh)
     cf.reset_launches()
     t0 = time.perf_counter()
     state = run_dd()
@@ -1179,8 +1282,9 @@ def sharded_phase(device, card, chain, finals, ctx, rates, group):
     flips = sum(counts.values()) / N_STEPS
     log(f"phase 10 sharded dd L={L} 4 slots {N_STEPS} steps: max|d| vs "
         f"phase 3={err:.3e} (<= 1e-12), |psum norm^2-1|={nerr:.2e}, "
-        f"exchange {step_dd.exchange_plan}, flip launches/step "
-        f"{flips:.0f} ok")
+        f"exchange {step_dd.exchange_plan}, Mesh.ppermute calls "
+        f"{len(exchanges)} (slot bits read in the kernels), flip "
+        f"launches/step {flips:.0f} ok")
     out["dd"] = (N_STEPS / t_dd, N_STEPS / median_wall(run_dd)[1])
     del state
     trace_steps(lambda: run_dd(3), f"phase 10 trace sharded dd L={L} 4 "
@@ -1206,6 +1310,10 @@ def sharded_phase(device, card, chain, finals, ctx, rates, group):
     state = run_32()
     torch.cuda.synchronize()
     t_32 = time.perf_counter() - t0
+    if exchanges:
+        raise AssertionError(f"one-rank sharded steps exchanged "
+                             f"{len(exchanges)} times")
+    del mesh.ppermute
     paths["phase 10 sharded f32"] = counts = dict(cf.LAUNCHES)
     if not all(counts[f"cheby_flip_{k}<float>"] > 0
                for k in ("first", "iter", "high")):
@@ -1214,8 +1322,8 @@ def sharded_phase(device, card, chain, finals, ctx, rates, group):
     if not err <= 1e-5:
         raise AssertionError(f"sharded f32 vs phase 4: {err}")
     log(f"phase 10 sharded f32 L={L} 4 slots {N_STEPS} steps: max|d| vs "
-        f"phase 4={err:.3e} (<= 1e-5), flip launches/step "
-        f"{sum(counts.values()) / N_STEPS:.0f} ok")
+        f"phase 4={err:.3e} (<= 1e-5), Mesh.ppermute calls 0, flip "
+        f"launches/step {sum(counts.values()) / N_STEPS:.0f} ok")
     out["pallas"] = (N_STEPS / t_32, N_STEPS / median_wall(run_32)[1])
     del state
     trace_steps(lambda: run_32(3), f"phase 10 trace sharded f32 L={L} 4 "
@@ -1293,6 +1401,19 @@ def sharded_phase(device, card, chain, finals, ctx, rates, group):
             f"{dict(dd=6, pallas=6, banded20=7)[tier]}) [{card}]")
     log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
     return paths, n_banded, err_b
+
+
+def count_exchanges(mesh):
+    """Records the dtype of each ``mesh.ppermute`` call in the returned
+    list until ``del mesh.ppermute``."""
+    seen, inner = [], mesh.ppermute
+
+    def ppermute(x, perm):
+        seen.append(x.dtype)
+        return inner(x, perm)
+
+    mesh.ppermute = ppermute
+    return seen
 
 
 def slot_planes_check(pb, x):

@@ -15,7 +15,9 @@
 // (setup) or 2s (iteration), and the Chebyshev coefficient(s).  An optional
 // complex vector w (nullptr when unused) is added to (H - beta) v before
 // the scaling: the hook through which contributions computed elsewhere
-// (for example flips of bits that live on another device) enter.
+// enter.  Flips of bits that live outside the state (a sharded state's
+// slot bits) enter the high pass as partner rows, each weighted by its
+// own entry of G after the L local bits.
 //
 // T = double gives the complex128 reference-accuracy tier; T = float the
 // complex64 tier.  State vectors are interleaved complex (float2/double2).
@@ -35,7 +37,9 @@
 // Bound: memory.  Per element and order the iteration must read v1, v0,
 // Phi and dmb and write v2 and Phi: 5.5 vectors, 88 bytes for double and
 // 44 for float; the setup reads v0 and dmb and writes v1 and Phi: 3.5
-// vectors, 56 and 28 bytes.
+// vectors, 56 and 28 bytes.  The high pass with P partner rows reads x
+// and the partners and writes w_hi: 32 + 16 P bytes in double, 16 + 8 P
+// in float (at h = 0 x is not read).
 //
 // Both are two passes, because no single sweep over the state keeps every
 // flip partner in cache: partners of bit j lie 2^j elements apart, and a
@@ -47,11 +51,17 @@
 // most T bits, whatever its shape.  Below, x is the vector whose flips
 // are summed: v1 in the iteration, v0 in the setup.
 //
-//   cheby_flip_high<T>: w_hi = sum_{j >= L-h} G_j x[i ^ 2^j] (+ w).  A
-//     block holds a strided cube: one run of 2^line_bits contiguous
-//     elements (256 bytes) for each of the 2^h values of the top h bits,
-//     staged in shared memory with cp.async, so every top-bit partner is
-//     read from there.  One streaming pass: read x (and w), write w_hi.
+//   cheby_flip_high<T>: w_hi = sum_{j >= L-h} G_j x[i ^ 2^j]
+//     + sum_{r < P} G_{L+r} p_r[i] (+ w).  A block holds a strided cube:
+//     one run of 2^line_bits contiguous elements (256 bytes) for each of
+//     the 2^h values of the top h bits, staged in shared memory with
+//     cp.async, so every top-bit partner is read from there.  The P <=
+//     kMaxPartners partner rows p_r are flips of bits held outside x (a
+//     sharded state's slot bits: another row of the slot stack, or rows
+//     received from another rank); they are read at the output's own
+//     index.  One streaming pass: read x (and the partners, and w), write
+//     w_hi.  With h = 0 nothing is staged: the pass is the partners'
+//     weighted sum (plus w).
 //   cheby_flip_tiled<T, First>: the order (First = false) or the setup
 //     (First = true) over bits j < L-h, with w_hi as its w.  A block owns
 //     a contiguous tile of 2^tile_bits elements of x (16 KB), staged in
@@ -122,6 +132,7 @@ constexpr int kHighThreads = 256;
 constexpr int kLoadBatch = 4;
 constexpr int kFirstLoadBatch = 8;
 constexpr int kMaxSmem = 227 * 1024;  // shared memory a block may use
+constexpr int kMaxPartners = 4;       // partner rows of one high pass
 
 // One pass over the flips of bits j < bits (bits = L - h) of x:
 //   u = dmb x + sum_{j < bits} G_j x[i ^ 2^j] + w, then
@@ -223,31 +234,49 @@ __global__ void __launch_bounds__(kTiledThreads)
   }
 }
 
-// out = sum_{r < h} G[L-h+r] x[i ^ 2^(L-h+r)] (+ w).  Block b holds the
-// cube of the 2^line_bits elements (b << line_bits) .. + 2^line_bits - 1
-// of the low L-h bits, for each of the 2^h values of the top h bits:
-// cube element q is global index ((q >> line_bits) << (L-h)) | (b <<
-// line_bits) | (q & (2^line_bits - 1)).
+// The device pointers of one slot launch's partner rows, passed by value.
+template <typename V>
+struct Partners {
+  const V* row[kMaxPartners];
+};
+
+// out = sum_{r < h} G[L-h+r] x[i ^ 2^(L-h+r)]
+//       + sum_{r < P} G[L+r] partners.row[r][i] (+ w),
+// summed in that order: the top bits from the lowest up, then the
+// partners in list order, then w (the plain version's order).  Block b
+// holds the cube of the 2^line_bits elements (b << line_bits) .. +
+// 2^line_bits - 1 of the low L-h bits, for each of the 2^h values of the
+// top h bits: cube element q is global index ((q >> line_bits) << (L-h))
+// | (b << line_bits) | (q & (2^line_bits - 1)).  The coefficients are
+// read from the device vector G (L + P entries), so a captured launch
+// reads the values G holds at each replay.
 template <typename T>
 __global__ void __launch_bounds__(kHighThreads)
     cheby_flip_high(const typename Complex<T>::type* __restrict__ x,
                     const T* __restrict__ G,
                     const typename Complex<T>::type* __restrict__ w,
+                    Partners<typename Complex<T>::type> partners,
+                    int n_partners,
                     typename Complex<T>::type* __restrict__ out, int L, int h,
                     int line_bits) {
   using V = typename Complex<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   V* cube = reinterpret_cast<V*>(smem);
   __shared__ T sG[kMaxBits];
+  __shared__ T sP[kMaxPartners];
   const int m = L - h;
   const int cn = 1 << (line_bits + h);
   const int line_mask = (1 << line_bits) - 1;
   const int64_t mid = int64_t(blockIdx.x) << line_bits;
-  for (int q = threadIdx.x; q < cn; q += blockDim.x) {
-    const int64_t i = (int64_t(q >> line_bits) << m) | mid | (q & line_mask);
-    cp_async_elem(cube + q, x + i);
+  if (h > 0) {
+    for (int q = threadIdx.x; q < cn; q += blockDim.x) {
+      const int64_t i =
+          (int64_t(q >> line_bits) << m) | mid | (q & line_mask);
+      cp_async_elem(cube + q, x + i);
+    }
   }
   if (int(threadIdx.x) < h) sG[threadIdx.x] = G[m + threadIdx.x];
+  if (int(threadIdx.x) < n_partners) sP[threadIdx.x] = G[L + threadIdx.x];
   cp_async_wait_all();
   __syncthreads();
   for (int q = threadIdx.x; q < cn; q += blockDim.x) {
@@ -258,6 +287,16 @@ __global__ void __launch_bounds__(kHighThreads)
       const V y = cube[q ^ (1 << (line_bits + r))];
       ur += sG[r] * y.x;
       ui += sG[r] * y.y;
+    }
+    // partners at the thread's own index: 2^line_bits consecutive
+    // elements a line, coalesced
+#pragma unroll
+    for (int r = 0; r < kMaxPartners; ++r) {
+      if (r < n_partners) {
+        const V y = partners.row[r][i];
+        ur += sP[r] * y.x;
+        ui += sP[r] * y.y;
+      }
     }
     if (w != nullptr) {
       const V z = w[i];
@@ -300,19 +339,29 @@ int launch_tiled(const void* v0, void* out, const void* x, void* phi,
 }
 
 template <typename T>
-int launch_high(const void* x, const void* G, const void* w, void* out,
+int launch_high(const void* x, const void* G, const void* w,
+                const void* const* partners, int n_partners, void* out,
                 int L, int64_t n, int h, int line_bits, void* stream) {
   using V = typename Complex<T>::type;
-  if (L < 1 || L > kMaxBits || n != (int64_t(1) << L) || h < 1 ||
-      line_bits < 0 || line_bits + h > L)
+  if (L < 1 || L > kMaxBits || n != (int64_t(1) << L) || h < 0 ||
+      line_bits < 0 || line_bits + h > L || n_partners < 0 ||
+      n_partners > kMaxPartners || (h == 0 && n_partners == 0))
     return int(cudaErrorInvalidValue);
-  const int64_t bytes = (int64_t(1) << (line_bits + h)) * int64_t(sizeof(V));
+  Partners<V> rows{};
+  for (int r = 0; r < n_partners; ++r) {
+    if (partners[r] == nullptr) return int(cudaErrorInvalidValue);
+    rows.row[r] = static_cast<const V*>(partners[r]);
+  }
+  // h = 0 stages nothing
+  const int64_t bytes =
+      h ? (int64_t(1) << (line_bits + h)) * int64_t(sizeof(V)) : 0;
   if (bytes > kMaxSmem) return int(cudaErrorInvalidValue);
   const cudaError_t rc = allow_smem(cheby_flip_high<T>, int(bytes));
   if (rc != cudaSuccess) return int(rc);
   cheby_flip_high<T><<<int(n >> (line_bits + h)), kHighThreads, int(bytes),
                        (cudaStream_t)stream>>>(
-      (const V*)x, (const T*)G, (const V*)w, (V*)out, L, h, line_bits);
+      (const V*)x, (const T*)G, (const V*)w, rows, n_partners, (V*)out, L, h,
+      line_bits);
   return int(cudaGetLastError());
 }
 
@@ -356,17 +405,22 @@ int cheby_flip_iter_f64(const void* v0, void* v2, const void* v1, void* phi,
                                      tile_bits, bits, s2, ak, 0.0, stream);
 }
 
-// The high pass of either: w_hi from x (v1 or v0).
+// The high pass of either: w_hi from x (v1 or v0) and the n_partners
+// device pointers of the host array partners.
 int cheby_flip_high_f32(const void* x, const void* G, const void* w,
+                        const void* const* partners, int n_partners,
                         void* out, int L, int64_t n, int h, int line_bits,
                         void* stream) {
-  return launch_high<float>(x, G, w, out, L, n, h, line_bits, stream);
+  return launch_high<float>(x, G, w, partners, n_partners, out, L, n, h,
+                            line_bits, stream);
 }
 
 int cheby_flip_high_f64(const void* x, const void* G, const void* w,
+                        const void* const* partners, int n_partners,
                         void* out, int L, int64_t n, int h, int line_bits,
                         void* stream) {
-  return launch_high<double>(x, G, w, out, L, n, h, line_bits, stream);
+  return launch_high<double>(x, G, w, partners, n_partners, out, L, n, h,
+                             line_bits, stream);
 }
 
 }  // extern "C"

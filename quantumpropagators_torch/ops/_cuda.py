@@ -43,9 +43,12 @@ _SIGNATURES = {
                            + [ctypes.c_float] * 2 + [_P],
     "cheby_flip_iter_f64": [_P] * 7 + [_I, _L, _I, _I]
                            + [ctypes.c_double] * 2 + [_P],
-    # v1, G, w, out, L, n, h, line_bits, stream
-    "cheby_flip_high_f32": [_P] * 4 + [_I, _L, _I, _I, _P],
-    "cheby_flip_high_f64": [_P] * 4 + [_I, _L, _I, _I, _P],
+    # v1, G, w, partners (host array of device pointers), n_partners, out,
+    # L, n, h, line_bits, stream
+    "cheby_flip_high_f32": [_P] * 3 + [ctypes.POINTER(_P), _I, _P, _I, _L,
+                                       _I, _I, _P],
+    "cheby_flip_high_f64": [_P] * 3 + [ctypes.POINTER(_P), _I, _P, _I, _L,
+                                       _I, _I, _P],
     # planes, x, y, offsets, n_bands, R, b, halo, stream
     "banded_spmv_f64": [_P] * 3 + [ctypes.POINTER(ctypes.c_int), _I, _L, _I,
                                    _I, _P],

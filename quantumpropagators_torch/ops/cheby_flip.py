@@ -18,6 +18,17 @@ or :func:`cheby_flip_iter_low` runs the setup or the order over the
 flips of the bits below ``L − h`` with ``w_hi`` as its ``w``.  The top
 bits' partners lie too far apart for one sweep to find them in L2.
 
+Every wrapper also takes ``partners``: up to :data:`MAX_PARTNERS` pairs
+``(stack, slot_xor)`` for flips of bits held outside the state, the
+slot bits of a sharded state (:mod:`..parallel.sharded_fused`).  Slot
+``s`` of the state reads row ``s ^ slot_xor`` of ``stack`` (the state's
+own stack with ``slot_xor = 2^r`` for a slot bit inside this process,
+received rows with ``slot_xor = 0``), weighted by ``G[L + r]`` for the
+``r``-th partner: ``G`` then holds ``L + len(partners)`` entries.  On
+the card the partners are read inside the high pass, which then also
+runs where the split has no top bits (``h = 0``: the partners' weighted
+sum alone).
+
 Each takes complex128 states with float64 ``dmb``/``G`` (the
 reference-accuracy tier) or complex64 with float32 (the f32 tier).  A
 state is a flat ``2^L`` vector or a ``(slots, 2^L)`` stack of
@@ -32,6 +43,8 @@ versions do not count).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _cuda
@@ -39,6 +52,7 @@ from . import _cuda
 __all__ = [
     "LAUNCHES",
     "MAX_BITS",
+    "MAX_PARTNERS",
     "reset_launches",
     "flip_split",
     "flip_check_sizes",
@@ -57,9 +71,11 @@ __all__ = [
 ]
 
 MAX_BITS = 30
+MAX_PARTNERS = 4            # partner rows of one high pass (16 slots)
 _MAX_HIGH_BITS = 8          # the high pass's cube: at most 2^8 runs
 _SMEM_BYTES = 227 * 1024    # shared memory one H100 block may use
 _LINE_BYTES = 256           # the high pass's contiguous run per top-bit value
+_SUM_LINE_BITS = 10         # the high pass at h = 0: 2^10 elements a block
 _TILE_BYTES = 16 * 1024     # the iteration's tile of v1 in shared memory
 _SETUP_TILE_BITS = 11       # the setup's tile of v0: 2^11 elements
 # Bits below which a flip partner stays within L2's reach while the
@@ -110,7 +126,10 @@ def flip_check_sizes(dtype) -> list[int]:
 
 def _line_bits(L: int, h: int, dtype) -> int:
     """The high pass's line: ``2^line_bits`` contiguous elements (at most
-    ``_LINE_BYTES``) for each value of the top ``h`` bits."""
+    ``_LINE_BYTES``) for each value of the top ``h`` bits; at ``h = 0``
+    (partners alone, nothing staged) a block's run of elements."""
+    if h == 0:
+        return min(L, _SUM_LINE_BITS)
     return min(L - h, _bits_in(_LINE_BYTES, dtype))
 
 
@@ -118,7 +137,7 @@ def _bits_in(n_bytes: int, dtype) -> int:
     return (n_bytes // dtype.itemsize).bit_length() - 1
 
 
-def _check(vectors, dmb, G) -> int:
+def _check(vectors, dmb, G, partners=()) -> int:
     """Validate the arguments of one launch (``dmb=None``: no diagonal);
     returns ``L``."""
     v = vectors[0]
@@ -144,11 +163,38 @@ def _check(vectors, dmb, G) -> int:
                             or not dmb.is_contiguous()):
         raise ValueError(f"dmb must be a contiguous {rdtype} tensor of "
                          f"{n} entries on {v.device}")
-    if G.dtype != rdtype or tuple(G.shape) != (L,) or G.device != v.device \
+    n_g = L + len(partners)
+    if G.dtype != rdtype or tuple(G.shape) != (n_g,) or G.device != v.device \
             or not G.is_contiguous():
         raise ValueError(f"G must be a contiguous {rdtype} vector of shape "
-                         f"({L},) on {v.device}")
+                         f"({n_g},) on {v.device}")
+    _check_partners(v, L, partners)
     return L
+
+
+def _check_partners(v, L, partners) -> None:
+    if len(partners) > MAX_PARTNERS:
+        raise ValueError(f"{len(partners)} partners: at most {MAX_PARTNERS}")
+    slots = v.numel() >> L
+    for stack, slot_xor in partners:
+        if stack.dtype != v.dtype or stack.device != v.device:
+            raise ValueError(f"a partner must be {v.dtype} on {v.device}, "
+                             f"got {stack.dtype} on {stack.device}")
+        if stack.numel() != v.numel() or stack.shape[-1] != 1 << L \
+                or not stack.is_contiguous():
+            raise ValueError(f"a partner must be a contiguous stack of "
+                             f"{slots} rows of 2^{L}, got shape "
+                             f"{tuple(stack.shape)}")
+        if not all(0 <= s ^ slot_xor < slots for s in range(slots)):
+            raise ValueError(f"slot_xor {slot_xor} leaves the {slots} rows")
+
+
+def _partner_rows(v, L, stack, slot_xor):
+    """Row ``s ^ slot_xor`` of ``stack`` for each slot ``s`` of ``v``, in
+    ``v``'s shape."""
+    rows = stack.view(-1, 1 << L)
+    return torch.stack([rows[s ^ slot_xor] for s in range(rows.shape[0])]
+                       ).view(v.shape)
 
 
 def flip_sum_plain(v: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
@@ -165,56 +211,73 @@ def flip_sum_range_plain(v: torch.Tensor, G: torch.Tensor, lo: int,
     return out
 
 
-def _shifted_h(v, dmb, G, w):
-    u = dmb.view(v.shape) * v + flip_sum_plain(v, G)
+def _shifted_h(v, dmb, G, w, partners, bits):
+    """``dmb·v + Σ_{j < bits} G_j·v[i ^ 2^j]``, then the partners and
+    ``w``."""
+    u = dmb.view(v.shape) * v + flip_sum_range_plain(v, G, 0, bits)
+    return _add_outside(u, v, G, w, partners)
+
+
+def _add_outside(u, v, G, w, partners):
+    """``u`` plus what enters from outside the state ``v``: the partners
+    in list order, each weighted by its entry of ``G`` after the ``L``
+    local bits, then ``w`` (the high pass's order)."""
+    L = v.shape[-1].bit_length() - 1
+    for r, (stack, slot_xor) in enumerate(partners):
+        u = u + G[L + r] * _partner_rows(v, L, stack, slot_xor)
     return u if w is None else u + w.view(v.shape)
 
 
-def cheby_flip_first_plain(v0, dmb, G, s, a0, a1, w=None):
+def _opt(w):
+    return [] if w is None else [w]
+
+
+def cheby_flip_first_plain(v0, dmb, G, s, a0, a1, w=None, partners=()):
     """Plain PyTorch version of :func:`cheby_flip_first`."""
-    _check([v0] + ([w] if w is not None else []), dmb, G)
-    v1 = (1j * s) * _shifted_h(v0, dmb, G, w)
+    L = _check([v0] + _opt(w), dmb, G, partners)
+    v1 = (1j * s) * _shifted_h(v0, dmb, G, w, partners, L)
     return v1, a0 * v0 + a1 * v1
 
 
-def cheby_flip_first_low_plain(v0, dmb, G, s, a0, a1, bits, w=None):
+def cheby_flip_first_low_plain(v0, dmb, G, s, a0, a1, bits, w=None,
+                               partners=()):
     """Plain PyTorch version of :func:`cheby_flip_first_low`."""
-    L = _check([v0] + ([w] if w is not None else []), dmb, G)
+    L = _check([v0] + _opt(w), dmb, G, partners)
     _check_bits(bits, 0, L)
-    u = dmb.view(v0.shape) * v0 + flip_sum_range_plain(v0, G, 0, bits)
-    v1 = (1j * s) * (u if w is None else u + w.view(v0.shape))
+    v1 = (1j * s) * _shifted_h(v0, dmb, G, w, partners, bits)
     return v1, a0 * v0 + a1 * v1
 
 
-def cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w=None, out=None):
+def cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w=None, out=None,
+                          partners=()):
     """Plain PyTorch version of :func:`cheby_flip_iter`."""
     out = v0 if out is None else out
-    _check([v0, v1, phi, out] + ([w] if w is not None else []), dmb, G)
-    v2 = (1j * s2) * _shifted_h(v1, dmb, G, w) + v0
+    L = _check([v0, v1, phi, out] + _opt(w), dmb, G, partners)
+    v2 = (1j * s2) * _shifted_h(v1, dmb, G, w, partners, L) + v0
     out.copy_(v2)
     phi.add_(v2, alpha=ak)
     return out
 
 
 def cheby_flip_iter_low_plain(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
-                              out=None):
+                              out=None, partners=()):
     """Plain PyTorch version of :func:`cheby_flip_iter_low`."""
     out = v0 if out is None else out
-    L = _check([v0, v1, phi, out] + ([w] if w is not None else []), dmb, G)
+    L = _check([v0, v1, phi, out] + _opt(w), dmb, G, partners)
     _check_bits(bits, 0, L)
-    u = dmb.view(v1.shape) * v1 + flip_sum_range_plain(v1, G, 0, bits)
-    v2 = (1j * s2) * (u if w is None else u + w.view(v1.shape)) + v0
+    v2 = (1j * s2) * _shifted_h(v1, dmb, G, w, partners, bits) + v0
     out.copy_(v2)
     phi.add_(v2, alpha=ak)
     return out
 
 
-def cheby_flip_high_plain(v1, G, h, w=None):
-    """Plain PyTorch version of :func:`cheby_flip_high`."""
-    L = _check([v1] + ([w] if w is not None else []), None, G)
+def cheby_flip_high_plain(v1, G, h, w=None, partners=()):
+    """Plain PyTorch version of :func:`cheby_flip_high`: the top bits
+    from the lowest up, then the partners in list order, then ``w``."""
+    L = _check([v1] + _opt(w), None, G, partners)
     _check_bits(h, 0, L)
-    u = flip_sum_range_plain(v1, G, L - h, L)
-    return u if w is None else u + w.view(v1.shape)
+    return _add_outside(flip_sum_range_plain(v1, G, L - h, L), v1, G, w,
+                        partners)
 
 
 def _check_bits(bits, lo, hi):
@@ -233,77 +296,94 @@ def _device_kind(v):
     return v.device.type
 
 
-def cheby_flip_first(v0, dmb, G, s, a0, a1, w=None):
-    """Chebyshev setup ``v1 = i·s·((H−β)v0 + w)``, ``Φ = a0·v0 + a1·v1``;
-    returns ``(v1, Φ)``.  On the card: the high pass over ``v0`` (when
-    :func:`flip_split` gives ``h > 0``), then the tiled setup pass."""
+def cheby_flip_first(v0, dmb, G, s, a0, a1, w=None, partners=()):
+    """Chebyshev setup ``v1 = i·s·((H−β)v0 + w)``, ``Φ = a0·v0 + a1·v1``
+    (``H`` with the ``partners``' flips); returns ``(v1, Φ)``.  On the
+    card: the high pass over ``v0`` (when :func:`flip_split` gives
+    ``h > 0`` or partners come in), then the tiled setup pass."""
     if _device_kind(v0) == "cpu":
-        return cheby_flip_first_plain(v0, dmb, G, s, a0, a1, w)
-    L = _check([v0] + ([w] if w is not None else []), dmb, G)
+        return cheby_flip_first_plain(v0, dmb, G, s, a0, a1, w, partners)
+    L = _check([v0] + _opt(w), dmb, G, partners)
     tile_bits, h = flip_split(L, v0.dtype, setup=True)
-    if h:
-        w = _launch_high(v0, G, w, L, h)
+    w = _outside(v0, G, w, L, h, partners)
     return _launch_first(v0, dmb, G, s, a0, a1, w, L, tile_bits, L - h)
 
 
-def cheby_flip_first_low(v0, dmb, G, s, a0, a1, bits, w=None):
+def cheby_flip_first_low(v0, dmb, G, s, a0, a1, bits, w=None, partners=()):
     """The tiled pass of :func:`cheby_flip_first`: the same setup with
     the flips of bits ``0 .. bits−1`` only (the caller supplies the
-    others through ``w``); returns ``(v1, Φ)``."""
+    others through ``w``); returns ``(v1, Φ)``.  Partners are summed
+    first by the high pass at ``h = 0``."""
     if _device_kind(v0) == "cpu":
-        return cheby_flip_first_low_plain(v0, dmb, G, s, a0, a1, bits, w)
-    L = _check([v0] + ([w] if w is not None else []), dmb, G)
+        return cheby_flip_first_low_plain(v0, dmb, G, s, a0, a1, bits, w,
+                                          partners)
+    L = _check([v0] + _opt(w), dmb, G, partners)
     _check_bits(bits, 0, L)
+    w = _outside(v0, G, w, L, 0, partners)
     return _launch_first(v0, dmb, G, s, a0, a1, w, L,
                          flip_split(L, v0.dtype, setup=True)[0], bits)
 
 
-def cheby_flip_iter(v0, v1, phi, dmb, G, s2, ak, w=None, out=None):
-    """One order ``v2 = i·s2·((H−β)v1 + w) + v0``, ``Φ += a_k·v2``.
-    ``v2`` goes into ``out`` (default: ``v0``, overwritten in place) and
-    is returned; ``Φ`` is updated in place.  On the card: the high pass
-    (when :func:`flip_split` gives ``h > 0``), then the iteration pass."""
+def cheby_flip_iter(v0, v1, phi, dmb, G, s2, ak, w=None, out=None,
+                    partners=()):
+    """One order ``v2 = i·s2·((H−β)v1 + w) + v0``, ``Φ += a_k·v2``
+    (``H`` with the ``partners``' flips).  ``v2`` goes into ``out``
+    (default: ``v0``, overwritten in place) and is returned; ``Φ`` is
+    updated in place.  On the card: the high pass (when
+    :func:`flip_split` gives ``h > 0`` or partners come in), then the
+    iteration pass."""
     if _device_kind(v0) == "cpu":
-        return cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w, out)
+        return cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w, out,
+                                     partners)
     out = v0 if out is None else out
-    L = _check_iter(v0, v1, phi, out, w, dmb, G)
+    L = _check_iter(v0, v1, phi, out, w, dmb, G, partners)
     tile_bits, h = flip_split(L, v0.dtype)
-    if h:
-        w = _launch_high(v1, G, w, L, h)
+    w = _outside(v1, G, w, L, h, partners)
     _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L, tile_bits, L - h)
     return out
 
 
 def cheby_flip_iter_low(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
-                        out=None):
+                        out=None, partners=()):
     """The iteration pass of :func:`cheby_flip_iter`: the same order
     with the flips of bits ``0 .. bits−1`` only (the caller supplies the
-    others through ``w``)."""
+    others through ``w``).  Partners are summed first by the high pass
+    at ``h = 0``."""
     if _device_kind(v0) == "cpu":
         return cheby_flip_iter_low_plain(v0, v1, phi, dmb, G, s2, ak, bits,
-                                         w, out)
+                                         w, out, partners)
     out = v0 if out is None else out
-    L = _check_iter(v0, v1, phi, out, w, dmb, G)
+    L = _check_iter(v0, v1, phi, out, w, dmb, G, partners)
     _check_bits(bits, 0, L)
+    w = _outside(v1, G, w, L, 0, partners)
     _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L,
                  flip_split(L, v0.dtype)[0], bits)
     return out
 
 
-def cheby_flip_high(v1, G, h, w=None):
+def cheby_flip_high(v1, G, h, w=None, partners=()):
     """The high pass of :func:`cheby_flip_iter` (and, on ``v0``, of
     :func:`cheby_flip_first`): returns ``w_hi = Σ_{j ≥ L−h}
-    G_j·v1[i ^ 2^j]`` (plus ``w`` when given) in a new vector.  On the
-    card ``1 ≤ h ≤ 8``."""
+    G_j·v1[i ^ 2^j] + Σ_r G_{L+r}·partner_r`` (plus ``w`` when given) in
+    a new vector.  On the card ``1 ≤ h ≤ 8``, or ``h = 0`` with
+    partners."""
     if _device_kind(v1) == "cpu":
-        return cheby_flip_high_plain(v1, G, h, w)
-    L = _check([v1] + ([w] if w is not None else []), None, G)
-    _check_bits(h, 1, min(L, _MAX_HIGH_BITS))
-    return _launch_high(v1, G, w, L, h)
+        return cheby_flip_high_plain(v1, G, h, w, partners)
+    L = _check([v1] + _opt(w), None, G, partners)
+    _check_bits(h, 0 if partners else 1, min(L, _MAX_HIGH_BITS))
+    return _launch_high(v1, G, w, L, h, partners)
 
 
-def _check_iter(v0, v1, phi, out, w, dmb, G) -> int:
-    L = _check([v0, v1, phi, out] + ([w] if w is not None else []), dmb, G)
+def _outside(x, G, w, L, h, partners):
+    """The tiled pass's ``w``: the high pass's output over ``x`` where
+    it has top bits or partners to sum, else ``w`` itself."""
+    if h or partners:
+        return _launch_high(x, G, w, L, h, partners)
+    return w
+
+
+def _check_iter(v0, v1, phi, out, w, dmb, G, partners=()) -> int:
+    L = _check([v0, v1, phi, out] + _opt(w), dmb, G, partners)
     if v1.data_ptr() in (v0.data_ptr(), out.data_ptr(), phi.data_ptr()):
         raise ValueError("v1 must not share memory with v0, out or phi")
     return L
@@ -348,14 +428,17 @@ def _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L, tile_bits, bits):
         )
 
 
-def _launch_high(v1, G, w, L, h):
+def _launch_high(v1, G, w, L, h, partners=()):
     ctype, suffix, _ = _TYPES[v1.dtype]
     w_hi = torch.empty_like(v1)
-    for x1, wr, o in _slots(L, v1, w, w_hi):
+    rows = [(stack.view(-1, 1 << L), slot_xor) for stack, slot_xor in partners]
+    for s, (x1, wr, o) in enumerate(_slots(L, v1, w, w_hi)):
+        ptrs = (ctypes.c_void_p * MAX_PARTNERS)(
+            *[r[s ^ slot_xor].data_ptr() for r, slot_xor in rows])
         _launch(
             f"cheby_flip_high_{suffix}", f"cheby_flip_high<{ctype}>",
-            (x1.data_ptr(), G.data_ptr(), _ptr(wr), o.data_ptr(), L,
-             1 << L, h, _line_bits(L, h, v1.dtype)),
+            (x1.data_ptr(), G.data_ptr(), _ptr(wr), ptrs, len(rows),
+             o.data_ptr(), L, 1 << L, h, _line_bits(L, h, v1.dtype)),
             v1.device,
         )
     return w_hi

@@ -223,27 +223,33 @@ def flip_structure_multi(ops):
 
 
 def flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt, *,
-                    forward: bool = True, w_fn=None):
+                    forward: bool = True, partners_fn=None):
     """One Chebyshev step ``exp(-i H dt)·psi`` for
     ``H − β = diag(dmb) + Σ_j G_j X_j`` on a flat ``2^L`` complex state
     or a ``(slots, 2^L)`` stack of them, one :mod:`.cheby_flip` call per
     polynomial order.  ``psi`` is not modified.
 
-    ``w_fn(v) -> w`` (optional) adds ``w`` to ``(H−β)·v`` at every
-    order: contributions computed outside the kernel.
+    ``partners_fn(v) -> [(stack, slot_xor), ...]`` (optional) gives, at
+    every order, the flips of bits held outside the state as
+    :mod:`.cheby_flip` partners, summed inside the kernels' high pass;
+    ``G`` then holds ``L`` local coefficients and one per partner.
     """
     a = [float(x) for x in np.asarray(coeffs, dtype=np.float64)]
     beta = float(delta) / 2.0 + float(e_min)
     s = (-1.0 if forward else 1.0) * 2.0 / float(delta)
+
+    def partners(v):
+        return () if partners_fn is None else partners_fn(v)
+
     v0 = psi
     v1, phi = cheby_flip_first(v0, dmb, G, s, a[0], a[1],
-                               None if w_fn is None else w_fn(v0))
+                               partners=partners(v0))
     for k, ak in enumerate(a[2:]):
-        w = None if w_fn is None else w_fn(v1)
         # order 2 writes a fresh buffer (psi stays intact); later orders
         # overwrite v0 in place
-        v2 = cheby_flip_iter(v0, v1, phi, dmb, G, 2.0 * s, ak, w,
-                             out=torch.empty_like(v1) if k == 0 else None)
+        v2 = cheby_flip_iter(v0, v1, phi, dmb, G, 2.0 * s, ak,
+                             out=torch.empty_like(v1) if k == 0 else None,
+                             partners=partners(v1))
         v0, v1 = v1, v2
     return complex(np.exp(-1j * beta * float(dt))) * phi
 
@@ -278,15 +284,19 @@ def cheby_step_fused(
     psi = torch.complex(re, im).reshape(-1, 1 << plan.L)
     rdtype = re.dtype
     scale = 1.0 if flip_scale is None else flip_scale
-    G = plan_coeffs(plan, rdtype, re.device) * scale
     beta = float(delta) / 2.0 + float(e_min)
     dmb = (diag.reshape(psi.shape).to(rdtype) - beta).contiguous()
-    w_fn = None
-    if extra_w_fn is not None:
-        def w_fn(v):
+    partners_fn = None
+    if extra_w_fn is None:
+        G = plan_coeffs(plan, rdtype, re.device) * scale
+    else:
+        # the hook's plane enters as one partner weighted by the scale
+        G = plan_coeffs(plan, rdtype, re.device, (1.0,)) * scale
+
+        def partners_fn(v):
             wr, wi = extra_w_fn(v.real.reshape(shape), v.imag.reshape(shape))
-            return (scale * torch.complex(wr.to(rdtype), wi.to(rdtype))
-                    ).reshape(v.shape)
+            return [(torch.complex(wr.to(rdtype), wi.to(rdtype)
+                                   ).reshape(v.shape), 0)]
     out = flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt,
-                          forward=forward, w_fn=w_fn)
+                          forward=forward, partners_fn=partners_fn)
     return out.real.reshape(shape), out.imag.reshape(shape)

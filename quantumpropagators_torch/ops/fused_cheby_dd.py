@@ -98,6 +98,15 @@ def _flip_coeffs(plan: FlipPlan, flip_scale, extra_gs, device):
     return base * fs
 
 
+def _partners(v, fn):
+    """``fn(v)``'s planes as :mod:`.cheby_flip` partners: a pair
+    ``(stack, slot_xor)`` as it is, a whole plane as ``(plane, 0)``."""
+    if fn is None:
+        return []
+    return [nb if isinstance(nb, tuple) else (nb.reshape(v.shape), 0)
+            for nb in fn(v)]
+
+
 def cheby_step_fused_dd(
     plan: FlipPlan,
     dmb,
@@ -126,9 +135,12 @@ def cheby_step_fused_dd(
 
     ``extra_nb_fn(v) -> [v_r, ...]`` (optional) delivers, for each extra
     bit ``r`` held outside this state (e.g. on another device), the
-    state with that bit flipped, in ``v``'s ``(slots, 2^L)`` shape; it
-    enters with coefficient
-    ``extra_gs[r]·flip_scale[L+r]``.  ``extra_nb_hi_fn`` is its complex64
+    state with that bit flipped: a tensor in ``v``'s ``(slots, 2^L)``
+    shape, or a pair ``(stack, slot_xor)`` whose row ``s ^ slot_xor``
+    is slot ``s``'s flip (:mod:`.cheby_flip`'s partners; the sharded
+    step hands in ``v`` itself for a slot bit inside this process).  It
+    enters with coefficient ``extra_gs[r]·flip_scale[L+r]``, summed
+    inside the kernels' high pass.  ``extra_nb_hi_fn`` is its complex64
     companion for the f32 tail; without it the tail is disabled so that
     accuracy never silently degrades.
 
@@ -146,29 +158,30 @@ def cheby_step_fused_dd(
     f32_tail = max(0, min(f32_tail, n_orders - 3))
 
     device = state.device
+    # the L local bits' coefficients, then the extra bits': the kernels
+    # read a partner's weight from G_all, so a captured step reads the
+    # flip scale of each replay
     G_all = _flip_coeffs(plan, flip_scale, extra_gs, device)
-    G = G_all[: plan.L].contiguous()
-    G_extra = G_all[plan.L:]
     beta = float(delta) / 2.0 + float(e_min)
     s = (-1.0 if forward else 1.0) * 2.0 / float(delta)
     v0 = state.reshape(-1, 1 << plan.L)
     dmb = dmb.reshape(v0.shape).to(torch.float64).contiguous()
 
-    def extra_w(v, fn, g):
-        if fn is None:
-            return None
-        w = None
-        for gr, nb in zip(g, fn(v)):
-            term = gr * nb.reshape(v.shape)
-            w = term if w is None else w + term
-        return w
+    def coeffs_for(partners, G):
+        """``G``'s local bits and one entry per partner."""
+        if len(partners) > len(G) - plan.L:
+            raise ValueError(f"{len(partners)} extra planes for "
+                             f"{len(G) - plan.L} extra bits")
+        return G[: plan.L + len(partners)]
 
     k_dd_end = n_orders - f32_tail  # complex128 handles orders [0, k_dd_end)
-    v1, phi = cheby_flip_first(v0, dmb, G, s, c64[0], c64[1],
-                               extra_w(v0, extra_nb_fn, G_extra))
+    parts = _partners(v0, extra_nb_fn)
+    v1, phi = cheby_flip_first(v0, dmb, coeffs_for(parts, G_all), s, c64[0],
+                               c64[1], partners=parts)
     for k in range(2, k_dd_end):
-        v2 = cheby_flip_iter(v0, v1, phi, dmb, G, 2.0 * s, c64[k],
-                             extra_w(v1, extra_nb_fn, G_extra),
+        parts = _partners(v1, extra_nb_fn)
+        v2 = cheby_flip_iter(v0, v1, phi, dmb, coeffs_for(parts, G_all),
+                             2.0 * s, c64[k], partners=parts,
                              out=torch.empty_like(v1) if k == 2 else None)
         v0, v1 = v1, v2
 
@@ -177,11 +190,11 @@ def cheby_step_fused_dd(
         t1 = v1.to(torch.complex64)
         pht = torch.zeros_like(t0)
         dmb32 = dmb.to(torch.float32)
-        G32 = G.to(torch.float32)
-        G_extra32 = G_extra.to(torch.float32)
+        G32 = G_all.to(torch.float32)
         for k in range(k_dd_end, n_orders):
-            t2 = cheby_flip_iter(t0, t1, pht, dmb32, G32, 2.0 * s, c64[k],
-                                 extra_w(t1, extra_nb_hi_fn, G_extra32))
+            parts = _partners(t1, extra_nb_hi_fn)
+            t2 = cheby_flip_iter(t0, t1, pht, dmb32, coeffs_for(parts, G32),
+                                 2.0 * s, c64[k], partners=parts)
             t0, t1 = t1, t2
         phi = phi + pht.to(torch.complex128)
 

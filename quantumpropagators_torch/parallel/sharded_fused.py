@@ -5,14 +5,17 @@ The state of ``2^L`` amplitudes is split into ``2^p`` contiguous slots
 of a :class:`~.mesh.Mesh`, so the top ``p`` index bits select the slot.
 Each slot runs the flip kernels (:mod:`..ops.cheby_flip`) over its low
 ``L − p`` bits; a flip of a *slot bit* is the partner slot's whole
-block, delivered per polynomial order by :meth:`~.mesh.Mesh.ppermute`
-as the ``w`` of each order: through ``w_fn`` of
+block, read by the kernels' high pass as a partner row at every
+polynomial order: through ``partners_fn`` of
 :func:`~..ops.fused_cheby.flip_cheby_step` (f32 tier) and
 ``extra_nb_fn``/``extra_nb_hi_fn``/``extra_gs`` of
 :func:`~..ops.fused_cheby_dd.cheby_step_fused_dd` (reference tier,
-complex128), one complex exchange per coupled slot bit.  The
-Chebyshev recurrence needs no reduction, so a step is exchanges plus
-kernel launches, one per slot and pass.
+complex128).  A slot bit inside this rank is the state's own stack
+with ``slot_xor = 2^j`` (no copy); only a bit across ranks is
+exchanged, one complex :meth:`~.mesh.Mesh.ppermute` per coupled bit,
+its received rows read with ``slot_xor = 0``.  The Chebyshev
+recurrence needs no reduction, so a step is exchanges plus kernel
+launches, one per slot and pass.
 """
 
 from __future__ import annotations
@@ -111,11 +114,15 @@ def _live_bits(device_gs) -> tuple:
 
 
 def _slot_neighbours(mesh: Mesh, live):
-    """``v -> [slot(i XOR 2^j) of v for j in live]``: one exchange of the
-    complex stack per coupled slot bit."""
+    """``v -> [(stack, slot_xor) for j in live]``, the flip partners of
+    the coupled slot bits: ``(v, 2^j)`` for a bit inside this rank (row
+    ``s ^ 2^j`` of the state itself), ``(received rows, 0)`` for a bit
+    across ranks (one exchange of the complex stack)."""
 
     def fn(v):
-        return [mesh.ppermute(v, _flip_perm(mesh, j)) for j in live]
+        return [(v, 1 << j) if 1 << j < mesh.n_local
+                else (mesh.ppermute(v, _flip_perm(mesh, j)), 0)
+                for j in live]
 
     return fn
 
@@ -157,7 +164,6 @@ def make_sharded_fused_cheby_step(
     live = _live_bits(device_gs)
     neighbours = _slot_neighbours(mesh, live)
     beta = float(delta) / 2.0 + float(e_min)
-    n_local_bits = len(plan_local.gs)
 
     def step(diag, re, im, coeffs, flip_scale=1.0):
         rdtype = re.dtype
@@ -167,21 +173,11 @@ def make_sharded_fused_cheby_step(
         # dtype and device
         G_all = plan_coeffs(plan_local, rdtype, re.device,
                             [device_gs[j] for j in live]) * scale
-        G = G_all[:n_local_bits]
-        gs = [G_all[n_local_bits + i] for i in range(len(live))]
-
-        def w_fn(v):
-            # the exchanged rows are fresh copies: scale and sum in place
-            nbs = neighbours(v)
-            w = nbs[0].mul_(gs[0])
-            for gj, nb in zip(gs[1:], nbs[1:]):
-                w.add_(nb.mul_(gj))
-            return w
-
         psi = mesh.local(torch.complex(re, im))
         dmb = (mesh.local(diag).to(rdtype) - beta).contiguous()
-        out = flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt,
-                              forward=forward, w_fn=w_fn if live else None)
+        out = flip_cheby_step(psi, dmb, G_all, coeffs, delta, e_min, dt,
+                              forward=forward,
+                              partners_fn=neighbours if live else None)
         return out.real.reshape(re.shape), out.imag.reshape(im.shape)
 
     return graphed(step, mesh=mesh, operators=("diag",),

@@ -109,6 +109,64 @@ def test_high_pass_every_h_matches_plain(cuda, cdtype, tol, h):
     assert float((got - want).abs().max()) < tol
 
 
+def _slot_partners(L, cdtype, device, slots=4):
+    """A ``(slots, 2^L)`` stack, received rows, ``L + 2`` coefficients,
+    and the two partners of a 4-slot state: its own rows at
+    ``slot_xor = 1`` and the received rows at ``slot_xor = 0``."""
+    v0, v1, w, dmb, G = _inputs(L + 2, cdtype, device)
+    stack, recv = v1.view(slots, -1), w.view(slots, -1)
+    G_all = torch.cat([G[:L], G[-2:]]).contiguous()
+    return (v0.view(slots, -1), stack, dmb.view(slots, -1), G_all,
+            [(stack, 1), (recv, 0)])
+
+
+@pytest.mark.parametrize("cdtype, tol", _TOLS)
+@pytest.mark.parametrize("h", [0, 4])
+@pytest.mark.parametrize("with_w", [False, True])
+def test_high_pass_partners_match_plain(cuda, cdtype, tol, h, with_w):
+    """The high pass with two partner rows on a 4-slot stack of 2^16,
+    at h = 0 (the partners' weighted sum alone) and h = 4: one launch a
+    slot."""
+    v0, stack, _, G_all, parts = _slot_partners(16, cdtype, cuda)
+    w = v0 if with_w else None
+    cf.reset_launches()
+    got = cf.cheby_flip_high(stack, G_all, h, w, partners=parts)
+    want = cf.cheby_flip_high_plain(stack, G_all, h, w, partners=parts)
+    torch.cuda.synchronize()
+    ctype = "float" if cdtype == torch.complex64 else "double"
+    assert cf.LAUNCHES[f"cheby_flip_high<{ctype}>"] == 4
+    assert float((got - want).abs().max()) < tol
+
+
+@pytest.mark.parametrize("cdtype, tol", _TOLS)
+@pytest.mark.parametrize("L", [16, 20])
+def test_flip_with_partners_matches_plain(cuda, cdtype, tol, L):
+    """The setup and the order with two partners on a 4-slot stack, at
+    a slot size without top bits (L = 16: the partners' own pass) and
+    with them (L = 20)."""
+    v0, v1, dmb, G_all, _ = _slot_partners(L, cdtype, cuda)
+    parts = [(v1, 2), (v0, 0)]
+    got = cf.cheby_flip_first(v1, dmb, G_all, -0.07, 0.8, -0.4,
+                              partners=parts)
+    want = cf.cheby_flip_first_plain(v1, dmb, G_all, -0.07, 0.8, -0.4,
+                                     partners=parts)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) < tol
+    phi = v0.flip(1).contiguous()
+    k0, kphi, p0, pphi = (torch.zeros_like(v0), phi.clone(),
+                          torch.zeros_like(v0), phi.clone())
+    cf.cheby_flip_iter(k0, v1, kphi, dmb, G_all, -0.14, 0.3, partners=parts)
+    cf.cheby_flip_iter_plain(p0, v1, pphi, dmb, G_all, -0.14, 0.3,
+                             partners=parts)
+    torch.cuda.synchronize()
+    assert float((k0 - p0).abs().max()) < tol
+    assert float((kphi - pphi).abs().max()) < tol
+    with pytest.raises(ValueError, match="at most"):
+        cf.cheby_flip_high(v1, torch.ones(L + 5, dtype=G_all.dtype,
+                                          device=cuda), 0,
+                           partners=[(v1, 1)] * 5)
+
+
 @pytest.mark.parametrize("L", [3, 12, 20])
 def test_iter_accepts_complex64_at_odd_offset(cuda, L):
     """A complex64 v1 one element into its buffer (8-byte aligned) is

@@ -62,18 +62,19 @@ def test_sharded_dd_step_on_card_matches_cpu(cuda):
     assert counts["cheby_flip_first<double>"] == 4
     assert counts["cheby_flip_iter<double>"] == 4 * (n_dd - 2)
     assert counts["cheby_flip_iter<float>"] == 4 * tail
-    # a high pass before every tiled pass where the slot's split has one
-    for ctype, cdtype, n in (("double", torch.complex128, n_dd - 1),
-                             ("float", torch.complex64, tail)):
-        has_high = cf.flip_split(L - 2, cdtype)[1] > 0
-        assert counts[f"cheby_flip_high<{ctype}>"] == 4 * n * has_high
+    # a high pass before every tiled pass: the slot bits' partners are
+    # summed there, also where the slot's split has no top bits (h = 0)
+    assert cf.flip_split(L - 2, torch.complex128)[1] == 0
+    for ctype, n in (("double", n_dd - 1), ("float", tail)):
+        assert counts[f"cheby_flip_high<{ctype}>"] == 4 * n
     assert float((out["cpu"] - out[str(cuda)]).abs().max()) < 1e-12
 
 
 def test_sharded_f32_step_on_card_matches_cpu(cuda):
     """One complex64 step under a flip scale, 4 slots of 2^18, one slot
-    bit coupled and one not: one exchange per product, and the card
-    agrees with the CPU to 1e-5 of the largest amplitude."""
+    bit coupled and one not: one partner per product, read by a high
+    pass before every tiled pass, and the card agrees with the CPU to
+    1e-5 of the largest amplitude."""
     L = 20
     g = np.full(L, 1.2)
     g[L - 2] = 0.0  # slot bit 0 uncoupled
@@ -95,6 +96,7 @@ def test_sharded_f32_step_on_card_matches_cpu(cuda):
         out[str(dev)] = torch.complex(re, im).cpu()
     assert cf.LAUNCHES["cheby_flip_first<float>"] == 4
     assert cf.LAUNCHES["cheby_flip_iter<float>"] == 4 * (len(coeffs) - 2)
+    assert cf.LAUNCHES["cheby_flip_high<float>"] == 4 * (len(coeffs) - 1)
     want = out["cpu"]
     err = float((out[str(cuda)] - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())

@@ -11,6 +11,9 @@ call of the dd step costs about 20 s here).  Per-bit flip scales and the
 weak-site permutation are held against an f64 numpy oracle, as the JAX
 tests hold them."""
 
+import inspect
+from collections import Counter
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,8 +27,10 @@ from quantumpropagators.ops.cheby import cheby_coeffs
 from quantumpropagators.parallel import mesh as jax_mesh
 from quantumpropagators.parallel import sharded_fused as jax_sf
 from quantumpropagators_torch.ops import cheby_flip as cf
+from quantumpropagators_torch.ops import fused_cheby as fc
+from quantumpropagators_torch.ops import fused_cheby_dd as fcd
 from quantumpropagators_torch.parallel import sharded_fused as sf
-from quantumpropagators_torch.parallel.mesh import chain_mesh
+from quantumpropagators_torch.parallel.mesh import Mesh, chain_mesh
 
 qt.set_default_device("cpu")
 
@@ -165,14 +170,51 @@ class _RecordingMesh:
         mesh.ppermute = ppermute
 
 
+class _KernelCalls:
+    """Wraps the steps' flip calls (``cheby_flip_first`` and
+    ``cheby_flip_iter`` as the dd and f32 drivers call them) to record,
+    per call, the state whose flips it sums, its ``w`` and its
+    partners."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        for mod in (fc, fcd):
+            for name in ("cheby_flip_first", "cheby_flip_iter"):
+                fn = getattr(mod, name)
+                sig = inspect.signature(fn)
+                x_name = "v1" if name == "cheby_flip_iter" else "v0"
+
+                def wrapped(*args, _fn=fn, _sig=sig, _x=x_name, **kw):
+                    a = _sig.bind(*args, **kw).arguments
+                    self.calls.append((a[_x], a.get("w"),
+                                       list(a.get("partners", ()))))
+                    return _fn(*args, **kw)
+
+                monkeypatch.setattr(mod, name, wrapped)
+
+    @property
+    def partners(self):
+        """``(dtype, slot_xor)`` of every partner of every call."""
+        return [(st.dtype, xor) for _, _, parts in self.calls
+                for st, xor in parts]
+
+    def read_in_place(self) -> bool:
+        """Every call took no ``w`` and read its slot bits from the
+        state it sums itself (no copy)."""
+        return all(w is None and all(st is x and xor for st, xor in parts)
+                   for x, w, parts in self.calls)
+
+
 @pytest.mark.parametrize("slots", SLOTS)
-def test_sharded_fused_dd_f32_tail(problem, jax_ref, slots):
-    """A forced 4-order complex64 tail: its slot-bit exchanges move
-    complex64 planes (the JAX step's hi-only exchange), the result still
-    matches the complex128 reference to 1e-12."""
+def test_sharded_fused_dd_f32_tail(problem, jax_ref, slots, monkeypatch):
+    """A forced 4-order complex64 tail: its slot-bit partners are rows of
+    the complex64 stack (the JAX step's hi-only planes), read in the
+    kernels without an exchange on one rank; the result still matches
+    the complex128 reference to 1e-12."""
     diag, psi_np, e_min, delta = problem
     mesh = chain_mesh(slots, device="cpu")
     rec = _RecordingMesh(mesh)
+    kernels = _KernelCalls(monkeypatch)
     step = sf.make_sharded_fused_cheby_step_dd(
         mesh, L, G, delta=delta, e_min=e_min, dt=DT, f32_tail=4)
     coeffs = cheby_coeffs(delta, DT)
@@ -184,11 +226,16 @@ def test_sharded_fused_dd_f32_tail(problem, jax_ref, slots):
                torch.as_tensor(psi_np), coeffs).numpy()
     assert np.abs(got - jax_ref["dd"]).max() < 1e-12
     n_orders = len(coeffs)
-    assert rec.seen.count(torch.complex64) == 4 * p
-    assert rec.seen.count(torch.complex128) == (n_orders - 4 - 1) * p
+    assert rec.seen == []
+    assert kernels.read_in_place()
+    seen = kernels.partners
+    assert seen.count((torch.complex64, 1)) == 4 * (p > 0)
+    assert [d for d, _ in seen].count(torch.complex64) == 4 * p
+    assert [d for d, _ in seen].count(torch.complex128) == (
+        n_orders - 4 - 1) * p
 
 
-def test_weak_site_device_bits_skip_exchange():
+def test_weak_site_device_bits_skip_exchange(monkeypatch):
     """Slot bits assigned to zero-coupling sites emit no exchange, and
     the step still matches the f64 oracle in the original bit order."""
     Lb = 13
@@ -206,6 +253,7 @@ def test_weak_site_device_bits_skip_exchange():
 
     mesh = chain_mesh(8, device="cpu")
     rec = _RecordingMesh(mesh)
+    kernels = _KernelCalls(monkeypatch)
     step = sf.make_sharded_fused_cheby_step_dd(
         mesh, Lb, g_perm, delta=delta, e_min=e_min, dt=DT)
     assert step.exchange_plan["device_bits"] == 3
@@ -221,7 +269,8 @@ def test_weak_site_device_bits_skip_exchange():
     diag_p = sf.permute_index_bits(torch.as_tensor(diag64), bit_order)
     coeffs = cheby_coeffs(delta, DT)
     out = step(diag_p - (delta / 2 + e_min), psi_p, coeffs)
-    assert rec.seen == []
+    assert rec.seen == [] and kernels.calls
+    assert kernels.partners == []
     inv = sf.invert_bit_order(bit_order)
     assert inv == jax_sf.invert_bit_order(bit_order)
     z = sf.permute_index_bits(out, inv).numpy()
@@ -230,11 +279,11 @@ def test_weak_site_device_bits_skip_exchange():
     assert np.abs(z - want).max() < 1e-12
 
 
-def test_sharded_fused_step_skips_zero_coupling_bits():
+def test_sharded_fused_step_skips_zero_coupling_bits(monkeypatch):
     """The f32-tier step (float64 arrays) with one coupled and two
-    zero-coupling slot bits: one exchange of the complex stack per
-    product, and the result matches the f64 oracle under a flip
-    scale."""
+    zero-coupling slot bits: one partner per product, the coupled bit's
+    rows of the state itself (no exchange on one rank), and the result
+    matches the f64 oracle under a flip scale."""
     Lb = 13
     rng = np.random.default_rng(33)
     g_bits = rng.uniform(0.8, 1.5, size=Lb)
@@ -247,12 +296,16 @@ def test_sharded_fused_step_skips_zero_coupling_bits():
 
     mesh = chain_mesh(8, device="cpu")
     rec = _RecordingMesh(mesh)
+    kernels = _KernelCalls(monkeypatch)
     step = sf.make_sharded_fused_cheby_step(
         mesh, Lb, g_bits, delta=delta, e_min=e_min, dt=DT, tile_rows=8)
     coeffs = cheby_coeffs(delta, DT)
     r, i = step(torch.as_tensor(diag64), torch.as_tensor(psi.real),
                 torch.as_tensor(psi.imag), coeffs, FS)
-    assert rec.seen == [torch.complex128] * (len(coeffs) - 1)
+    assert rec.seen == []
+    # slot bits 10, 11, 12 of the index: only bit 11 (slot bit 1) couples
+    assert kernels.partners == [(torch.complex128, 2)] * (len(coeffs) - 1)
+    assert kernels.read_in_place()
     want = _np_cheby_oracle(diag64, FS * g_bits, Lb, psi, coeffs, delta,
                             e_min, DT)
     assert np.abs(r.numpy() + 1j * i.numpy() - want).max() < 1e-12
@@ -302,3 +355,124 @@ def test_flip_wrappers_take_slot_stacks(cdtype, tol):
         for x, y in ((got_v1[s], a), (got_phi[s], b), (got_it[s], it),
                      (got_hi[s], hi)):
             assert float((x - y).abs().max()) <= tol
+
+
+def _stack_copy(stack, slot_xor, slots):
+    """The copied rows the partners replace: row ``s ^ slot_xor``."""
+    return torch.stack([stack[s ^ slot_xor] for s in range(slots)])
+
+
+@pytest.mark.parametrize("cdtype, tol", [(torch.complex64, 1e-6),
+                                         (torch.complex128, 1e-14)])
+@pytest.mark.parametrize("h", [0, 2])
+@pytest.mark.parametrize("kinds", [("own 1",), ("own 2",), ("received",),
+                                   ("own 2", "received")])
+def test_flip_wrappers_read_partners(cdtype, tol, h, kinds):
+    """Partners ``(stack, slot_xor)`` through every flip wrapper (P = 1
+    and 2; the state's own stack with ``slot_xor = 2^r`` and received
+    rows with ``slot_xor = 0``) equal the same call without partners whose
+    ``w`` is the explicit stacked copies' weighted sum plus ``w``."""
+    rdtype = cdtype.to_real()
+    rng = np.random.default_rng(7)
+    Lb, S = 6, 4
+
+    def vec():
+        return torch.as_tensor(rng.standard_normal((S, 1 << Lb))
+                               + 1j * rng.standard_normal((S, 1 << Lb))
+                               ).to(cdtype)
+
+    v0, v1, phi, w, received = vec(), vec(), vec(), vec(), vec()
+    dmb = torch.as_tensor(rng.standard_normal((S, 1 << Lb))).to(rdtype)
+    G_all = torch.as_tensor(rng.uniform(0.5, 1.5, Lb + len(kinds))
+                            ).to(rdtype)
+    G = G_all[:Lb].contiguous()
+
+    def partners(x):
+        """``own k``: the state's own stack with ``slot_xor = k``."""
+        return [(received, 0) if kind == "received"
+                else (x, int(kind.split()[1])) for kind in kinds]
+
+    def w_ref(x, with_w=True):
+        out = w.clone() if with_w else torch.zeros_like(w)
+        acc = torch.zeros_like(w)
+        for r, (st, xor) in enumerate(partners(x)):
+            acc = acc + G_all[Lb + r] * _stack_copy(st, xor, S)
+        return acc + out
+
+    got = cf.cheby_flip_high(v1, G_all, h, w, partners=partners(v1))
+    want = cf.cheby_flip_high(v1, G, h, w_ref(v1))
+    assert float((got - want).abs().max()) <= tol
+    got = cf.cheby_flip_high(v1, G_all, h, partners=partners(v1))
+    want = cf.cheby_flip_high(v1, G, h, w_ref(v1, with_w=False))
+    assert float((got - want).abs().max()) <= tol
+    pairs = [
+        (cf.cheby_flip_first(v0, dmb, G_all, -0.1, 0.8, 0.3, w,
+                             partners=partners(v0)),
+         cf.cheby_flip_first(v0, dmb, G, -0.1, 0.8, 0.3, w_ref(v0))),
+        (cf.cheby_flip_first_low(v0, dmb, G_all, -0.1, 0.8, 0.3, Lb - h, w,
+                                 partners=partners(v0)),
+         cf.cheby_flip_first_low(v0, dmb, G, -0.1, 0.8, 0.3, Lb - h,
+                                 w_ref(v0))),
+        ((cf.cheby_flip_iter(v0.clone(), v1, phi.clone(), dmb, G_all, -0.2,
+                             0.4, w, partners=partners(v1)),),
+         (cf.cheby_flip_iter(v0.clone(), v1, phi.clone(), dmb, G, -0.2, 0.4,
+                             w_ref(v1)),)),
+        ((cf.cheby_flip_iter_low(v0.clone(), v1, phi.clone(), dmb, G_all,
+                                 -0.2, 0.4, Lb - h, w,
+                                 partners=partners(v1)),),
+         (cf.cheby_flip_iter_low(v0.clone(), v1, phi.clone(), dmb, G, -0.2,
+                                 0.4, Lb - h, w_ref(v1)),)),
+    ]
+    for got, want in pairs:
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= tol
+
+
+def test_flip_partners_refused():
+    """More partners than the kernel takes, or a partner whose dtype,
+    shape or slot map does not fit the state, raise (no fallback)."""
+    Lb, S = 5, 4
+    v = torch.zeros((S, 1 << Lb), dtype=torch.complex128)
+    G = torch.ones(Lb + cf.MAX_PARTNERS + 1, dtype=torch.float64)
+    many = [(v, 1)] * (cf.MAX_PARTNERS + 1)
+    with pytest.raises(ValueError, match="at most"):
+        cf.cheby_flip_high(v, G, 2, partners=many)
+    G1 = G[:Lb + 1].contiguous()
+    for bad, match in (((v.to(torch.complex64), 1), "must be"),
+                       ((v[:2], 1), "stack of"),
+                       ((v, 4), "leaves")):
+        with pytest.raises(ValueError, match=match):
+            cf.cheby_flip_high(v, G1, 2, partners=[bad])
+    with pytest.raises(ValueError, match="shape"):
+        cf.cheby_flip_high(v, G[:Lb].contiguous(), 2, partners=[(v, 1)])
+
+
+def test_one_rank_sharded_steps_make_no_exchange(problem, monkeypatch):
+    """On one rank the 4-slot dd and f32 steps call ``Mesh.ppermute`` no
+    time and build no ``w``: each flip call reads its two slot bits as
+    partners, rows of the very stack it sums (``slot_xor`` 1 and 2)."""
+    diag, psi, e_min, delta = problem
+    calls = []
+    inner = Mesh.ppermute
+
+    def counted(self, x, perm):
+        calls.append(x.dtype)
+        return inner(self, x, perm)
+
+    monkeypatch.setattr(Mesh, "ppermute", counted)
+    kernels = _KernelCalls(monkeypatch)
+    step, dmb, st, coeffs = _dd_inputs(problem, 4, f32_tail=4)
+    step(dmb, st, coeffs, flip_scale=FS)
+    step32 = sf.make_sharded_fused_cheby_step(
+        chain_mesh(4, device="cpu"), L, G, delta=delta, e_min=e_min, dt=DT)
+    step32(torch.as_tensor(diag).to(torch.float32),
+           torch.as_tensor(psi.real).to(torch.float32),
+           torch.as_tensor(psi.imag).to(torch.float32), coeffs, 0.65)
+    assert calls == []
+    n = len(coeffs)
+    # dd: the setup and n - 6 complex128 orders, 4 complex64 tail
+    # orders; f32: the setup and n - 2 orders
+    assert len(kernels.calls) == 2 * (n - 1) and kernels.read_in_place()
+    assert Counter(kernels.partners) == {
+        (torch.complex128, 1): n - 5, (torch.complex128, 2): n - 5,
+        (torch.complex64, 1): n + 3, (torch.complex64, 2): n + 3}

@@ -74,6 +74,12 @@ def _site(name, device):
         if name == "dd tensor":
             fs = torch.as_tensor(np.outer(scales, np.ones(L)), device=device)
             scale = fs.__getitem__
+        elif name == "dd per-bit tensor":
+            # every bit its own scale, new each call: the slot bits'
+            # partner weights must reach the replayed high pass
+            fs = torch.as_tensor(np.random.default_rng(6).uniform(
+                0.5, 1.5, (N_CALLS, L)), device=device)
+            scale = fs.__getitem__
         elif name == "dd host array":
             scale = lambda k: np.full(L, scales[k])
         else:
@@ -152,7 +158,7 @@ def _site(name, device):
             chip_smoke._renew_field(field))
 
 
-SITES = ["dd tensor", "dd host array", "dd float", "f32 tensor", "f32 float",
+SITES = ["dd tensor", "dd per-bit tensor", "dd host array", "dd float", "f32 tensor", "f32 float",
          "banded step", "BSR step", "BSR dd step", "chain step",
          "BSR halo apply", "BSR all-gather apply", "CSR all-gather apply",
          "CSR halo apply"]

@@ -182,8 +182,9 @@ def variants():
 
             def setup(h, tile):
                 w = torch.empty_like(v0)
-                rc = high_fn(v0.data_ptr(), G.data_ptr(), None, w.data_ptr(),
-                             L, n, h, cf._line_bits(L, h, v0.dtype), stream)
+                rc = high_fn(v0.data_ptr(), G.data_ptr(), None, None, 0,
+                             w.data_ptr(), L, n, h,
+                             cf._line_bits(L, h, v0.dtype), stream)
                 out, p = torch.empty_like(v0), torch.empty_like(v0)
                 rc |= first_fn(v0.data_ptr(), out.data_ptr(), p.data_ptr(),
                                dmb.data_ptr(), G.data_ptr(), w.data_ptr(), L,
