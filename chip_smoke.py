@@ -24,10 +24,12 @@ method on two small configurations against host ``expm`` oracles.
 Phase 10 runs the sharded layer (``quantumpropagators_torch.parallel``)
 on four shard slots of the one card over a world-size-1 NCCL group: the
 L = 24 chain in both tiers against phases 3 and 4, with a trace of each,
-one step with a zero-coupling slot bit, banded20 against phase 7 (band
+and again on 32 slots (five slot-bit partners a high pass), one step
+with a zero-coupling slot bit, banded20 against phase 7 (band
 planes split on the card), and small chain, CSR and BSR checks; norms go
 through the mesh's ``psum``.  Phase 2 holds the flip kernels on a
-4-slot stack as phase 10 launches them, and phase 10 holds the banded
+4-slot stack as phase 10 launches them (and with 2, 5 and 8 slot-bit
+partners), and phase 10 holds the banded
 kernel on each slot's planes.
 
 Phase 11 runs the Krylov methods on a sharded state over the same
@@ -153,6 +155,11 @@ BANDED = "banded_spmv<double>"
 BANDED_REPLACES = "quantumpropagators/ops/bsr_dd_pallas.py:267"
 N_BANDED = 2 ** 20   # bench.py --config banded20: 2^20 amplitudes
 PARTNER_L_SUM = 16   # phase 2's slots without top bits (h = 0): 4 x 2^16
+# phase 2's one-rank meshes at L_MAIN: P = 2, 5 and 8 slot bits, each a
+# partner of every high pass (4 x 2^22, h = 4; phase 10's 32 x 2^19, h = 1;
+# 256 x 2^16, h = 0)
+PARTNER_SLOTS = (4, 32, 256)
+WIDE_SLOTS = 32      # phase 10's wide mesh: five slot-bit partners a pass
 B_BANDED = 128       # 128-level units, dense blocks
 # H100 SXM peaks (NVIDIA data sheet): FP64 / FP32 FLOP/s outside the
 # tensor cores (the HBM rate is profiling.HBM_BYTES_S)
@@ -305,8 +312,10 @@ def compare_kernels(device):
                         name, ctype, stack, L_MAIN - 2, None, w), errs[name])
                 del stack, w
             if L == L_MAIN:
-                for name, err in compare_partners(ctype, inputs).items():
-                    errs[name] = max(err, errs[name])
+                for slots in PARTNER_SLOTS:
+                    for name, err in compare_partners(ctype, inputs,
+                                                      slots).items():
+                        errs[name] = max(err, errs[name])
             del inputs
         inputs = kernel_inputs(PARTNER_L_SUM + 2, ctype, device, SEED)
         for name, err in compare_partners(ctype, inputs).items():
@@ -315,34 +324,39 @@ def compare_kernels(device):
         for name, name_cases in cases.items():
             where = ", ".join(f"{L}" if h is None else f"{L} (h={h})"
                               for L, h in name_cases)
-            log(f"phase 2 kernel-vs-plain {name}: ok at L = {where} and "
+            meshes = ", ".join(
+                f"{n} x 2^{L_MAIN - n.bit_length() + 1}"
+                for n in PARTNER_SLOTS)
+            log(f"phase 2 kernel-vs-plain {name}: ok at L = {where}, "
                 f"on a 4 x 2^{L_MAIN - 2} slot stack with w and with the "
-                f"slot bits' partners (and on 4 x 2^{PARTNER_L_SUM}), "
-                f"max|d| = {errs[name]:.3e}")
+                f"slot bits' partners on {meshes} (and on 4 x "
+                f"2^{PARTNER_L_SUM}), max|d| = {errs[name]:.3e}")
     return errs
 
 
 def partner_inputs(inputs, slots=4):
     """The one-rank sharded step's partner launches on ``inputs`` seen
     as a ``slots``-slot stack: the stack ``x`` (``v1``'s rows), the
-    slot-local flip coefficients followed by the two slot bits', and the
-    slot bits' partners, rows ``s ^ 1`` and ``s ^ 2`` of ``x`` itself."""
+    slot-local flip coefficients followed by the ``p = log2(slots)``
+    slot bits', and the slot bits' partners, rows ``s ^ 2^r`` of ``x``
+    itself for ``r < p``."""
     v0, v1, phi, dmb, G, s = inputs
-    L = G.numel() - 2
+    p = slots.bit_length() - 1
+    L = G.numel() - p
     x = v1.view(slots, -1)
-    return x, G, [(x, 1), (x, 2)], L
+    return x, G, [(x, 1 << r) for r in range(p)], L
 
 
-def compare_partners(ctype, inputs):
-    """Phase 2's partner cases on :func:`partner_inputs`' stack (4 x
-    2^22 at L_MAIN: h = 4; 4 x 2^PARTNER_L_SUM: h = 0): the high pass
-    with the two partners against its plain version, with and without a
-    ``w``, and the whole setup and order with them; returns
-    ``{name: max_abs_err}``."""
+def compare_partners(ctype, inputs, slots=4):
+    """Phase 2's partner cases on :func:`partner_inputs`' stack of
+    ``slots`` (at L_MAIN: :data:`PARTNER_SLOTS`; 4 x 2^PARTNER_L_SUM:
+    h = 0): the high pass with the slot bits' partners against its plain
+    version, with and without a ``w``, and the whole setup and order
+    with them; returns ``{name: max_abs_err}``."""
     from quantumpropagators_torch.ops import cheby_flip as cf
 
     v0, v1, phi, dmb, G, s = inputs
-    x, G_all, parts, L = partner_inputs(inputs)
+    x, G_all, parts, L = partner_inputs(inputs, slots)
     h = cf.flip_split(L, v1.dtype)[1]
     y0, d4, ph = (t.view(x.shape) for t in (v0, dmb, phi))
     calls = {
@@ -366,12 +380,13 @@ def compare_partners(ctype, inputs):
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         scale = max(float(b.abs().max()) for b in want)
         ok = err <= (1e-13 if ctype == "double" else 1e-5 * scale)
-        log(f"phase 2 kernel-vs-plain {name} 4 x 2^{L} slot stack with the "
-            f"slot bits' 2 partners (h={h}): max|d|={err:.3e} "
-            f"max|ref|={scale:.3e} {'ok' if ok else 'FAIL'}")
+        log(f"phase 2 kernel-vs-plain {name} {slots} x 2^{L} slot stack "
+            f"with the slot bits' {len(parts)} partners (h={h}): "
+            f"max|d|={err:.3e} max|ref|={scale:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} with partners disagrees with its "
-                                 f"plain version at 4 x 2^{L}")
+                                 f"plain version at {slots} x 2^{L}")
         errs[name] = err
     return errs
 
@@ -639,7 +654,8 @@ def time_kernels(device, card):
             f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}, {100 * bound_ms / ms:.1f} % of it reached) [{card}]")
         if kind == "cheby_flip_high":
-            time_partners(name, (v0, v1, phi, dmb, G, s), card)
+            for slots in (4, WIDE_SLOTS):
+                time_partners(name, (v0, v1, phi, dmb, G, s), card, slots)
         if kind == "cheby_flip_first":
             # each pass alone, beside the bytes it moves: the high pass
             # reads v0 and writes w_hi; the tiled pass reads v0, dmb and
@@ -668,37 +684,43 @@ def time_kernels(device, card):
     return times
 
 
-def time_partners(name, inputs, card):
-    """Phase 6: the high pass as the one-rank 4-slot sharded step runs it
-    at L_MAIN (:func:`partner_inputs`: 4 x 2^22, h = 4, the two slot
-    bits' partners read in the kernel) beside its plain version, its
-    bound (each slot's x and 2 partners read and w_hi written once: 64
-    bytes an element in double, 32 in float) and the same sum the way
-    the step made it before: the partner rows copied into a stack, their
-    weighted sum in PyTorch, and the high pass reading it as its w."""
+def time_partners(name, inputs, card, slots=4):
+    """Phase 6: the high pass as the one-rank ``slots``-slot sharded step
+    runs it at L_MAIN (:func:`partner_inputs`: 4 x 2^22, h = 4, or 32 x
+    2^19, h = 1; the P slot bits' partners read in the kernel) beside
+    its plain version, its bound (each slot's x and P partners read and
+    w_hi written once: 32 + 16 P bytes an element in double, 16 + 8 P in
+    float) and the same sum the way the step made it before the high
+    pass read partners: the partner rows copied into stacks, their
+    weighted sum in PyTorch, and the high pass reading it as its w.  The
+    kernel and that way are timed by ``profiling.time_ms`` (a replayed
+    CUDA graph): eager, the host's cost of 32 slot launches outlasts
+    their device time."""
     from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.profiling import time_ms as graph_ms
 
     ctype = name[:-1].split("<")[1]
-    x, G_all, parts, L = partner_inputs(inputs)
+    x, G_all, parts, L = partner_inputs(inputs, slots)
     h = cf.flip_split(L, x.dtype)[1]
     G_loc = G_all[:L].contiguous()
-    g1, g2 = G_all[L], G_all[L + 1]
     n, vec = x.numel(), x.numel() * x.element_size()
-    ms = time_ms(lambda: cf.cheby_flip_high(x, G_all, h, partners=parts), 20)
+    ms = graph_ms(lambda: cf.cheby_flip_high(x, G_all, h, partners=parts),
+                  20)
     plain_ms = time_ms(lambda: cf.cheby_flip_high_plain(
         x, G_all, h, partners=parts), 3)
 
     def copies_then_sum():
-        rows = [torch.stack([x[r ^ k] for r in range(x.shape[0])])
-                for k in (1, 2)]
-        return cf.cheby_flip_high(x, G_loc, h, g1 * rows[0] + g2 * rows[1])
+        terms = [G_all[L + r] * torch.stack([x[j ^ k]
+                                             for j in range(x.shape[0])])
+                 for r, (_, k) in enumerate(parts)]
+        return cf.cheby_flip_high(x, G_loc, h, sum(terms[1:], terms[0]))
 
-    old_ms = time_ms(copies_then_sum, 20)
+    old_ms = graph_ms(copies_then_sum, 20)
     b_ms, b_by = bound(G_all.numel() * G_all.element_size()
                        + (2 + len(parts)) * vec, 4 * (h + len(parts)) * n,
                        ctype)
-    log(f"phase 6 time {name} 4 x 2^{L} slot stack with the slot bits' "
-        f"{len(parts)} partners (h={h}): {ms:.4f} ms a step's order "
+    log(f"phase 6 time {name} {slots} x 2^{L} slot stack with the slot "
+        f"bits' {len(parts)} partners (h={h}): {ms:.4f} ms a step's order "
         f"({x.shape[0]} slot launches), plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}, {100 * b_ms / ms:.1f} % of it reached); "
         f"copies + PyTorch sum + high pass with w {old_ms:.4f} ms [{card}]")
@@ -1213,9 +1235,11 @@ def sharded_phase(device, card, chain, finals, ctx, rates, group):
     """Phase 10: the sharded paths on four shard slots of this card, all
     in this process, over the world-size-1 NCCL ``group``: the L = 24
     chain in both tiers against phases 3 and 4 (then a trace of 3 steps
-    of each), one step with a zero-coupling slot bit, banded20 against
-    phase 7 (after ``banded_spmv`` on each slot's planes against its
-    plain version), and small checks of the chain, CSR and BSR paths.
+    of each), the same on 32 slots (:func:`wide_sharded`: five slot-bit
+    partners a high pass), one step with a zero-coupling slot bit,
+    banded20 against phase 7 (after ``banded_spmv`` on each slot's
+    planes against its plain version), and small checks of the chain,
+    CSR and BSR paths.
     Norms go through the mesh's ``psum`` (NCCL ``all_reduce``).  Returns
     the flip launches of each counted path and the banded launches of
     the banded20 path."""
@@ -1329,6 +1353,8 @@ def sharded_phase(device, card, chain, finals, ctx, rates, group):
     trace_steps(lambda: run_32(3), f"phase 10 trace sharded f32 L={L} 4 "
                 f"slots", 3, card, top=6)
     del d32, p32
+    paths.update(wide_sharded(device, card, group, chain, finals, out,
+                              (diag, beta, c64, tail, Gbits, table, kw)))
 
     # -- (b) a zero-coupling slot bit: its exchange is skipped -----------
     g_bits = np.full(L, G_FIELD)
@@ -1401,6 +1427,82 @@ def sharded_phase(device, card, chain, finals, ctx, rates, group):
             f"{dict(dd=6, pallas=6, banded20=7)[tier]}) [{card}]")
     log(f"phase 10 wall {time.perf_counter() - t_phase:.1f} s")
     return paths, n_banded, err_b
+
+
+def wide_sharded(device, card, group, chain, finals, four, inputs, n_time=5):
+    """Phase 10 (b) on :data:`WIDE_SLOTS` slots of 2^19: the L = 24
+    chain in both tiers, graphed, its five slot bits each a partner of
+    every high pass (h = 1, 32 launches a pass, no ``ppermute``): one
+    counted run of N_STEPS steps held against phases 3 and 4 as the
+    4-slot run is (dd <= 1e-12, f32 <= 1e-5), then steps/s over
+    ``n_time``-step runs beside the 4-slot rates ``four`` and a trace of
+    3 steps.  Returns the flip launches of each tier's counted run."""
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.parallel import sharded_fused as sf
+    from quantumpropagators_torch.parallel.mesh import chain_mesh, \
+        shard_vector
+
+    t0 = time.perf_counter()
+    diag, beta, c64, tail, Gbits, table, kw = inputs
+    psi0 = chain[0]
+    mesh = chain_mesh(WIDE_SLOTS, group=group, device=device)
+    L, label = L_MAIN, f"{WIDE_SLOTS} slots"
+    step_dd = sf.make_sharded_fused_cheby_step_dd(mesh, L, 1.0,
+                                                  f32_tail=tail, **kw)
+    step_32 = sf.make_sharded_fused_cheby_step(mesh, L, G_FIELD, **kw)
+    dmb, d32 = shard_vector(mesh, diag - beta), shard_vector(mesh, diag)
+    p32 = psi0.to(torch.complex64)
+
+    def run_dd(n=N_STEPS):
+        state = shard_vector(mesh, psi0)
+        for k in range(n):
+            state = step_dd(dmb, state, c64, flip_scale=Gbits[k])
+        return state
+
+    def run_32(n=N_STEPS):
+        re = shard_vector(mesh, p32.real.contiguous())
+        im = shard_vector(mesh, p32.imag.contiguous())
+        for k in range(n):
+            re, im = step_32(d32, re, im, c64, flip_scale=table[k])
+        return torch.complex(re, im)
+
+    paths = {}
+    for tier, run, want, tol in (("dd", run_dd, finals[0], 1e-12),
+                                 ("f32", run_32, finals[1], 1e-5)):
+        exchanges = count_exchanges(mesh)
+        cf.reset_launches()
+        t1 = time.perf_counter()
+        state = run()
+        torch.cuda.synchronize()
+        counted = N_STEPS / (time.perf_counter() - t1)
+        del mesh.ppermute
+        paths[f"phase 10 sharded {tier} {label}"] = counts = dict(
+            cf.LAUNCHES)
+        types = ("double", "float") if tier == "dd" else ("float",)
+        if exchanges or not all(counts[f"cheby_flip_{k}<{c}>"] > 0
+                                for k in ("iter", "high") for c in types):
+            raise AssertionError(f"sharded {tier} {label}: launches "
+                                 f"{counts}, exchanges {len(exchanges)}")
+        err = float((state.reshape(-1) - want).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"sharded {tier} {label} vs phase "
+                                 f"{3 if tier == 'dd' else 4}: {err}")
+        del state
+        per_step = sum(counts.values()) / N_STEPS
+        steps_s = n_time / median_wall(lambda: run(n_time))[1]
+        log(f"phase 10 sharded {tier} L={L} {label} {N_STEPS} steps: max|d| "
+            f"vs phase {3 if tier == 'dd' else 4}={err:.3e} (<= {tol:g}), "
+            f"Mesh.ppermute calls 0, "
+            f"{step_dd.exchange_plan['live_device_bits']} slot-bit "
+            f"partners a high pass, flip launches/step "
+            f"{per_step:.0f} ok; {counted:.3f} steps/s (the counted run), "
+            f"{steps_s:.3f} steps/s (median of 3 timed {n_time}-step runs), "
+            f"4 slots {four['dd' if tier == 'dd' else 'pallas'][1]:.3f} "
+            f"[{card}]")
+        trace_steps(lambda: run(3), f"phase 10 trace sharded {tier} L={L} "
+                    f"{label}", 3, card, top=6)
+    log(f"phase 10 {label} wall {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 def count_exchanges(mesh):

@@ -61,7 +61,13 @@
 //     received from another rank); they are read at the output's own
 //     index.  One streaming pass: read x (and the partners, and w), write
 //     w_hi.  With h = 0 nothing is staged: the pass is the partners'
-//     weighted sum (plus w).
+//     weighted sum (plus w).  Two kernels share the helpers: without
+//     partners (the unsharded path) cheby_flip_high<T> takes no partner
+//     table; cheby_flip_high_partners<T> takes up to kMaxPartners = 30
+//     row pointers by value (240 bytes, one per slot bit of any mesh) and
+//     reads them from its parameters in a run-time loop over batches of
+//     kPartnerBatch loads.  Its cube holds at least 2^10 elements, four a
+//     thread, whatever h (ops/cheby_flip.py:_line_bits).
 //   cheby_flip_tiled<T, First>: the order (First = false) or the setup
 //     (First = true) over bits j < L-h, with w_hi as its w.  A block owns
 //     a contiguous tile of 2^tile_bits elements of x (16 KB), staged in
@@ -132,7 +138,10 @@ constexpr int kHighThreads = 256;
 constexpr int kLoadBatch = 4;
 constexpr int kFirstLoadBatch = 8;
 constexpr int kMaxSmem = 227 * 1024;  // shared memory a block may use
-constexpr int kMaxPartners = 4;       // partner rows of one high pass
+// partner rows of one high pass: one per slot bit of any mesh, loaded a
+// batch at a time
+constexpr int kMaxPartners = kMaxBits;
+constexpr int kPartnerBatch = 4;
 
 // One pass over the flips of bits j < bits (bits = L - h) of x:
 //   u = dmb x + sum_{j < bits} G_j x[i ^ 2^j] + w, then
@@ -234,7 +243,8 @@ __global__ void __launch_bounds__(kTiledThreads)
   }
 }
 
-// The device pointers of one slot launch's partner rows, passed by value.
+// The device pointers of one slot launch's partner rows, passed by value:
+// one per slot bit of any mesh the kernels can address.
 template <typename V>
 struct Partners {
   const V* row[kMaxPartners];
@@ -249,16 +259,93 @@ struct Partners {
 // top h bits: cube element q is global index ((q >> line_bits) << (L-h))
 // | (b << line_bits) | (q & (2^line_bits - 1)).  The coefficients are
 // read from the device vector G (L + P entries), so a captured launch
-// reads the values G holds at each replay.
+// reads the values G holds at each replay.  Two kernels: without partners
+// (cheby_flip_high, the unsharded path, h >= 1) and with them
+// (cheby_flip_high_partners, h >= 0), sharing the helpers below.
+
+// Global index of cube element q.
+__device__ __forceinline__ int64_t cube_index(int q, int m, int line_bits,
+                                              int64_t mid) {
+  return (int64_t(q >> line_bits) << m) | mid | (q & ((1 << line_bits) - 1));
+}
+
+// Stages the block's cube of x (cn elements) and the top bits' weights.
+template <typename T, typename V>
+__device__ __forceinline__ void stage_cube(V* cube, T* sG, const V* x,
+                                           const T* G, int m, int h, int cn,
+                                           int line_bits, int64_t mid) {
+  for (int q = threadIdx.x; q < cn; q += blockDim.x)
+    cp_async_elem(cube + q, x + cube_index(q, m, line_bits, mid));
+  if (int(threadIdx.x) < h) sG[threadIdx.x] = G[m + threadIdx.x];
+}
+
+// ur + i ui += the top h bits' flips of cube element q, lowest bit first.
+template <typename T, typename V>
+__device__ __forceinline__ void add_top_bits(const V* cube, const T* sG,
+                                             int q, int h, int line_bits,
+                                             T& ur, T& ui) {
+  for (int r = 0; r < h; ++r) {
+    const V y = cube[q ^ (1 << (line_bits + r))];
+    ur += sG[r] * y.x;
+    ui += sG[r] * y.y;
+  }
+}
+
+// out[i] = ur + i ui (+ w[i]).
+template <typename T, typename V>
+__device__ __forceinline__ void store_high(V* out, const V* w, int64_t i,
+                                           T ur, T ui) {
+  if (w != nullptr) {
+    const V z = w[i];
+    ur += z.x;
+    ui += z.y;
+  }
+  V u;
+  u.x = ur;
+  u.y = ui;
+  out[i] = u;
+}
+
+// The high pass without partners: the top h >= 1 bits (+ w).
 template <typename T>
 __global__ void __launch_bounds__(kHighThreads)
     cheby_flip_high(const typename Complex<T>::type* __restrict__ x,
                     const T* __restrict__ G,
                     const typename Complex<T>::type* __restrict__ w,
-                    Partners<typename Complex<T>::type> partners,
-                    int n_partners,
                     typename Complex<T>::type* __restrict__ out, int L, int h,
                     int line_bits) {
+  using V = typename Complex<T>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  V* cube = reinterpret_cast<V*>(smem);
+  __shared__ T sG[kMaxBits];
+  const int m = L - h;
+  const int cn = 1 << (line_bits + h);
+  const int64_t mid = int64_t(blockIdx.x) << line_bits;
+  stage_cube(cube, sG, x, G, m, h, cn, line_bits, mid);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int q = threadIdx.x; q < cn; q += blockDim.x) {
+    T ur = 0;
+    T ui = 0;
+    add_top_bits(cube, sG, q, h, line_bits, ur, ui);
+    store_high(out, w, cube_index(q, m, line_bits, mid), ur, ui);
+  }
+}
+
+// The high pass with 1 <= n_partners <= kMaxPartners partner rows, read
+// at the output's own index (2^line_bits consecutive elements a line,
+// coalesced) from the parameter table at compile-time offsets, a batch
+// of kPartnerBatch loads in flight before the first is added.  With
+// h = 0 nothing is staged: the partners' weighted sum (+ w).
+template <typename T>
+__global__ void __launch_bounds__(kHighThreads)
+    cheby_flip_high_partners(const typename Complex<T>::type* __restrict__ x,
+                             const T* __restrict__ G,
+                             const typename Complex<T>::type* __restrict__ w,
+                             Partners<typename Complex<T>::type> partners,
+                             int n_partners,
+                             typename Complex<T>::type* __restrict__ out,
+                             int L, int h, int line_bits) {
   using V = typename Complex<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   V* cube = reinterpret_cast<V*>(smem);
@@ -266,47 +353,32 @@ __global__ void __launch_bounds__(kHighThreads)
   __shared__ T sP[kMaxPartners];
   const int m = L - h;
   const int cn = 1 << (line_bits + h);
-  const int line_mask = (1 << line_bits) - 1;
   const int64_t mid = int64_t(blockIdx.x) << line_bits;
-  if (h > 0) {
-    for (int q = threadIdx.x; q < cn; q += blockDim.x) {
-      const int64_t i =
-          (int64_t(q >> line_bits) << m) | mid | (q & line_mask);
-      cp_async_elem(cube + q, x + i);
-    }
-  }
-  if (int(threadIdx.x) < h) sG[threadIdx.x] = G[m + threadIdx.x];
+  if (h > 0) stage_cube(cube, sG, x, G, m, h, cn, line_bits, mid);
   if (int(threadIdx.x) < n_partners) sP[threadIdx.x] = G[L + threadIdx.x];
   cp_async_wait_all();
   __syncthreads();
   for (int q = threadIdx.x; q < cn; q += blockDim.x) {
-    const int64_t i = (int64_t(q >> line_bits) << m) | mid | (q & line_mask);
+    const int64_t i = cube_index(q, m, line_bits, mid);
     T ur = 0;
     T ui = 0;
-    for (int r = 0; r < h; ++r) {
-      const V y = cube[q ^ (1 << (line_bits + r))];
-      ur += sG[r] * y.x;
-      ui += sG[r] * y.y;
-    }
-    // partners at the thread's own index: 2^line_bits consecutive
-    // elements a line, coalesced
+    add_top_bits(cube, sG, q, h, line_bits, ur, ui);
+    // a run-time loop over batches: unrolled over the whole table, the
+    // compiler issued every predicated load first (98-123 registers)
+#pragma unroll 1
+    for (int r0 = 0; r0 < n_partners; r0 += kPartnerBatch) {
+      V y[kPartnerBatch];
 #pragma unroll
-    for (int r = 0; r < kMaxPartners; ++r) {
-      if (r < n_partners) {
-        const V y = partners.row[r][i];
-        ur += sP[r] * y.x;
-        ui += sP[r] * y.y;
-      }
+      for (int c = 0; c < kPartnerBatch; ++c)
+        if (r0 + c < n_partners) y[c] = partners.row[r0 + c][i];
+#pragma unroll
+      for (int c = 0; c < kPartnerBatch; ++c)
+        if (r0 + c < n_partners) {
+          ur += sP[r0 + c] * y[c].x;
+          ui += sP[r0 + c] * y[c].y;
+        }
     }
-    if (w != nullptr) {
-      const V z = w[i];
-      ur += z.x;
-      ui += z.y;
-    }
-    V u;
-    u.x = ur;
-    u.y = ui;
-    out[i] = u;
+    store_high(out, w, i, ur, ui);
   }
 }
 
@@ -347,19 +419,28 @@ int launch_high(const void* x, const void* G, const void* w,
       line_bits < 0 || line_bits + h > L || n_partners < 0 ||
       n_partners > kMaxPartners || (h == 0 && n_partners == 0))
     return int(cudaErrorInvalidValue);
+  // h = 0 stages nothing
+  const int64_t bytes =
+      h ? (int64_t(1) << (line_bits + h)) * int64_t(sizeof(V)) : 0;
+  if (bytes > kMaxSmem) return int(cudaErrorInvalidValue);
+  const int blocks = int(n >> (line_bits + h));
+  if (n_partners == 0) {
+    const cudaError_t rc = allow_smem(cheby_flip_high<T>, int(bytes));
+    if (rc != cudaSuccess) return int(rc);
+    cheby_flip_high<T><<<blocks, kHighThreads, int(bytes),
+                         (cudaStream_t)stream>>>(
+        (const V*)x, (const T*)G, (const V*)w, (V*)out, L, h, line_bits);
+    return int(cudaGetLastError());
+  }
   Partners<V> rows{};
   for (int r = 0; r < n_partners; ++r) {
     if (partners[r] == nullptr) return int(cudaErrorInvalidValue);
     rows.row[r] = static_cast<const V*>(partners[r]);
   }
-  // h = 0 stages nothing
-  const int64_t bytes =
-      h ? (int64_t(1) << (line_bits + h)) * int64_t(sizeof(V)) : 0;
-  if (bytes > kMaxSmem) return int(cudaErrorInvalidValue);
-  const cudaError_t rc = allow_smem(cheby_flip_high<T>, int(bytes));
+  const cudaError_t rc = allow_smem(cheby_flip_high_partners<T>, int(bytes));
   if (rc != cudaSuccess) return int(rc);
-  cheby_flip_high<T><<<int(n >> (line_bits + h)), kHighThreads, int(bytes),
-                       (cudaStream_t)stream>>>(
+  cheby_flip_high_partners<T><<<blocks, kHighThreads, int(bytes),
+                                (cudaStream_t)stream>>>(
       (const V*)x, (const T*)G, (const V*)w, rows, n_partners, (V*)out, L, h,
       line_bits);
   return int(cudaGetLastError());
@@ -406,7 +487,8 @@ int cheby_flip_iter_f64(const void* v0, void* v2, const void* v1, void* phi,
 }
 
 // The high pass of either: w_hi from x (v1 or v0) and the n_partners
-// device pointers of the host array partners.
+// device pointers of the host array partners (nullptr when n_partners is
+// 0: the kernel without a partner table).
 int cheby_flip_high_f32(const void* x, const void* G, const void* w,
                         const void* const* partners, int n_partners,
                         void* out, int L, int64_t n, int h, int line_bits,

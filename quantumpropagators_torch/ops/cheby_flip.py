@@ -19,15 +19,17 @@ flips of the bits below ``L − h`` with ``w_hi`` as its ``w``.  The top
 bits' partners lie too far apart for one sweep to find them in L2.
 
 Every wrapper also takes ``partners``: up to :data:`MAX_PARTNERS` pairs
-``(stack, slot_xor)`` for flips of bits held outside the state, the
-slot bits of a sharded state (:mod:`..parallel.sharded_fused`).  Slot
+(one per slot bit of any mesh the kernels address) ``(stack,
+slot_xor)`` for flips of bits held outside the state, the slot bits of
+a sharded state (:mod:`..parallel.sharded_fused`).  Slot
 ``s`` of the state reads row ``s ^ slot_xor`` of ``stack`` (the state's
 own stack with ``slot_xor = 2^r`` for a slot bit inside this process,
 received rows with ``slot_xor = 0``), weighted by ``G[L + r]`` for the
 ``r``-th partner: ``G`` then holds ``L + len(partners)`` entries.  On
 the card the partners are read inside the high pass, which then also
 runs where the split has no top bits (``h = 0``: the partners' weighted
-sum alone).
+sum alone); a high pass without partners launches a kernel that takes no
+partner table.
 
 Each takes complex128 states with float64 ``dmb``/``G`` (the
 reference-accuracy tier) or complex64 with float32 (the f32 tier).  A
@@ -71,11 +73,11 @@ __all__ = [
 ]
 
 MAX_BITS = 30
-MAX_PARTNERS = 4            # partner rows of one high pass (16 slots)
+MAX_PARTNERS = MAX_BITS     # partner rows of one high pass: 2^30 slots
 _MAX_HIGH_BITS = 8          # the high pass's cube: at most 2^8 runs
 _SMEM_BYTES = 227 * 1024    # shared memory one H100 block may use
 _LINE_BYTES = 256           # the high pass's contiguous run per top-bit value
-_SUM_LINE_BITS = 10         # the high pass at h = 0: 2^10 elements a block
+_SUM_LINE_BITS = 10         # a partner pass: 2^10 elements a block
 _TILE_BYTES = 16 * 1024     # the iteration's tile of v1 in shared memory
 _SETUP_TILE_BITS = 11       # the setup's tile of v0: 2^11 elements
 # Bits below which a flip partner stays within L2's reach while the
@@ -124,13 +126,18 @@ def flip_check_sizes(dtype) -> list[int]:
                   | {T + d for T in tiles for d in (-1, 0, 1)})
 
 
-def _line_bits(L: int, h: int, dtype) -> int:
+def _line_bits(L: int, h: int, dtype, partners: bool = False) -> int:
     """The high pass's line: ``2^line_bits`` contiguous elements (at most
     ``_LINE_BYTES``) for each value of the top ``h`` bits; at ``h = 0``
-    (partners alone, nothing staged) a block's run of elements."""
-    if h == 0:
-        return min(L, _SUM_LINE_BITS)
-    return min(L - h, _bits_in(_LINE_BYTES, dtype))
+    (partners alone, nothing staged) a block's run of elements.  With
+    partners the cube holds at least ``2^_SUM_LINE_BITS`` elements, four
+    for each of the block's 256 threads, so that the block's start (the
+    staging and the partner table) is spread over as many outputs at
+    every ``h`` (PERF.md §6)."""
+    line = _bits_in(_LINE_BYTES, dtype)
+    if partners:
+        line = max(line, _SUM_LINE_BITS - h)
+    return min(L - h, line)
 
 
 def _bits_in(n_bytes: int, dtype) -> int:
@@ -432,13 +439,16 @@ def _launch_high(v1, G, w, L, h, partners=()):
     ctype, suffix, _ = _TYPES[v1.dtype]
     w_hi = torch.empty_like(v1)
     rows = [(stack.view(-1, 1 << L), slot_xor) for stack, slot_xor in partners]
+    line_bits = _line_bits(L, h, v1.dtype, bool(rows))
     for s, (x1, wr, o) in enumerate(_slots(L, v1, w, w_hi)):
-        ptrs = (ctypes.c_void_p * MAX_PARTNERS)(
-            *[r[s ^ slot_xor].data_ptr() for r, slot_xor in rows])
+        # no partners: a null table, the kernel without one
+        ptrs = (ctypes.c_void_p * len(rows))(
+            *[r[s ^ slot_xor].data_ptr() for r, slot_xor in rows]
+        ) if rows else None
         _launch(
             f"cheby_flip_high_{suffix}", f"cheby_flip_high<{ctype}>",
             (x1.data_ptr(), G.data_ptr(), _ptr(wr), ptrs, len(rows),
-             o.data_ptr(), L, 1 << L, h, _line_bits(L, h, v1.dtype)),
+             o.data_ptr(), L, 1 << L, h, line_bits),
             v1.device,
         )
     return w_hi

@@ -4,9 +4,10 @@ shard-slot mesh's collectives, and a 2-process × 2-slot run over gloo
 
 Run as ``python tests/test_torch_distributed.py <port> <rank>`` this
 file is the worker of the 2-process test: it joins a 2-rank gloo group
-on ``localhost:<port>``, runs the sharded steps on a 4-slot mesh over
-that group and on a 4-slot mesh in this process alone, and prints the
-largest difference of each."""
+on ``localhost:<port>``, runs the sharded steps on a 4-slot mesh (and
+the fused flip steps on a 32-slot one) over that group and on the same
+mesh in this process alone, and prints the largest difference of
+each."""
 
 import json
 import os
@@ -217,6 +218,37 @@ def _sharded_runs(mesh):
     return out
 
 
+def _wide_runs(mesh):
+    """Both fused flip steps on a 32-slot ``mesh`` at L = 15 (2^10 a
+    slot, the flip plan's least): five slot bits, each a partner of
+    every flip call; returns every slot's result (gathered)."""
+    from quantumpropagators_torch.ops.cheby import cheby_coeffs
+    from quantumpropagators_torch.parallel import sharded_fused as sf
+
+    L, g = 15, np.random.default_rng(9).uniform(0.8, 1.5, 15)
+    H_diag, _ = qt.transverse_field_ising(L, J=1.0, g=1.2, h=0.3,
+                                          dtype=torch.float64, device="cpu")
+    bound = (L - 1) + 0.3 * L + float(g.sum())
+    kw = dict(delta=2 * bound, e_min=-bound, dt=0.06)
+    coeffs = cheby_coeffs(2 * bound, 0.06)
+    psi = torch.as_tensor(random_state_vector(
+        2 ** L, rng=np.random.default_rng(8)))
+    diag = H_diag.diag
+
+    def gather(x):
+        return mesh.all_gather(mesh.local(x)).reshape(-1)
+
+    step = sf.make_sharded_fused_cheby_step_dd(mesh, L, g, f32_tail=3, **kw)
+    out = {"fused_dd_32": gather(step(
+        shard_vector(mesh, diag - (kw["delta"] / 2 + kw["e_min"])),
+        shard_vector(mesh, psi), coeffs, flip_scale=0.8))}
+    step32 = sf.make_sharded_fused_cheby_step(mesh, L, g, **kw)
+    r, i = step32(shard_vector(mesh, diag), shard_vector(mesh, psi.real),
+                  shard_vector(mesh, psi.imag), coeffs)
+    out["fused_32"] = gather(torch.complex(r, i))
+    return out
+
+
 def _worker(port: str, rank: int) -> None:
     import torch.distributed as dist
 
@@ -230,6 +262,11 @@ def _worker(port: str, rank: int) -> None:
         assert (mesh.n_local, mesh.first_slot) == (2, 2 * rank)
         two = _sharded_runs(mesh)
         one = _sharded_runs(chain_mesh(4, device="cpu"))
+        # 16 slots a rank: four slot bits inside the rank, one received
+        wide = chain_mesh(32, group=group, device="cpu")
+        assert (wide.n_local, wide.first_slot) == (16, 16 * rank)
+        two.update(_wide_runs(wide))
+        one.update(_wide_runs(chain_mesh(32, device="cpu")))
         errs = {k: float((two[k] - one[k]).abs().max()) for k in one}
         print(f"OK rank={rank} {json.dumps(errs)}", flush=True)
     finally:
@@ -261,7 +298,9 @@ def _deadline(seconds: int):
 
 def test_two_process_sharded_steps_match_one_process():
     """2 processes × 2 slots over gloo: every sharded step equals the
-    same 4-slot mesh in one process to 1e-14, and Newton, expv and
+    same 4-slot mesh in one process to 1e-14 (and 2 × 16 slots the
+    32-slot mesh, the fused steps' partners mixing the rank's own rows
+    with received ones), and Newton, expv and
     specrange through DistributedBSR (whose reductions sum in another
     order over two ranks) to 1e-12."""
     repo = str(Path(__file__).resolve().parent.parent)
@@ -287,7 +326,8 @@ def test_two_process_sharded_steps_match_one_process():
         errs = json.loads(line[0].split(" ", 2)[2])
         krylov = {"newton", "expv", "specrange"}
         assert set(errs) == {"fused_dd", "fused", "chain", "bsr_dd",
-                             "banded_dd", "norm"} | krylov
+                             "banded_dd", "norm", "fused_dd_32",
+                             "fused_32"} | krylov
         assert max(v for k, v in errs.items() if k not in krylov) <= 1e-14, \
             errs
         assert max(errs[k] for k in krylov) <= 1e-12, errs

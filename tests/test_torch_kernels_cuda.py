@@ -109,43 +109,59 @@ def test_high_pass_every_h_matches_plain(cuda, cdtype, tol, h):
     assert float((got - want).abs().max()) < tol
 
 
-def _slot_partners(L, cdtype, device, slots=4):
-    """A ``(slots, 2^L)`` stack, received rows, ``L + 2`` coefficients,
-    and the two partners of a 4-slot state: its own rows at
-    ``slot_xor = 1`` and the received rows at ``slot_xor = 0``."""
-    v0, v1, w, dmb, G = _inputs(L + 2, cdtype, device)
-    stack, recv = v1.view(slots, -1), w.view(slots, -1)
-    G_all = torch.cat([G[:L], G[-2:]]).contiguous()
-    return (v0.view(slots, -1), stack, dmb.view(slots, -1), G_all,
-            [(stack, 1), (recv, 0)])
+def _slot_partners(L, cdtype, device, P=2):
+    """A ``(slots, 2^L)`` stack ``v1``, ``v0`` and ``dmb`` alike, ``L + P``
+    coefficients and ``P`` partners.  P = 2: a 4-slot state's own rows at
+    ``slot_xor = 1`` and received rows at ``slot_xor = 0``.  P > 2: 32
+    slots, its own rows at ``slot_xor = 1, 2, 4, ...`` (at most 5) and
+    received stacks for the rest, as a rank of a wider mesh reads them."""
+    slots = 4 if P == 2 else 32
+    p = slots.bit_length() - 1
+    v0, v1, w, dmb, G = _inputs(L + p, cdtype, device)
+    stack = v1.view(slots, -1)
+    own = min(P - 1, p)
+    gen = torch.Generator(device=device).manual_seed(P)
+    received = [w.view(slots, -1)] + [
+        torch.randn(stack.shape, generator=gen, dtype=cdtype, device=device)
+        for _ in range(P - own - 1)]
+    weights = G[-2:] if P == 2 else torch.as_tensor(
+        np.random.default_rng(P).uniform(0.5, 1.5, P)).to(device, G.dtype)
+    G_all = torch.cat([G[:L], weights]).contiguous()
+    parts = [(stack, 1 << r) for r in range(own)] + [(x, 0)
+                                                      for x in received]
+    return v0.view(slots, -1), stack, dmb.view(slots, -1), G_all, parts
 
 
 @pytest.mark.parametrize("cdtype, tol", _TOLS)
 @pytest.mark.parametrize("h", [0, 4])
 @pytest.mark.parametrize("with_w", [False, True])
-def test_high_pass_partners_match_plain(cuda, cdtype, tol, h, with_w):
-    """The high pass with two partner rows on a 4-slot stack of 2^16,
-    at h = 0 (the partners' weighted sum alone) and h = 4: one launch a
-    slot."""
-    v0, stack, _, G_all, parts = _slot_partners(16, cdtype, cuda)
+@pytest.mark.parametrize("P", [2, 5, 8])
+def test_high_pass_partners_match_plain(cuda, cdtype, tol, h, with_w, P):
+    """The high pass with P partner rows on a 4-slot (P = 2) or 32-slot
+    stack of 2^16, at h = 0 (the partners' weighted sum alone) and
+    h = 4: one launch a slot."""
+    v0, stack, _, G_all, parts = _slot_partners(16, cdtype, cuda, P)
     w = v0 if with_w else None
     cf.reset_launches()
     got = cf.cheby_flip_high(stack, G_all, h, w, partners=parts)
     want = cf.cheby_flip_high_plain(stack, G_all, h, w, partners=parts)
     torch.cuda.synchronize()
     ctype = "float" if cdtype == torch.complex64 else "double"
-    assert cf.LAUNCHES[f"cheby_flip_high<{ctype}>"] == 4
+    assert cf.LAUNCHES[f"cheby_flip_high<{ctype}>"] == stack.shape[0]
     assert float((got - want).abs().max()) < tol
 
 
 @pytest.mark.parametrize("cdtype, tol", _TOLS)
 @pytest.mark.parametrize("L", [16, 20])
-def test_flip_with_partners_matches_plain(cuda, cdtype, tol, L):
-    """The setup and the order with two partners on a 4-slot stack, at
-    a slot size without top bits (L = 16: the partners' own pass) and
-    with them (L = 20)."""
-    v0, v1, dmb, G_all, _ = _slot_partners(L, cdtype, cuda)
-    parts = [(v1, 2), (v0, 0)]
+@pytest.mark.parametrize("P", [2, 5, 8])
+def test_flip_with_partners_matches_plain(cuda, cdtype, tol, L, P):
+    """The setup and the order with P partners on a 4-slot (P = 2) or
+    32-slot stack, at a slot size without top bits (L = 16: the
+    partners' own pass) and with them (L = 20); more partners than
+    ``MAX_PARTNERS`` raise."""
+    v0, v1, dmb, G_all, parts = _slot_partners(L, cdtype, cuda, P)
+    if P == 2:
+        parts = [(v1, 2), (v0, 0)]
     got = cf.cheby_flip_first(v1, dmb, G_all, -0.07, 0.8, -0.4,
                               partners=parts)
     want = cf.cheby_flip_first_plain(v1, dmb, G_all, -0.07, 0.8, -0.4,
@@ -161,10 +177,11 @@ def test_flip_with_partners_matches_plain(cuda, cdtype, tol, L):
     torch.cuda.synchronize()
     assert float((k0 - p0).abs().max()) < tol
     assert float((kphi - pphi).abs().max()) < tol
+    many = cf.MAX_PARTNERS + 1
     with pytest.raises(ValueError, match="at most"):
-        cf.cheby_flip_high(v1, torch.ones(L + 5, dtype=G_all.dtype,
+        cf.cheby_flip_high(v1, torch.ones(L + many, dtype=G_all.dtype,
                                           device=cuda), 0,
-                           partners=[(v1, 1)] * 5)
+                           partners=[(v1, 1)] * many)
 
 
 @pytest.mark.parametrize("L", [3, 12, 20])

@@ -1,5 +1,6 @@
 """The sharded steps on the card against the same calls on CPU tensors:
-the 4-slot sharded reference-tier flip step at L = 20 and the 4-slot
+the 4-slot sharded reference-tier flip step at L = 20, both tiers on 32
+slots at L = 19 (five slot-bit partners a pass), and the 4-slot
 sharded banded step at 2^16 (b = 128), each ≤ 1e-12, with their kernel
 launch counts, and Newton through ``DistributedBSR`` on 4 slots at
 2^14 (≤ 1e-12).  Needs an NVIDIA GPU with nvcc (``-m cuda``); skips
@@ -100,6 +101,56 @@ def test_sharded_f32_step_on_card_matches_cpu(cuda):
     want = out["cpu"]
     err = float((out[str(cuda)] - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())
+
+
+def test_sharded_steps_on_32_slots_match_cpu(cuda):
+    """Both tiers on 32 slots of 2^14 (L = 19): five slot bits, every
+    one a partner of each high pass (at h = 0 here), one launch a slot
+    and pass; the dd step with a per-bit flip scale and its f32 tail to
+    1e-12 of the CPU, the f32 step to 1e-5 of the largest amplitude."""
+    L, g, slots = 19, 1.2, 32
+    H_diag, _ = qt.transverse_field_ising(L, J=1.0, g=g, h=0.3,
+                                          dtype=torch.float64, device="cpu")
+    bound = (L - 1) + 0.3 * L + g * L
+    e_min, delta, dt = -bound, 2 * bound, 0.05
+    coeffs = cheby_coeffs(delta, dt)
+    dmb = H_diag.diag - (delta / 2 + e_min)
+    psi = _state(2 ** L, 17)
+    fs = torch.as_tensor(np.random.default_rng(18).uniform(0.5, 1.5, L))
+    p32 = psi.to(torch.complex64)
+    out, counts = {}, {}
+    for dev in ("cpu", cuda):
+        mesh = chain_mesh(slots, device=dev)
+        step = sf.make_sharded_fused_cheby_step_dd(
+            mesh, L, g, delta=delta, e_min=e_min, dt=dt)
+        step32 = sf.make_sharded_fused_cheby_step(
+            mesh, L, g, delta=delta, e_min=e_min, dt=dt)
+        cf.reset_launches()
+        dd = step(dmb.to(dev), psi.to(dev), coeffs, flip_scale=fs.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            counts["dd"] = dict(cf.LAUNCHES)
+            cf.reset_launches()
+        re, im = step32(H_diag.diag.to(dev, torch.float32),
+                        p32.real.contiguous().to(dev),
+                        p32.imag.contiguous().to(dev), coeffs, 0.8)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            counts["f32"] = dict(cf.LAUNCHES)
+        out[str(dev)] = dd.cpu(), torch.complex(re, im).cpu()
+    tail = step.exchange_plan["f32_tail_orders"]
+    n_dd = len(coeffs) - tail
+    assert step.exchange_plan["live_device_bits"] == 5 and tail > 0
+    assert cf.flip_split(L - 5, torch.complex128)[1] == 0
+    assert counts["dd"]["cheby_flip_first<double>"] == slots
+    assert counts["dd"]["cheby_flip_high<double>"] == slots * (n_dd - 1)
+    assert counts["dd"]["cheby_flip_high<float>"] == slots * tail
+    assert counts["f32"]["cheby_flip_high<float>"] == slots * (
+        len(coeffs) - 1)
+    (dd_cpu, f_cpu), (dd_card, f_card) = out["cpu"], out[str(cuda)]
+    assert float((dd_cpu - dd_card).abs().max()) < 1e-12
+    assert float((f_cpu - f_card).abs().max()) <= 1e-5 * float(
+        f_cpu.abs().max())
 
 
 def test_sharded_banded_step_on_card_matches_cpu(cuda):

@@ -156,6 +156,64 @@ def test_sharded_fused_dd_per_bit_flip_scale(problem, slots):
         step(dmb, psi, coeffs, flip_scale=scale_bits[:-1])
 
 
+WIDE_L = 16  # 2^10 amplitudes a slot at 64 slots: the flip plan's least
+
+
+@pytest.fixture(scope="module")
+def wide_problem():
+    """The chain at L = WIDE_L, its envelope, a state and per-bit flip
+    scales, all from seeds."""
+    H_diag, _ = transverse_field_ising(WIDE_L, J=J, g=G, h=H,
+                                       dtype=jnp.float64)
+    bound = J * (WIDE_L - 1) + abs(H) * WIDE_L + G * WIDE_L
+    rng = np.random.default_rng(43)
+    psi = rng.standard_normal(2 ** WIDE_L) + 1j * rng.standard_normal(
+        2 ** WIDE_L)
+    psi /= np.linalg.norm(psi)
+    scale_bits = rng.uniform(0.5, 1.5, size=WIDE_L)
+    return np.array(H_diag.diag, np.float64), psi, -bound, 2 * bound, \
+        scale_bits
+
+
+@pytest.mark.parametrize("slots", [32, 64])
+@pytest.mark.parametrize("kind", ["f32", "dd", "dd f32 tail"])
+@pytest.mark.parametrize("per_bit", [False, True])
+def test_sharded_steps_on_wide_meshes(wide_problem, slots, kind, per_bit,
+                                      monkeypatch):
+    """Meshes of 32 and 64 slots on one rank: every flip call reads its
+    5 or 6 slot bits as partners, so a partner weight ``G[L + r]`` with
+    r >= 4 is read, and under a uniform or a per-bit flip scale the
+    f32-tier step (float64 arrays) and the dd step, with and without
+    its complex64 tail, match the f64 oracle to 1e-12."""
+    diag, psi, e_min, delta, scale_bits = wide_problem
+    mesh = chain_mesh(slots, device="cpu")
+    kernels = _KernelCalls(monkeypatch)
+    coeffs = cheby_coeffs(delta, DT)
+    kw = dict(delta=delta, e_min=e_min, dt=DT)
+    g_bits = G * (scale_bits if per_bit else np.ones(WIDE_L))
+    if kind == "f32":
+        step = sf.make_sharded_fused_cheby_step(mesh, WIDE_L, g_bits, **kw)
+        r, i = step(torch.as_tensor(diag), torch.as_tensor(psi.real),
+                    torch.as_tensor(psi.imag), coeffs, FS)
+        got = r.numpy() + 1j * i.numpy()
+        g_bits = FS * g_bits
+    else:
+        step = sf.make_sharded_fused_cheby_step_dd(
+            mesh, WIDE_L, G, f32_tail=4 if kind == "dd f32 tail" else 0,
+            **kw)
+        got = step(torch.as_tensor(diag - (delta / 2 + e_min)),
+                   torch.as_tensor(psi), coeffs,
+                   flip_scale=scale_bits if per_bit else FS).numpy()
+        if not per_bit:
+            g_bits = FS * g_bits
+    p = slots.bit_length() - 1
+    assert kernels.calls and all(len(parts) == p
+                                 for _, _, parts in kernels.calls)
+    want = _np_cheby_oracle(diag, g_bits, WIDE_L, psi, coeffs, delta,
+                            e_min, DT)
+    assert np.abs(got - want).max() < 1e-12
+
+
 class _RecordingMesh:
     """Wraps a mesh's ``ppermute`` to record the dtype of each exchange."""
 
@@ -366,12 +424,15 @@ def _stack_copy(stack, slot_xor, slots):
                                          (torch.complex128, 1e-14)])
 @pytest.mark.parametrize("h", [0, 2])
 @pytest.mark.parametrize("kinds", [("own 1",), ("own 2",), ("received",),
-                                   ("own 2", "received")])
+                                   ("own 2", "received"),
+                                   ("own 1", "received", "own 2", "received",
+                                    "own 2", "own 1")])
 def test_flip_wrappers_read_partners(cdtype, tol, h, kinds):
-    """Partners ``(stack, slot_xor)`` through every flip wrapper (P = 1
-    and 2; the state's own stack with ``slot_xor = 2^r`` and received
-    rows with ``slot_xor = 0``) equal the same call without partners whose
-    ``w`` is the explicit stacked copies' weighted sum plus ``w``."""
+    """Partners ``(stack, slot_xor)`` through every flip wrapper (P = 1,
+    2 and 6; the state's own stack with ``slot_xor = 2^r`` and received
+    rows with ``slot_xor = 0``, mixed) equal the same call without
+    partners whose ``w`` is the explicit stacked copies' weighted sum
+    plus ``w``."""
     rdtype = cdtype.to_real()
     rng = np.random.default_rng(7)
     Lb, S = 6, 4

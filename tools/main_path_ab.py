@@ -1,16 +1,24 @@
-"""The main path's steps/s of two checkouts, measured in turn on one card.
+"""The main path's steps/s of two or more checkouts, measured in turn on
+one card.
 
-    python3 tools/main_path_ab.py PARENT CHANGE [--rounds N]
+    python3 tools/main_path_ab.py TREE TREE [TREE ...] [--rounds N]
 
-``PARENT`` and ``CHANGE`` are checkouts of this repository (each with its
-own ``quantumpropagators_torch`` and ``chip_smoke.py``).  Each run is a
-process of its own in one checkout: ``chip_smoke.main_path`` (phases 3-4:
-the L = 24 driven chain through ``propagate(fused=True)``, 20 steps,
-``kernel="dd"`` and ``kernel="pallas"``, each the median of 3 timed runs,
-as phase 6 prints them), then the dd call with phase 3's two observables
-and ``storage=True``, timed the same way.  The runs go parent, change,
-change, parent, ``N`` times over.  Prints one JSON line per run and the
-card's name and power limit last.
+Each ``TREE`` is a checkout of this repository (with its own
+``quantumpropagators_torch`` and ``chip_smoke.py``), the parent first.
+Each run is a process of its own in one checkout: ``chip_smoke.main_path``
+(phases 3-4: the L = 24 driven chain through ``propagate(fused=True)``,
+20 steps, ``kernel="dd"`` and ``kernel="pallas"``, each the median of 3
+timed runs, as phase 6 prints them), then the dd call with phase 3's two
+observables and ``storage=True``, timed the same way, then phase 6's
+high pass alone at L = 24 (h = 6, no partners) in both types and, where
+the checkout's high pass takes partners, the 4-slot sharded order's
+(4 × 2^22, h = 4, two slot-bit partners) and, where it takes five, the
+32-slot one's (32 × 2^19, h = 1): each the median of 3 readings of
+``profiling.time_ms`` (20 calls recorded into a CUDA graph and replayed,
+so that the host's cost of 32 slot launches stays out).  The runs go through
+the trees and back (parent, change, change, parent for two), ``N``
+times over.  Prints one JSON line per run and the card's name and power
+limit last.
 """
 
 from __future__ import annotations
@@ -36,8 +44,40 @@ obs = (cs.sz0(cs.L_MAIN, device), lambda psi: torch.linalg.vector_norm(psi))
 _, t_obs = cs.median_wall(lambda: qt.propagate(
     psi0, H, tlist, method="cheby", fused=True, kernel="dd", workspace=wrk,
     observables=obs, storage=True))
-print(json.dumps({"dd": rates["dd"][0], "pallas": rates["pallas"][0],
-                  "dd_observables": cs.N_STEPS / t_obs}))
+steps_s = {"dd": rates["dd"][0], "pallas": rates["pallas"][0],
+           "dd_observables": cs.N_STEPS / t_obs}
+del psi0, H, wrk
+torch.cuda.empty_cache()
+
+from quantumpropagators_torch.ops import cheby_flip as cf
+
+
+from quantumpropagators_torch.profiling import time_ms
+
+
+def median_ms(fn):
+    return float(np.median([time_ms(fn, 20) for _ in range(3)]))
+
+
+high_ms = {}
+for ctype in ("float", "double"):
+    _, v1, _, _, G, _ = cs.kernel_inputs(cs.L_MAIN, ctype, device, cs.SEED)
+    h = cf.flip_split(cs.L_MAIN, v1.dtype)[1]
+    high_ms[f"{ctype} h={h}"] = median_ms(lambda: cf.cheby_flip_high(v1, G,
+                                                                     h))
+    if hasattr(cf, "MAX_PARTNERS"):
+        x = v1.view(4, -1)
+        h4 = cf.flip_split(cs.L_MAIN - 2, v1.dtype)[1]
+        high_ms[f"{ctype} 4 slots h={h4} P=2"] = median_ms(
+            lambda: cf.cheby_flip_high(x, G, h4, partners=[(x, 1), (x, 2)]))
+    if getattr(cf, "MAX_PARTNERS", 0) >= 5:
+        x32 = v1.view(32, -1)
+        h32 = cf.flip_split(cs.L_MAIN - 5, v1.dtype)[1]
+        high_ms[f"{ctype} 32 slots h={h32} P=5"] = median_ms(
+            lambda: cf.cheby_flip_high(x32, G, h32, partners=[
+                (x32, 1 << r) for r in range(5)]))
+    del v1, G
+print(json.dumps({"steps_s": steps_s, "high_ms": high_ms}))
 """
 
 
@@ -52,14 +92,15 @@ def run_tree(tree: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("parent")
-    ap.add_argument("change")
+    ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
+    if len(args.trees) < 2:
+        ap.error("give at least two trees")
     for _ in range(args.rounds):
-        for name in ("parent", "change", "change", "parent"):
-            tree = os.path.abspath(getattr(args, name))
-            print(json.dumps({"tree": name, "steps_s": run_tree(tree)}),
+        for tree in args.trees + args.trees[::-1]:
+            print(json.dumps({"tree": tree,
+                              **run_tree(os.path.abspath(tree))}),
                   flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
