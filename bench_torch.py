@@ -79,7 +79,9 @@ def step_scan(step):
     ``step(carry, None) -> (carry, None)`` over ``n`` steps, through one
     :class:`~quantumpropagators_torch.utils.scan.GraphedScan`: the first
     run captures, and every later run replays, whatever its length (the
-    step reads no per-step input and writes no per-step output)."""
+    step reads no per-step input and writes no per-step output).  A step
+    that takes ``out`` writes its new carry there, so that the replays
+    copy no carry."""
     from quantumpropagators_torch.utils.scan import GraphedScan
 
     scan = GraphedScan(step)
@@ -774,8 +776,8 @@ def bench_banded20(device, L_dim: int = 20, tile_rows: int = 8, dt=None):
 
     z0 = torch.as_tensor(x64 + 1j * y64, device=device)
 
-    scans = step_scan(lambda z, _: (cheby_apply_dd_banded(
-        op, z, c64, delta, e_min, dt, tile_rows=tile_rows), None))
+    scans = step_scan(lambda z, _, out=None: (cheby_apply_dd_banded(
+        op, z, c64, delta, e_min, dt, tile_rows=tile_rows, out=out), None))
 
     def run(z, n_steps):
         return finish(device, scans(z, n_steps)[0].real)
@@ -968,10 +970,10 @@ def bench_northstar(device, n_steps: int = 1000, L: int = 24,
     del re0, im0
     state0 = torch.as_tensor(psi, device=device)
 
-    chunks = {sign: step_scan(lambda s, _, sign=sign: (
+    chunks = {sign: step_scan(lambda s, _, out=None, sign=sign: (
         cheby_step_fused_dd(plan, dmb, s, c64, delta, e_min, sign * dt,
-                            forward=(sign > 0), f32_tail=tail), None))
-        for sign in (1, -1)}
+                            forward=(sign > 0), f32_tail=tail, out=out),
+        None)) for sign in (1, -1)}
 
     def run_chunk(state, n, sign):
         return chunks[sign](state, n)
@@ -1096,8 +1098,9 @@ def dd_stepper(p: TFIM, device, *, f32_tail="auto", tile_rows=512,
     """The headline's reference-tier step on the flip kernels: returns
     ``(step, psi_start, tail)`` with ``step(psi, **hooks)`` one
     complex128 Chebyshev step (``hooks``: ``cheby_step_fused_dd``'s
-    remote-bit hooks), ``psi_start`` the start state widened to
-    complex128 and ``tail`` the number of orders run in complex64."""
+    remote-bit hooks and ``out``), ``psi_start`` the start state
+    widened to complex128 and ``tail`` the number of orders run in
+    complex64."""
     from quantumpropagators_torch.models.lattice import ising_diagonal_np
     from quantumpropagators_torch.ops.fused_cheby import make_flip_plan
     from quantumpropagators_torch.ops.fused_cheby_dd import (
@@ -1173,7 +1176,8 @@ def bench_headline(device, *, L=20, lattice2d=None, kernel="dd", steps=20,
             log(f"A/B: {nrb} self-copy remote planes through the sharded "
                 f"hook (result non-physical, cost-accurate)")
 
-        scans = step_scan(lambda psi, _: (dd_step(psi, **hooks), None))
+        scans = step_scan(lambda psi, _, out=None: (
+            dd_step(psi, out=out, **hooks), None))
 
         def run(n):
             return finish(device,
@@ -1184,8 +1188,8 @@ def bench_headline(device, *, L=20, lattice2d=None, kernel="dd", steps=20,
         psi_c64 = torch.complex(torch.as_tensor(p.re32, device=device),
                                 torch.as_tensor(p.im32, device=device))
 
-        scans = step_scan(lambda psi, _: (cheby_apply(
-            op, psi, coeffs, p.delta, p.e_min, dt), None))
+        scans = step_scan(lambda psi, _, out=None: (cheby_apply(
+            op, psi, coeffs, p.delta, p.e_min, dt, out=out), None))
 
         def run(n):
             return finish(device,

@@ -726,7 +726,8 @@ def time_partners(name, inputs, card, slots=4):
         f"copies + PyTorch sum + high pass with w {old_ms:.4f} ms [{card}]")
 
 
-def trace_steps(run, label, n_steps, card, top=8, regions=None):
+def trace_steps(run, label, n_steps, card, top=8, regions=None,
+                show_copies=False):
     """One ``torch.profiler`` trace of ``run()`` (``n_steps`` steps), after
     one untraced call of it.  Prints the device-busy share of the
     device's active window (first kernel start to last kernel end), the
@@ -738,7 +739,9 @@ def trace_steps(run, label, n_steps, card, top=8, regions=None):
     whose calls count under it: they are wrapped in
     ``torch.profiler.record_function(name)`` for the traced call, and
     the device time of the kernels launched inside each region is
-    printed a step.  Also returns the busy share of the window."""
+    printed a step.  Also returns the busy share of the window.  With
+    ``show_copies`` each copy operation's device ms and count a step is
+    printed too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -799,6 +802,12 @@ def trace_steps(run, label, n_steps, card, top=8, regions=None):
         f"{ms(is_copy):.4f}, PyTorch elementwise "
         f"{ms(lambda n: 'elementwise' in n and not is_copy(n)):.4f}, "
         f"all else {other:.4f} [{card}]")
+    if show_copies:
+        log(f"{label} copies ms/step: " + ("; ".join(
+            f"{t / 1e3 / n_steps:.4f} x{count / n_steps:g}/step {name[:80]}"
+            for name, (t, count) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][0])
+            if is_copy(name)) or "none") + f" [{card}]")
     if regions:
         # kernels of the CPU events of each region (children included);
         # a region nested in another counts in both
@@ -826,7 +835,9 @@ def trace_phase(psi0, H, wrk, card, n_steps=5, top=8):
     """Phase 8: one trace of ``n_steps`` dd steps of the main path at
     L_MAIN (:func:`trace_steps`): one ``propagate`` call, so its first
     interval runs eagerly and the graph is captured inside the window
-    (phase 15 traces the replays alone)."""
+    (phase 15 traces the replays alone).  Prints each copy operation's
+    ms a step: the step writes its new carry into the other graph's
+    carry buffer, so no replay copies the 2^24 complex128 state."""
     import quantumpropagators_torch as qt
 
     tlist = np.linspace(0.0, n_steps * DT, n_steps + 1)
@@ -835,7 +846,8 @@ def trace_phase(psi0, H, wrk, card, n_steps=5, top=8):
         return qt.propagate(psi0, H, tlist, method="cheby", fused=True,
                             kernel="dd", workspace=wrk)
 
-    trace_steps(run, f"phase 8 trace dd L={L_MAIN}", n_steps, card, top)
+    trace_steps(run, f"phase 8 trace dd L={L_MAIN}", n_steps, card, top,
+                show_copies=True)
 
 
 def banded20_operator(device):
@@ -2733,7 +2745,10 @@ def graph_vs_eager(label, step, carry, xs, n, card, paths, tol=0.0):
     intervals).  Holds both graph results against the eager one (max|Δ|
     ≤ ``tol``) and the launches a step equal; prints steps/s and host µs
     a step both ways (host: until the call returns, before the
-    synchronize).  Records the first graph call's launches in
+    synchronize), the peak reserved GiB over the two graph calls, and
+    the carry copies a replay makes, which must be 0
+    (every routed step writes its carry into the scan's ``out``, two
+    graphs in turn).  Records the first graph call's launches in
     ``paths``; returns ``(graph steps/s, eager steps/s, host µs)``."""
     from quantumpropagators_torch.utils.scan import GraphedScan, _loop
 
@@ -2750,20 +2765,26 @@ def graph_vs_eager(label, step, carry, xs, n, card, paths, tol=0.0):
     n_eager = _launch_counts()
     _, host_e, wall_e = timed(lambda: _loop(step, carry, xs, n))
     graphed = GraphedScan(step)
+    torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     first, _, wall_c = timed(lambda: graphed(carry, xs, n))
     n_graph = _launch_counts()
     second, host_g, wall_g = timed(lambda: graphed(carry, xs, n))
+    peak = torch.cuda.max_memory_reserved() / 2 ** 30
+    copies = graphed._graph.carry_copies
     err = max(_max_diff(first, eager), _max_diff(second, eager))
     per_e = {k: v / n for k, v in n_eager.items() if v}
     per_g = {k: v / n for k, v in n_graph.items() if v}
-    if not err <= tol or per_e != per_g:
+    if not err <= tol or per_e != per_g or copies != 0:
         raise AssertionError(f"phase 15 {label}: graph vs eager max|d| "
                              f"{err} (<= {tol}), launches/step graph "
-                             f"{per_g}, eager {per_e}")
+                             f"{per_g}, eager {per_e}, carry copies a "
+                             f"replay {copies} (must be 0)")
     paths[f"phase 15 {label} graph"] = n_graph
     log(f"phase 15 {label} {n} steps: graph vs eager max|d|={err:.3e} "
-        f"(<= {tol:g}), launches/step equal {per_g}; graph "
+        f"(<= {tol:g}), launches/step equal {per_g}, carry copies a "
+        f"replay {copies} ({len(graphed._graph.graphs)} graphs), peak "
+        f"reserved {peak:.3f} GiB over both graph calls; graph "
         f"{n / wall_g:.3f} steps/s (host {1e6 * host_g / n:.1f} us/step, "
         f"first call with the capture {wall_c:.3f} s), eager "
         f"{n / wall_e:.3f} steps/s (host {1e6 * host_e / n:.1f} us/step) "
@@ -3039,18 +3060,25 @@ def sharded_graph_phase(device, card, chain, ctx, group):
 def graph_phase(device, card, chain, ctx):
     """Phase 15: the fused layer's one-program scan.  Each routed path's
     own step (recorded from its entry point) runs as the eager loop and
-    as a replayed CUDA graph (:func:`graph_vs_eager`): the L = 24 dd and
-    f32 main path (20 steps, with observables), ``bench_torch.py``'s
-    2^20 dd chain, multiamp at 2^20, banded20 dd and fixed-Leja Newton
-    on banded20; then ``torch.profiler`` traces of 5 dd steps at 2^20
-    and 2^24 both ways (busy share), ``make_fused_cheby_propagator`` on
-    three tables against the eager loop with its capture count, and an
-    observable that reads the host, which must raise at capture.
-    Returns the graph runs' launches by path and the summary numbers."""
+    as its two replayed CUDA graphs, with no carry copy
+    (:func:`graph_vs_eager`): the L = 24 dd and f32 main path (20 steps,
+    with observables), ``bench_torch.py``'s 2^20 dd chain, the 2^20
+    chain through the flip kernel in complex128 (``kernel="pallas"``)
+    and the generic path (``kernel="xla"``), multiamp at 2^20, banded20
+    dd, a static 2^14 operator with couplings at 17 block distances
+    (the blocked-ELL product) and fixed-Leja Newton on banded20; then
+    ``torch.profiler`` traces of 5 dd steps at 2^20 and 2^24 both ways
+    (busy share), ``make_fused_cheby_propagator`` on three tables
+    against the eager loop with its capture count, and an observable
+    that reads the host, which must raise at capture.  Returns the graph
+    runs' launches by path and the summary numbers."""
+    import scipy.sparse as sp
+
     import bench_torch
     import quantumpropagators_torch as qt
     from quantumpropagators_torch.fused import (cheby_propagate_fused,
                                                 make_fused_cheby_propagator)
+    from quantumpropagators_torch.ops.cheby import ChebyWorkspace
     from quantumpropagators_torch.utils.scan import (GraphedScan, _length,
                                                      _loop)
 
@@ -3059,6 +3087,23 @@ def graph_phase(device, card, chain, ctx):
     psi0, H, wrk = chain
     tlist = np.linspace(0.0, N_STEPS * DT, N_STEPS + 1)
     obs = (sz0(L_MAIN, device), lambda psi: torch.linalg.vector_norm(psi))
+    _, H20 = tfim_generator(L_CHECK, device)
+    bound20 = J * (L_CHECK - 1) + H_FIELD * L_CHECK + G_FIELD * L_CHECK
+    env20 = dict(specrange_method="manual", E_min=-bound20, E_max=bound20)
+    psi_c = random_state(L_CHECK, torch.complex128, device, SEED + 150)
+    # couplings at 17 block distances (more than the band planes' 9): the
+    # static path's blocked-ELL product, 9 blocks in the widest row
+    rng = np.random.default_rng(SEED + 155)
+    n_ell = 2 ** 14
+    A = sp.diags([rng.standard_normal(n_ell - abs(k)) for k in (-2, -1, 0,
+                                                                1, 2)],
+                 [-2, -1, 0, 1, 2]).tolil()
+    for d in (2, 5, 9, 17, 33, 65, 100):
+        A[0, 128 * d] = A[128 * d, 0] = 0.01 * d
+    A = A.tocsr()
+    A = (0.5 * (A + A.T)).tocsr()
+    bound_ell = float(abs(A).sum(axis=1).max())
+    ell = qt.bsr_from_scipy(A, block_size=128, device=device)
     recorded = {}
     with ScanRecorder() as rec:
         qt.propagate(psi0, H, tlist, method="cheby", fused=True, kernel="dd",
@@ -3067,12 +3112,21 @@ def graph_phase(device, card, chain, ctx):
         qt.propagate(psi0.to(torch.complex64), H, tlist, method="cheby",
                      fused=True, kernel="pallas", workspace=wrk)
         recorded[f"L={L_MAIN} f32"] = rec.calls[-1]
+        cheby_propagate_fused(psi_c, H20, tlist, kernel="pallas", **env20)
+        recorded[f"2^{L_CHECK} flip complex128"] = rec.calls[-1]
+        cheby_propagate_fused(psi_c, H20, tlist, kernel="xla", **env20)
+        recorded[f"2^{L_CHECK} generic"] = rec.calls[-1]
         gen, psi_m, kw = bench_torch.multiamp_problem(device, L_CHECK)
         cheby_propagate_fused(psi_m, gen, tlist, kernel="dd", **kw)
         recorded[f"multiamp 2^{L_CHECK}"] = rec.calls[-1]
         cheby_propagate_fused(ctx["psi0"], ctx["op"], ctx["tlist"],
                               workspace=ctx["wrk"], kernel="dd")
         recorded["banded20 dd"] = rec.calls[-1]
+        cheby_propagate_fused(
+            random_state(14, torch.complex128, device, SEED + 156), ell,
+            tlist, kernel="dd", workspace=ChebyWorkspace.create(
+                2.0 * bound_ell, -bound_ell, DT))
+        recorded["static 2^14 blocked-ELL"] = rec.calls[-1]
         env = ctx["env"]
         qt.propagate(ctx["psi0"], ctx["op"], ctx["tlist"],
                      method="newton_leja", fused=True, e_min=env.e_min,
@@ -3082,8 +3136,8 @@ def graph_phase(device, card, chain, ctx):
     p20 = bench_torch.tfim_problem(device, L_CHECK)
     dd20, psi20, _ = bench_torch.dd_stepper(p20, device)
 
-    def step20(psi, _):
-        return dd20(psi), None
+    def step20(psi, _, out=None):
+        return dd20(psi, out=out), None
 
     recorded[f"bench_torch 2^{L_CHECK} dd"] = (step20, psi20, None, N_STEPS)
     torch.cuda.synchronize()
@@ -3106,10 +3160,7 @@ def graph_phase(device, card, chain, ctx):
         del g5
 
     # make_fused_cheby_propagator: the captures for three tables
-    _, H20 = tfim_generator(L_CHECK, device)
-    psi_c = random_state(L_CHECK, torch.complex128, device, SEED + 150)
     short = tlist[:6]
-    bound20 = J * (L_CHECK - 1) + H_FIELD * L_CHECK + G_FIELD * L_CHECK
     fn = make_fused_cheby_propagator(
         psi_c, H20, short, specrange_method="manual", E_min=-bound20,
         E_max=bound20, observable_fn=lambda p: torch.vdot(p, p).real)
@@ -3128,14 +3179,14 @@ def graph_phase(device, card, chain, ctx):
             want = tuple(t.detach() for t in want)
             errs.append(max(_max_diff(got, want), _max_diff(
                 tuple(t.detach() for t in taped), want)))
-    if len(made) != 3 or max(errs) != 0.0:
+    if len(made) != 4 or max(errs) != 0.0:
         raise AssertionError(f"phase 15 make_fused_cheby_propagator: "
                              f"{len(made)} captures, max|d| {errs}")
     summary["captures for 3 tables"] = len(made)
     log(f"phase 15 make_fused_cheby_propagator L={L_CHECK} 5 intervals, 3 "
-        f"tables: {len(made)} captures (one without autograd, the tape's "
-        f"forward and backward under it), graphs vs eager loop max|d| "
-        f"{max(errs):.3e} (= 0) ok")
+        f"tables: {len(made)} captures (the two graphs without autograd, "
+        f"the tape's forward and backward under it), graphs vs eager loop "
+        f"max|d| {max(errs):.3e} (= 0) ok")
 
     # a step that reads the host raises at capture, and the card goes on
     try:

@@ -15,10 +15,12 @@ of the same step.  Every step here therefore reads nothing from the
 host: per-interval values (table rows, folded diagonals, flip weights)
 are device tensors, and only values fixed for the whole propagation
 (Chebyshev coefficients, the phase ``exp(-iβdt)``, the f32 tail length)
-are Python constants.  On the card ``observable_fn(psi)`` must return a
-device tensor without reading the host, as the JAX one must be
-traceable.  :func:`make_fused_cheby_propagator` keeps its graph, so an
-optimal-control loop replays one capture with new tables.
+are Python constants.  Every step takes the scan's ``out`` and writes
+its new state there, so that the card's replays alternate between two
+state buffers and copy no state.  On the card ``observable_fn(psi)``
+must return a device tensor without reading the host, as the JAX one
+must be traceable.  :func:`make_fused_cheby_propagator` keeps its
+graph, so an optimal-control loop replays one capture with new tables.
 
 ``kernel`` selects the step:
 
@@ -58,12 +60,13 @@ __all__ = ["cheby_propagate_fused", "make_fused_cheby_propagator"]
 
 
 def _with_outputs(step, observable_fn, store_states, view=None):
-    """The scan step of ``step(psi, x) -> psi``: the new state and its
-    output, ``observable_fn`` of it, the state itself with
-    ``store_states``, or ``None`` (``view`` picks what both see)."""
+    """The scan step of ``step(psi, x, out=None) -> psi``: the new state
+    and its output, ``observable_fn`` of it, the state itself with
+    ``store_states``, or ``None`` (``view`` picks what both see).  It
+    takes the scan's ``out`` and hands it to ``step``."""
 
-    def scan_step(psi, x):
-        psi = step(psi, x)
+    def scan_step(psi, x, out=None):
+        psi = step(psi, x) if out is None else step(psi, x, out=out)
         seen = psi if view is None else view(psi)
         if observable_fn is not None:
             return psi, torch.as_tensor(observable_fn(seen))
@@ -84,9 +87,10 @@ def _generic_step(ops, cheby_coeffs, delta, e_min, dt, forward, apply_fn):
     """One :func:`cheby_apply` over ``Operator(ops, row)`` for the row of
     the coefficient table."""
 
-    def step(psi, row):
+    def step(psi, row, out=None):
         return cheby_apply(Operator(ops, row), psi, cheby_coeffs, delta,
-                           e_min, dt, forward=forward, apply_fn=apply_fn)
+                           e_min, dt, forward=forward, apply_fn=apply_fn,
+                           out=out)
 
     return step
 
@@ -113,12 +117,12 @@ def _fused_scan_flip(plan, diag, diag_col, flip_col, coeffs_table, psi0,
     diag = diag.to(rdtype)
     static_dmb = (diag - beta).contiguous() if diag_col is None else None
 
-    def step(psi, row):
+    def step(psi, row, out=None):
         dmb = static_dmb if diag_col is None \
             else (row[diag_col] * diag - beta).contiguous()
         G = gs if flip_col is None else gs * row[flip_col]
         return flip_cheby_step(psi, dmb, G, cheby_coeffs, delta, e_min, dt,
-                               forward=forward)
+                               forward=forward, out=out)
 
     return _scan(step, psi0.reshape(-1).contiguous(), coeffs_table, None,
                  observable_fn, store_states)
@@ -194,14 +198,14 @@ def _dd_path(fsm, generator, ops, psi0, tlist, workspace, backward,
     c64 = np.asarray(workspace.coeffs, dtype=np.float64)
     dd_tail = f32_tail_orders(c64) if f32_tail == "auto" else int(f32_tail)
 
-    def step(psi, x):
+    def step(psi, x, out=None):
         amps, G = x
         dmb = dmb_static
         for j, diag64 in enumerate(dyn_diags):
             dmb = dmb + amps[j] * diag64
         return cheby_step_fused_dd(
             plan, dmb, psi, c64, workspace.delta, workspace.e_min, dt,
-            forward=not backward, flip_scale=G, f32_tail=dd_tail,
+            forward=not backward, flip_scale=G, f32_tail=dd_tail, out=out,
         )
 
     psi = psi0.reshape(-1).to(torch.complex128).contiguous()
@@ -285,9 +289,10 @@ def _static_dd_path(generator, psi0, tlist, workspace, backward,
                           device=device)
         psi[:n_logical] = psi0.reshape(-1)
 
-        def step(psi, _):
+        def step(psi, _, out=None):
+            # the carry and out are the whole padded state
             return cheby_apply_dd_banded(banded, psi, c64, workspace.delta,
-                                         workspace.e_min, dt)
+                                         workspace.e_min, dt, out=out)
 
         # observables and stored states see the unpadded state
         psi, outputs = _scan(step, psi, None, n_steps, observable_fn,
@@ -298,9 +303,9 @@ def _static_dd_path(generator, psi0, tlist, workspace, backward,
         A = _real_matrix(generator)  # raises for complex entries
     op = bsr_from_scipy(A, block_size=None if on_card else 8, device=device)
 
-    def step(psi, _):
+    def step(psi, _, out=None):
         return cheby_apply(op, psi, c64, workspace.delta, workspace.e_min, dt,
-                           forward=not backward)
+                           forward=not backward, out=out)
 
     psi = psi0.reshape(-1).to(torch.complex128)
     return _scan(step, psi, None, n_steps, observable_fn, store_states)

@@ -150,18 +150,19 @@ def banded_dd_from_bsr(op, max_bands: int = 9) -> BandedDD:
 
 
 def cheby_apply_dd_banded(op: BandedDD, psi, coeffs, delta, e_min, dt,
-                          *, tile_rows: int = 8):
+                          *, tile_rows: int = 8, out=None):
     """``exp(-i H dt)|psi⟩`` for a banded operator at reference accuracy:
     the complex128 Chebyshev recurrence (:func:`.cheby.cheby_apply`) with
     the banded SpMV as its matvec and the host-computed global phase
     ``exp(−iβ·dt)``.  ``psi`` is a complex128 vector of ``R·b``
-    entries on the operator's device; ``coeffs`` host float64."""
+    entries on the operator's device; ``coeffs`` host float64; ``out``
+    (optional) a complex128 buffer of ``psi``'s shape for the result."""
 
     def apply_fn(_op, v):
         return banded_dd_apply(op, v, tile_rows=tile_rows)
 
     return cheby_apply(
         op, psi.to(torch.complex128), np.asarray(coeffs, dtype=np.float64),
-        delta, e_min, dt, forward=dt > 0, apply_fn=apply_fn,
+        delta, e_min, dt, forward=dt > 0, apply_fn=apply_fn, out=out,
     )
 

@@ -111,6 +111,7 @@ def cheby_apply(
     forward: bool = True,
     check_normalization: bool = False,
     apply_fn=None,
+    out=None,
 ):
     """Evaluate ``exp(-i H dt) |psi⟩`` via the Chebyshev recurrence.
 
@@ -123,7 +124,8 @@ def cheby_apply(
 
     With ``check_normalization=True``, additionally returns the maximum
     over the recurrence of ``|⟨v₁, H_norm v₁⟩| / ‖v₁‖²`` (reference
-    ``src/cheby.jl:194-200``).
+    ``src/cheby.jl:194-200``).  ``out`` (optional, ``psi``'s shape in
+    the complex dtype) receives the result, which is then returned.
     """
     if apply_fn is None:
         apply_fn = apply
@@ -151,7 +153,8 @@ def cheby_apply(
         phi = phi + ak * v2
         v0, v1 = v1, v2
 
-    result = complex(np.exp(-1j * beta * float(dt))) * phi
+    result = torch.mul(phi, complex(np.exp(-1j * beta * float(dt))),
+                       out=out)
     if check_normalization:
         return result, max_norm
     return result

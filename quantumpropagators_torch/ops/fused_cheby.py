@@ -223,11 +223,12 @@ def flip_structure_multi(ops):
 
 
 def flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt, *,
-                    forward: bool = True, partners_fn=None):
+                    forward: bool = True, partners_fn=None, out=None):
     """One Chebyshev step ``exp(-i H dt)·psi`` for
     ``H − β = diag(dmb) + Σ_j G_j X_j`` on a flat ``2^L`` complex state
     or a ``(slots, 2^L)`` stack of them, one :mod:`.cheby_flip` call per
-    polynomial order.  ``psi`` is not modified.
+    polynomial order.  ``psi`` is not modified.  ``out`` (optional, shaped
+    like ``psi``) receives the new state, which is then returned.
 
     ``partners_fn(v) -> [(stack, slot_xor), ...]`` (optional) gives, at
     every order, the flips of bits held outside the state as
@@ -251,7 +252,7 @@ def flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt, *,
                              out=torch.empty_like(v1) if k == 0 else None,
                              partners=partners(v1))
         v0, v1 = v1, v2
-    return complex(np.exp(-1j * beta * float(dt))) * phi
+    return torch.mul(phi, complex(np.exp(-1j * beta * float(dt))), out=out)
 
 
 def cheby_step_fused(

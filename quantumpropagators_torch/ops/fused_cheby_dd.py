@@ -123,6 +123,7 @@ def cheby_step_fused_dd(
     extra_nb_hi_fn=None,
     extra_gs: tuple = (),
     fast="lomxu",
+    out=None,
 ):
     """One reference-accuracy Chebyshev step ``exp(-i H dt)·state``,
     ``H = diag + Σ_j g_j·flip_scale_j·X_j``.
@@ -147,6 +148,8 @@ def cheby_step_fused_dd(
     ``f32_tail`` runs the last orders in complex64 (see
     :func:`f32_tail_orders`), capped at ``len(coeffs) − 3``.  ``fast``
     accepts the JAX package's variant names; all map to the one kernel.
+    ``out`` (optional, shaped like ``state``) receives the new state,
+    which is then returned.
     """
     if fast not in (True, False, None) and fast not in _VARIANTS:
         raise ValueError(f"unknown dd variant fast={fast!r}")
@@ -198,5 +201,8 @@ def cheby_step_fused_dd(
             t0, t1 = t1, t2
         phi = phi + pht.to(torch.complex128)
 
-    out = complex(np.exp(-1j * beta * float(dt))) * phi
-    return out.reshape(state.shape)
+    phase = complex(np.exp(-1j * beta * float(dt)))
+    if out is None:
+        return torch.mul(phi, phase).reshape(state.shape)
+    torch.mul(phi, phase, out=out.view(phi.shape))
+    return out

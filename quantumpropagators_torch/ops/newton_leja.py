@@ -174,16 +174,17 @@ def _leja_loop(terms, ctab, points, d, psi, radius, dt, observable_fn,
     host complex128 amplitude table (the scan's ``xs``, on the state's
     device), ``points`` and ``d`` the plan's nodes and divided
     differences; observables and stored states see the first
-    ``n_logical`` entries of the state."""
+    ``n_logical`` entries of the state.  The step writes its new state
+    into ``out`` where the scan gives one."""
     from .dd_linalg import TermsDDOp, apply_cdd_op
 
     scale = float(dt) / float(radius)
     z_scaled = [float(z) / float(radius) for z in points]
     d = [complex(c) for c in d]
 
-    def step(psi, row):
+    def step(psi, row, out=None):
         op = TermsDDOp(terms=terms, coeffs4=row, shape=())
-        phi = d[0] * psi
+        phi = torch.mul(psi, d[0], out=out)
         p = psi
         for k, zk in enumerate(z_scaled[:-1]):
             # p ← (H·dt − z_k)·p / radius;  Φ += d_{k+1}·p

@@ -17,11 +17,26 @@ the counterpart of ``jax.jit(lax.scan(step))`` is a
 - one interval is captured with static buffers: the carry, a device
   interval counter, the ``xs`` rows selected inside the graph
   (``index_select`` on the counter) and the ``(length, ...)`` outputs
-  written inside it (``index_copy_``); the graph increments the counter
-  and ends by copying the new carry into the carry buffer (one read and
-  one write of the carry: about 2 % of a 2^24 complex128 step);
-- the graph is replayed ``length − 1`` times, with no host work per
-  interval beyond the replay call.
+  written inside it (``index_copy_``); the graph increments the counter;
+- a step that takes a keyword ``out`` (a tree shaped like the carry, the
+  port's ``donate_argnums``) writes its new carry into those buffers and
+  returns them.  Its interval is captured twice, over two carry buffers:
+  graph A reads buffer 0 and writes buffer 1, graph B the other way, so
+  that no replay copies the carry.  B is captured at its first replay,
+  after A's is issued, so that its capture overlaps A's device work:
+  two captures in a row outlast the eager first interval of a 2^24
+  complex64 step and leave the device idle.  A step without ``out``
+  (any step a caller hands to :func:`scan`, as ``lax.scan`` takes any)
+  has one graph that ends by copying its new carry into its one buffer:
+  one read and one write of the carry, about 2 % of a 2^24 complex128
+  step;
+- the graphs are replayed ``length − 1`` times (A, B, A, …), with no
+  host work per interval beyond the replay call.
+
+A step's ``out`` is ``None`` where it allocates its result (the eager
+loop and every first interval); given, the step must write the buffers
+before it reads them, leave its input carry as it was, and return the
+same values as without it, bit for bit.
 
 Every graph on a device captures into one memory pool kept for the
 process (:func:`_graph_pool`), so that a propagation's capture reuses
@@ -90,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import inspect
 
 import numpy as np
@@ -191,7 +207,10 @@ class GraphedScan:
     ``xs`` have the captured shapes and dtypes copies them into the
     static buffers and replays (``length`` times from interval 0, or,
     when the carry's type changes at the first interval, the first
-    interval eagerly and ``length − 1`` replays).  A step without ``xs``
+    interval eagerly and ``length − 1`` replays).  A step that takes
+    ``out`` replays two graphs in turn, each writing its new carry into
+    the other's carry buffer; any other step one graph that copies its
+    new carry into its buffer (module docstring).  A step without ``xs``
     and outputs replays for any ``length``; other shapes capture anew.
     While autograd records through the carry or ``xs`` it keeps a
     :class:`_Tape` under the same rules (on the card a second pair of
@@ -229,7 +248,7 @@ class GraphedScan:
         self._graph = None  # its blocks go back to the pool first
         graph = _Graph(self.step, key)
         out = graph.run(carry, xs, n)
-        if graph.graph is None:  # autograd recorded: the loop ran
+        if not graph.bufs:  # autograd recorded: the loop ran
             return out, False
         self._graph = graph
         return out, True
@@ -329,13 +348,19 @@ def _captured(device, fn, refused):
     the shared pool (capturing runs nothing on the device).  Returns the
     graph, what ``fn`` returned and the launches one replay issues (the
     counters' delta over the capture, which is taken back).  A failed
-    capture raises ``RuntimeError(refused(exc))``."""
+    capture raises ``RuntimeError(refused(exc))``, or :class:`_NotOut`
+    as it is.  The garbage collector is held off while it captures: a
+    graph it destroyed then (one left in a reference cycle, such as an
+    exception's traceback) would end the capture with "operation not
+    permitted when stream is capturing"."""
     cur = torch.cuda.current_stream(device)
     side = _side_stream(device)
     side.wait_stream(cur)
     before = [dict(c) for c in _COUNTERS]
     graph = torch.cuda.CUDAGraph()
     pool = _graph_pool(device)
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.stream(side):
             graph.capture_begin(pool=pool)
@@ -358,11 +383,15 @@ def _captured(device, fn, refused):
                         pass  # capture_end got that far itself
                     _SIDE_STREAMS.pop(index, None)
                     _POOLS.pop(index, None)
+                if isinstance(exc, _NotOut):
+                    raise
                 raise RuntimeError(refused(exc)) from exc
             graph.capture_end()
         delta = tuple((c, k, c[k] - b[k]) for c, b in zip(_COUNTERS, before)
                       for k in c if c[k] != b[k])
     finally:
+        if collecting:
+            gc.enable()
         for c, b in zip(_COUNTERS, before):
             c.update(b)
     cur.wait_stream(side)
@@ -374,16 +403,46 @@ def _add_launches(delta, times=1):
         counts[key] += d * times
 
 
+class _NotOut(ValueError):
+    """A step that takes ``out`` returned other tensors as its carry."""
+
+
+def _takes_out(step) -> bool:
+    """Whether ``step`` takes a keyword ``out`` (module docstring)."""
+    try:
+        param = inspect.signature(step).parameters.get("out")
+    except (TypeError, ValueError):  # a callable without a signature
+        return False
+    return param is not None and param.kind in (
+        inspect.Parameter.POSITIONAL_OR_KEYWORD,
+        inspect.Parameter.KEYWORD_ONLY)
+
+
+def _is_out(state, out) -> bool:
+    """Whether the leaves of ``state`` are the buffers of ``out``: the
+    same memory, shape, strides and dtype."""
+    a, b = _leaves(state), _leaves(out)
+    return len(a) == len(b) and all(
+        s.data_ptr() == o.data_ptr() and s.shape == o.shape
+        and s.stride() == o.stride() and s.dtype == o.dtype
+        for s, o in zip(a, b))
+
+
 class _Graph:
-    """One interval of ``step`` captured over its static buffers."""
+    """One interval of ``step`` captured over its static buffers: for a
+    step that takes ``out``, two graphs over two carry buffers, A from
+    buffer 0 into buffer 1 and B back; for any other step one graph that
+    copies its new carry into its one buffer."""
 
     def __init__(self, step, key):
         self.step = step
         self.key = key           # the carry's and xs's shapes and dtypes
-        self.graph = None        # the CUDAGraph, once captured
-        self.delta = ()          # launches one replay issues
+        self.pairs = ()          # (read, write) carry buffers of each graph
+        self.graphs = []         # the CUDAGraphs, A (and B), once captured
+        self.deltas = []         # launches one replay of each issues
+        self.carry_copies = None  # carry leaves one replay copies
         self.n = None            # intervals of the capturing call
-        self.carry = None        # static carry buffers
+        self.bufs = ()           # static carry buffers, the carry in bufs[0]
         self.xs = None           # static xs
         self.ys = None           # (n, ...) outputs
         self.counter = None      # (1,) int64: the interval being run
@@ -403,15 +462,23 @@ class _Graph:
             return _loop(self.step, carry1, xs, n, 1, [y0])
         self.first_eager = _signature(carry1) != _signature(carry)
         self.n = n
-        self.carry = _map(torch.clone, carry1)
+        # both buffers outside any capture: a replay's carry must outlive
+        # the pool's temporaries, which the other graph reuses
+        a = _map(torch.clone, carry1)
+        if _takes_out(self.step):
+            b = _map(torch.empty_like, a)
+            self.bufs, self.pairs = (a, b), ((a, b), (b, a))
+            self.carry_copies = 0
+        else:
+            self.bufs, self.pairs = (a,), ((a, None),)
+            self.carry_copies = len(_leaves(a))
         self.xs = _map(torch.clone, xs)
         self.ys = _map(lambda t: t.new_empty((n,) + tuple(t.shape)), y0)
         _map(lambda buf, t: buf[0].copy_(t), self.ys, y0)
         self.counter = torch.ones(1, dtype=torch.int64, device=device)
         del carry1, y0
         self._capture()
-        self._replay(n - 1)
-        return self.carry, self.ys
+        return self._replay(n - 1), self.ys
 
     def rerun(self, carry, xs, n):
         """A later call: new inputs into the static buffers, then the
@@ -420,41 +487,65 @@ class _Graph:
         _map(lambda buf, t: buf.copy_(t), self.xs, xs)
         if self.first_eager:
             carry1, y0 = self.step(carry, _map(lambda t: t[0], xs))
-            _map(lambda buf, t: buf.copy_(t), self.carry, carry1)
+            _map(lambda buf, t: buf.copy_(t), self.bufs[0], carry1)
             _map(lambda buf, t: buf[0].copy_(t), self.ys, y0)
             self.counter.fill_(1)
-            self._replay(n - 1)
-        else:
-            _map(lambda buf, t: buf.copy_(t), self.carry, carry)
-            self.counter.fill_(0)
-            self._replay(n)
-        return self.carry, self.ys
+            return self._replay(n - 1), self.ys
+        _map(lambda buf, t: buf.copy_(t), self.bufs[0], carry)
+        self.counter.fill_(0)
+        return self._replay(n), self.ys
 
     def _replay(self, times):
-        for _ in range(times):
-            self.graph.replay()
-        _add_launches(self.delta, times)
+        """``times`` replays from the carry in buffer 0, the graphs in
+        turn; returns the buffer that holds the last carry.  Graph B is
+        captured where it is first needed, after graph A's replay is
+        issued, so that its capture overlaps A's work on the device."""
+        for k in range(times):
+            g = k % len(self.pairs)
+            if g == len(self.graphs):
+                self._capture()
+            self.graphs[g].replay()
+            _add_launches(self.deltas[g])
+        return self.bufs[times % len(self.bufs)]
 
     def _capture(self):
-        """The graph of one interval from the static buffers: it selects
-        its ``xs`` row and writes its outputs at the counter, increments
-        it and copies its carry into the carry buffer.  Capturing runs
-        nothing on the device.  Keeps the launches one replay issues."""
+        """The next graph of one interval from the static buffers: it
+        selects its ``xs`` row and writes its outputs at the counter and
+        increments it.  Of two buffers (a step that takes ``out``) graph
+        A reads buffer 0 and has the step write buffer 1, graph B the
+        other way, and the step must return those buffers (else
+        :class:`_NotOut`); with one, the graph copies the step's new
+        carry into it.  Capturing runs nothing on the device.  Keeps the
+        launches one replay issues."""
+        src, dst = self.pairs[len(self.graphs)]
 
         def interval():
             x = _map(lambda t: t.index_select(0, self.counter)[0], self.xs)
-            state, y = self.step(self.carry, x)
-            if _signature(state) != _signature(self.carry):
-                raise ValueError(
-                    f"the carry changed from {_signature(self.carry)} to "
-                    f"{_signature(state)}")
+            if dst is None:
+                state, y = self.step(src, x)
+                if _signature(state) != _signature(src):
+                    raise ValueError(
+                        f"the carry changed from {_signature(src)} to "
+                        f"{_signature(state)}")
+            else:
+                state, y = self.step(src, x, out=dst)
+                if not _is_out(state, dst):
+                    name = getattr(self.step, "__qualname__", None) \
+                        or repr(self.step)
+                    raise _NotOut(
+                        f"scan: step {name} takes out= but returned other "
+                        f"tensors as its carry ({_signature(state)}, not "
+                        f"the given buffers {_signature(dst)})")
             _map(lambda buf, t: buf.index_copy_(0, self.counter, t[None]),
                  self.ys, y)
             self.counter.add_(1)
-            _map(lambda buf, t: buf.copy_(t), self.carry, state)
+            if dst is None:
+                _map(lambda buf, t: buf.copy_(t), src, state)
 
-        self.graph, _, self.delta = _captured(
-            self.device, interval, lambda exc: _refused(self.step, exc))
+        graph, _, delta = _captured(self.device, interval,
+                                    lambda exc: _refused(self.step, exc))
+        self.graphs.append(graph)
+        self.deltas.append(delta)
 
 
 # -- the scan under autograd: jax.grad of lax.scan -------------------------

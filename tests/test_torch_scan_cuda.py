@@ -1,8 +1,13 @@
-"""The port's scan on the card: each routed path as a replayed CUDA graph
-against the eager loop of the same step, bit for bit and with equal
-kernel launches; one capture for three control tables through
+"""The port's scan on the card: each routed path as its two replayed
+CUDA graphs (A from carry buffer 0 into buffer 1, B back, no carry
+copy) against the eager loop of the same step, bit for bit and with
+equal kernel launches, for odd and even interval counts; one capture
+(two graphs) for three control tables through
 ``make_fused_cheby_propagator`` and for every length of a step without
-per-step inputs; a step that closes over a tensor requiring grad runs
+per-step inputs; the first interval eager where the carry changes type;
+a step that takes ``out`` but returns other tensors refused at capture;
+no garbage collection while a graph captures; a step that closes over
+a tensor requiring grad runs
 as the loop, with the loop's gradient; a step that reads the host
 raises at capture; repeated captures stay in one memory pool.  The
 scan's gradient (``utils/scan._Tape``): the graphed forward and backward
@@ -97,30 +102,31 @@ def _obs(p):
     return torch.vdot(p, p).real
 
 
-def _path(name, device):
-    """Run the routed path ``name`` once; returns ``(state, outputs)``."""
+def _path(name, device, tlist=TLIST):
+    """Run the routed path ``name`` once over ``tlist`` (the steps of
+    ``TLIST``); returns ``(state, outputs)``."""
     psi = _state(2 ** L, 3, device)
-    ws = ChebyWorkspace.create(12.0, -6.5, float(TLIST[1] - TLIST[0]))
+    ws = ChebyWorkspace.create(12.0, -6.5, float(tlist[1] - tlist[0]))
     if name.startswith("dd"):
         tail = 2 if name.endswith("tail") else 0
         return fused.cheby_propagate_fused(
-            psi, _chain(device, multi="multi" in name), TLIST, kernel="dd",
+            psi, _chain(device, multi="multi" in name), tlist, kernel="dd",
             f32_tail=tail, observable_fn=_obs, **ENVELOPE)
     if name == "pallas f32":
         return fused.cheby_propagate_fused(
-            psi.to(torch.complex64), _chain(device), TLIST, kernel="pallas",
+            psi.to(torch.complex64), _chain(device), tlist, kernel="pallas",
             store_states=True, **ENVELOPE)
     if name == "xla":
-        return fused.cheby_propagate_fused(psi, _chain(device), TLIST,
+        return fused.cheby_propagate_fused(psi, _chain(device), tlist,
                                            kernel="xla", observable_fn=_obs,
                                            **ENVELOPE)
     if name in ("banded static", "bsr static"):
         return fused.cheby_propagate_fused(
-            psi, _banded(device, name == "banded static"), TLIST,
+            psi, _banded(device, name == "banded static"), tlist,
             workspace=ws, kernel="dd", store_states=True)
     if name == "leja":
         out, ys, _ = newton_leja.newton_leja_propagate_dd(
-            psi, _banded(device), TLIST, e_min=-6.5, e_max=5.5,
+            psi, _banded(device), tlist, e_min=-6.5, e_max=5.5,
             observable_fn=_obs)
         return out, ys
     raise KeyError(name)
@@ -143,6 +149,20 @@ def _eager(monkeypatch):
         monkeypatch.setattr(mod, "scan", loop)
 
 
+def _captured_scans(monkeypatch):
+    """The :class:`_Graph` objects that capture from now on."""
+    graphs = []
+    capture = scan_mod._Graph._capture
+
+    def recorded(self):
+        if self not in graphs:
+            graphs.append(self)
+        capture(self)
+
+    monkeypatch.setattr(scan_mod._Graph, "_capture", recorded)
+    return graphs
+
+
 @pytest.mark.parametrize("name", PATHS)
 def test_graph_equals_eager_loop(cuda, name, monkeypatch):
     made = []
@@ -153,12 +173,15 @@ def test_graph_equals_eager_loop(cuda, name, monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", counted)
+    scans = _captured_scans(monkeypatch)
     cf.reset_launches()
     bs.reset_launches()
     graph = _path(name, cuda)
     torch.cuda.synchronize()
     n_graph = _counts()
-    assert len(made) == 1
+    # the two graphs of the step, which writes its carry into out=
+    assert len(made) == 2
+    assert [s.carry_copies for s in scans] == [0]
     with monkeypatch.context() as m:
         _eager(m)
         cf.reset_launches()
@@ -166,7 +189,7 @@ def test_graph_equals_eager_loop(cuda, name, monkeypatch):
         eager = _path(name, cuda)
         torch.cuda.synchronize()
         n_eager = _counts()
-    assert len(made) == 1
+    assert len(made) == 2
     assert n_graph == n_eager
     if name not in ("xla", "bsr static"):
         assert sum(n_graph.values()) > 0
@@ -204,7 +227,8 @@ def test_one_capture_for_three_tables(cuda, monkeypatch):
         graphed = fn(psi, table.clone().requires_grad_(True))
         for g, w, a in zip(got, want, graphed):
             assert torch.equal(g, w.detach()) and torch.equal(a.detach(), g)
-    assert len(made) == 3
+    # the forward's two graphs, the tape's forward and backward
+    assert len(made) == 4
 
 
 @pytest.mark.parametrize("where", ["host", "card"])
@@ -300,9 +324,9 @@ def test_one_capture_for_every_length(cuda, monkeypatch):
     c64 = np.asarray(ChebyWorkspace.create(30.0, -15.0, 0.05).coeffs)
     dmb = torch.zeros(2 ** L, dtype=torch.float64, device=cuda)
 
-    def step(psi, _):
+    def step(psi, _, out=None):
         return cheby_step_fused_dd(plan, dmb, psi, c64, 30.0, -15.0,
-                                   0.05), None
+                                   0.05, out=out), None
 
     run = scan_mod.GraphedScan(step)
     psi = _state(2 ** L, 9, cuda)
@@ -314,7 +338,108 @@ def test_one_capture_for_every_length(cuda, monkeypatch):
         want, _ = scan_mod._loop(step, psi, None, n)
         assert graph_counts == dict(cf.LAUNCHES)
         assert torch.equal(got, want)
-    assert len(made) == 1
+    # one capture: the step's two graphs
+    assert len(made) == 2 and run._graph.carry_copies == 0
+
+
+@pytest.mark.parametrize("n", [2, 3, 6, 7])
+@pytest.mark.parametrize("name", ["dd single tail", "pallas f32", "xla",
+                                  "banded static", "leja"])
+def test_two_graphs_equal_the_loop_at_every_count(cuda, name, n,
+                                                  monkeypatch):
+    """``n`` intervals (the last carry in buffer 1 for even ``n``, in
+    buffer 0 for odd) against the loop: the final carry and the outputs
+    bit for bit, no carry copy."""
+    tlist = np.linspace(0.0, 0.05 * n, n + 1)
+    scans = _captured_scans(monkeypatch)
+    graph = _path(name, cuda, tlist)
+    assert [s.carry_copies for s in scans] == [0]
+    with monkeypatch.context() as m:
+        _eager(m)
+        eager = _path(name, cuda, tlist)
+    torch.cuda.synchronize()
+    for g, e in zip(graph, eager):
+        assert g.shape == e.shape and torch.equal(g, e)
+
+
+def test_rerun_after_odd_then_even_counts(cuda):
+    """One capture of a step without ``xs`` and outputs, called at 3, 4,
+    7 and 2 intervals: each call starts from the caller's carry in
+    buffer 0 and returns the buffer its last replay wrote."""
+    from quantumpropagators_torch.ops.fused_cheby_dd import (
+        cheby_step_fused_dd, make_flip_plan)
+
+    plan = make_flip_plan(L, 1.1)
+    c64 = np.asarray(ChebyWorkspace.create(30.0, -15.0, 0.05).coeffs)
+    dmb = torch.zeros(2 ** L, dtype=torch.float64, device=cuda)
+
+    def step(psi, _, out=None):
+        return cheby_step_fused_dd(plan, dmb, psi, c64, 30.0, -15.0, 0.05,
+                                   f32_tail=2, out=out), None
+
+    run = scan_mod.GraphedScan(step)
+    psi = _state(2 ** L, 10, cuda)
+    graph = None
+    for n in (3, 4, 7, 2):
+        got, _ = run(psi, None, n)
+        graph = graph or run._graph
+        assert run._graph is graph and graph.carry_copies == 0
+        assert torch.equal(got, scan_mod._loop(step, psi, None, n)[0])
+
+
+def test_first_interval_eager_then_two_graphs(cuda):
+    """A real state becomes complex at interval 0: that interval runs
+    eagerly, without ``out``, on every call, then the two graphs."""
+    ws = ChebyWorkspace.create(2.0 * BOUND + 1.0, -BOUND - 0.5, 0.05)
+    step = fused._with_outputs(fused._generic_step(
+        list(_chain(cuda).ops), np.asarray(ws.coeffs), ws.delta, ws.e_min,
+        ws.dt, True, None), _obs, False)
+    table = torch.as_tensor(np.random.default_rng(3).uniform(
+        0.8, 1.4, (5, 2)), device=cuda)
+    psi = _state(2 ** L, 5, cuda).real.contiguous()
+    run = scan_mod.GraphedScan(step)
+    for scale in (1.0, 1.1):
+        got = run(psi, table * scale)
+        want = scan_mod._loop(step, psi, table * scale, 5)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert run._graph.first_eager and run._graph.carry_copies == 0
+
+
+def test_out_step_returning_other_tensors_raises(cuda):
+    """A step that takes ``out`` but returns another tensor is refused
+    at capture, naming it; the card runs on."""
+    def doubles(c, x, out=None):
+        return c * x, None
+
+    xs = torch.linspace(0.5, 1.5, 3, device=cuda, dtype=torch.float64)
+    c0 = torch.ones(8, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="doubles takes out= but returned"):
+        scan_mod.scan(doubles, c0, xs)
+    out, _ = scan_mod.scan(lambda c, x: (c * x, None), c0, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, c0 * 0.5 * 1.0 * 1.5)
+
+
+def test_no_garbage_collection_while_capturing(cuda):
+    """A graph left in a reference cycle and destroyed by the garbage
+    collector during a capture would end that capture ("operation not
+    permitted when stream is capturing"): the collector is off while
+    each of the two graphs captures, and on again after."""
+    import gc
+
+    seen = []
+
+    def step(c, x, out=None):
+        seen.append(gc.isenabled())
+        return torch.mul(c, x, out=out), None
+
+    xs = torch.linspace(0.5, 1.5, 4, device=cuda, dtype=torch.float64)
+    c0 = torch.ones(8, device=cuda, dtype=torch.float64)
+    got, _ = scan_mod.scan(step, c0, xs)
+    assert seen == [True, False, False] and gc.isenabled()
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan_mod._loop(step, c0, xs, 4)[0])
 
 
 def test_captures_share_one_pool(cuda):

@@ -9,7 +9,13 @@ Each run is a process of its own in one checkout: ``chip_smoke.main_path``
 (phases 3-4: the L = 24 driven chain through ``propagate(fused=True)``,
 20 steps, ``kernel="dd"`` and ``kernel="pallas"``, each the median of 3
 timed runs, as phase 6 prints them), then the dd call with phase 3's two
-observables and ``storage=True``, timed the same way, then phase 6's
+observables and ``storage=True``, timed the same way, the peak reserved
+and allocated GiB of one more dd call (after ``empty_cache``), the
+2^20 dd chain of ``bench_torch.py`` (its ``bench_headline``, no oracle:
+steps/s over 40 replayed steps), for each tier the host ms of each
+graph capture in one call, the median of 7 calls and one
+``torch.profiler`` trace of a call (wall and device window a step, busy
+share), then phase 6's
 high pass alone at L = 24 (h = 6, no partners) in both types and, where
 the checkout's high pass takes partners, the 4-slot sharded order's
 (4 × 2^22, h = 4, two slot-bit partners) and, where it takes five, the
@@ -46,7 +52,59 @@ _, t_obs = cs.median_wall(lambda: qt.propagate(
     observables=obs, storage=True))
 steps_s = {"dd": rates["dd"][0], "pallas": rates["pallas"][0],
            "dd_observables": cs.N_STEPS / t_obs}
+torch.cuda.synchronize()
+torch.cuda.empty_cache()
+torch.cuda.reset_peak_memory_stats()
+qt.propagate(psi0, H, tlist, method="cheby", fused=True, kernel="dd",
+             workspace=wrk)
+torch.cuda.synchronize()
+gib = {"dd_peak_reserved": torch.cuda.max_memory_reserved() / 2 ** 30,
+       "dd_peak_allocated": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+# per call of each tier: the host ms of each graph capture, the wall
+# median of 7 calls, and one trace (wall, device window, busy share)
+import contextlib, io, re, time
+from quantumpropagators_torch.utils import scan as sc
+
+spent = []
+capture = sc._Graph._capture
+
+
+def timed_capture(self, *args):
+    t0 = time.perf_counter()
+    capture(self, *args)
+    spent.append(1e3 * (time.perf_counter() - t0))
+
+
+calls = {}
+for tier, psi in (("dd", psi0), ("pallas", psi0.to(torch.complex64))):
+    def run(psi=psi, tier=tier):
+        return qt.propagate(psi, H, tlist, method="cheby", fused=True,
+                            kernel=tier, workspace=wrk)
+
+    sc._Graph._capture = timed_capture
+    spent.clear()
+    run()
+    torch.cuda.synchronize()
+    sc._Graph._capture = capture
+    _, wall = cs.median_wall(run, reps=7)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cs.trace_steps(run, tier, cs.N_STEPS, "", top=0)
+    trace = re.search(r"wall ([0-9.]+) ms/step, device window ([0-9.]+) "
+                      r"ms/step, busy ([0-9.]+) %", text.getvalue())
+    calls[tier] = {"capture_ms": list(spent),
+                   "steps_s_median_of_7": cs.N_STEPS / wall,
+                   **dict(zip(("trace_wall_ms", "trace_window_ms",
+                               "trace_busy_pct"),
+                              map(float, trace.groups())))}
 del psi0, H, wrk
+torch.cuda.empty_cache()
+
+import bench_torch
+
+steps_s["bench_torch_dd_2^20"] = bench_torch.bench_headline(
+    device, L=20, kernel="dd", oracle=False)["extra"]["steps_per_s"]
 torch.cuda.empty_cache()
 
 from quantumpropagators_torch.ops import cheby_flip as cf
@@ -77,7 +135,8 @@ for ctype in ("float", "double"):
             lambda: cf.cheby_flip_high(x32, G, h32, partners=[
                 (x32, 1 << r) for r in range(5)]))
     del v1, G
-print(json.dumps({"steps_s": steps_s, "high_ms": high_ms}))
+print(json.dumps({"steps_s": steps_s, "gib": gib, "calls": calls,
+                  "high_ms": high_ms}))
 """
 
 
