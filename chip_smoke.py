@@ -161,6 +161,8 @@ PARTNER_L_SUM = 16   # phase 2's slots without top bits (h = 0): 4 x 2^16
 PARTNER_SLOTS = (4, 32, 256)
 WIDE_SLOTS = 32      # phase 10's wide mesh: five slot-bit partners a pass
 B_BANDED = 128       # 128-level units, dense blocks
+GRAD_CALLS = 2       # phase 17 under autograd: chained calls at full width
+GRAD_CALLS_SMALL = 3  # ... and at 2^14
 # H100 SXM peaks (NVIDIA data sheet): FP64 / FP32 FLOP/s outside the
 # tensor cores (the HBM rate is profiling.HBM_BYTES_S)
 PEAK_FLOPS = {"double": 34e12, "float": 67e12,
@@ -2861,6 +2863,218 @@ def hold_graphed(label, step, state, call, n, renew, card):
             "host_eager_us": 1e6 * host_e / n}
 
 
+class _CountedReplays:
+    """Counts ``torch.cuda.CUDAGraph.replay`` calls and the calls of a
+    :class:`Graphed` step's body (its own and its autograd key's) while
+    it is entered."""
+
+    def __init__(self, step):
+        self.step, self.replays, self.bodies = step, 0, 0
+        self.holders = [h for h in (step, step._grad) if h is not None]
+
+    def __enter__(self):
+        self._replay, body = torch.cuda.CUDAGraph.replay, self.step.body
+        replay = self._replay
+
+        def counted_replay(graph):
+            self.replays += 1
+            return replay(graph)
+
+        def counted_body(*args, **kwargs):
+            self.bodies += 1
+            return body(*args, **kwargs)
+
+        torch.cuda.CUDAGraph.replay = counted_replay
+        for holder in self.holders:
+            holder.body = counted_body
+        self._body = body
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.replay = self._replay
+        for holder in self.holders:
+            holder.body = self._body
+
+
+def hold_graphed_grad(label, step, inputs, call, n, card, tols=None,
+                      reps=3):
+    """One differentiable graphed sharded site (a fresh :class:`Graphed`
+    step) under autograd, against its body: ``inputs`` the tensors to
+    differentiate (the state first), ``call(fn, state, ins)`` one call
+    of ``fn`` (the step or its body); the loss is ``Σ w |out|²`` (seeded
+    weights) of ``n`` chained calls and one backward.  The body's loop
+    runs first, timed ``reps`` times (forward + backward); then the
+    graphed calls: the first (eager, then the forward's and the VJP's
+    captures: 2), and ``reps`` steady runs, each of which must capture
+    nothing, replay 2 graphs a call (F and B), run the body never, and
+    give each gradient equal to the loop's (``tols[i]`` > 0: within
+    that relative error).  Prints seconds a steady run both ways, the
+    captures, the kernel launches and graph replays a call, peak
+    reserved (and allocated) GiB both ways and of the first graphed run,
+    each measured from an emptied cache, and max|Δ| of the gradients;
+    returns them."""
+    tols = tols or [0.0] * len(inputs)
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    g = torch.Generator(device=ins[0].device)
+    g.manual_seed(SEED + 230)
+    w = torch.rand(ins[0].shape, generator=g, device=ins[0].device,
+                   dtype=torch.float64) + 0.5
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ins[0]
+        for _ in range(n):
+            out = call(fn, out, ins)
+        loss = (w * (out.real ** 2 + out.imag ** 2)).sum()
+        grads = torch.autograd.grad(loss, ins)
+        torch.cuda.synchronize()
+        return grads, time.perf_counter() - t0
+
+    def peak_of(fn, runs=reps):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        got, times = [], []
+        for _ in range(runs):
+            grads, t = fn()
+            got.append(grads)
+            times.append(t)
+        return got, times, (torch.cuda.max_memory_reserved() / 2 ** 30,
+                            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    (*_, eager), t_eager, peak_e = peak_of(lambda: run(step.body))
+    _reset_launches()
+    captures = step.captures
+    (first,), (t_first,), peak_first = peak_of(lambda: run(step), 1)
+    n_first = step.captures - captures
+    _reset_launches()
+    with _CountedReplays(step) as counted:
+        (*_, graph), t_graph, peak_g = peak_of(lambda: run(step))
+    n_graph = _launch_counts()
+
+    def agree(got):
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, eager)]
+        return errs, all(torch.equal(a, b) if tol == 0 else err <= tol
+                         for a, b, tol, err in zip(got, eager, tols, errs))
+
+    errs_first, same_first = agree(first)
+    errs, same = agree(graph)
+    steady = step.captures - captures - n_first
+    per_call = {k: v / (reps * n) for k, v in n_graph.items() if v}
+    replays = counted.replays / (reps * n)
+    if not (same and same_first and n_first == 2 and steady == 0
+            and replays == 2 and counted.bodies == 0):
+        raise AssertionError(
+            f"phase 17 grad {label}: gradients equal {same} (relative "
+            f"errors {errs}, tolerances {tols}), first call equal "
+            f"{same_first} ({errs_first}), captures {n_first} then "
+            f"{steady}, replays a call {replays}, body calls "
+            f"{counted.bodies}")
+    te, tg = min(t_eager), min(t_graph)
+    log(f"phase 17 grad {label}, {n} chained calls + 1 backward: graphed "
+        f"{tg:.4f} s against eager {te:.4f} s ({te / tg:.2f}x; first "
+        f"graphed run with its 2 captures {t_first:.3f} s), gradients "
+        f"max relative |d| {max(errs):.3e} (tolerances {tols}), 2 "
+        f"captures then 0, {replays:g} graph replays and launches "
+        f"{per_call} a call, body never called, peak reserved "
+        f"(allocated) {peak_g[0]:.3f} ({peak_g[1]:.3f}) GiB graphed, first "
+        f"run {peak_first[0]:.3f} ({peak_first[1]:.3f}), eager "
+        f"{peak_e[0]:.3f} ({peak_e[1]:.3f}) [{card}]")
+    return {"graph_s": tg, "eager_s": te, "peak_graph": peak_g,
+            "peak_first": peak_first, "peak_eager": peak_e,
+            "err": max(errs), "launches": n_graph}
+
+
+GRAD_SITES = ("chain step", "BSR step", "BSR dd step", "BSR halo apply",
+              "BSR all-gather apply", "CSR all-gather apply",
+              "CSR halo apply")
+
+
+def grad_tols(name, n):
+    """:func:`hold_graphed_grad`'s tolerances of a site's gradients over
+    ``n`` chained calls: 0 (bit for bit) but for the CSR applies (the
+    backward of their gather adds with atomics, in an order that varies)
+    and, over chained calls, the chain's amplitude (each call's sum,
+    then the sum over calls, where the loop keeps one running sum)."""
+    if name.startswith("CSR"):
+        return [1e-14]
+    if name == "chain step":
+        return [0.0, 0.0, 1e-12 if n > 1 else 0.0]
+    return None
+
+
+def grad_sites(mesh, device, L, A, *, banded=None, names=GRAD_SITES):
+    """The differentiable graphed sites of ``parallel/`` for
+    :func:`hold_graphed_grad`: name -> ``(step, inputs, call)``.  The
+    chain step over ``sharded_apply`` on the L-site TFIM chain
+    (gradients with respect to the state, a tensor of Chebyshev
+    coefficients and the operator's amplitude, a 1-entry tensor read in
+    place); the BSR complex and dd steps (state, coefficients) and the
+    BSR and CSR applies (state) on the real banded matrix ``A`` (scipy,
+    blocks of 64) or, for the steps, on ``banded = (partition, delta,
+    e_min, dt)``."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops.cheby import cheby_coeffs
+    from quantumpropagators_torch.parallel import sharded_bsr as sbsr
+    from quantumpropagators_torch.parallel import sharded_chain as sch
+    from quantumpropagators_torch.parallel import sharded_csr as scsr
+
+    n = mesh.n_devices
+    sites = {}
+    if "chain step" in names:
+        H_diag, H_x = qt.transverse_field_ising(
+            L, J=J, g=G_FIELD, h=H_FIELD, dtype=torch.float64,
+            device=device)
+        amp = torch.ones(1, dtype=torch.float64, device=device)
+        op = sch.prepare_sharded_operator(qt.Operator([H_diag, H_x], amp), n)
+        bound = (L - 1) * J + L * (G_FIELD + H_FIELD)
+        step = sch.make_sharded_cheby_step(mesh, op, delta=2 * bound,
+                                           e_min=-bound, dt=DT)
+        cc = torch.as_tensor(cheby_coeffs(2 * bound, DT), device=device)
+        sites["chain step"] = (
+            step, [random_state(L, torch.complex128, device, SEED + 240), cc,
+                   amp],
+            lambda fn, v, ins, op=op: fn(qt.Operator(op.ops, ins[2]), v,
+                                         ins[1]))
+    def state(N):
+        return random_state(N.bit_length() - 1, torch.complex128, device,
+                            SEED + 250)
+
+    if {"BSR step", "BSR dd step"} & set(names):
+        if banded is None:
+            bound = float(np.abs(A).sum(axis=1).max())
+            banded = (sbsr.partition_bsr(A, n, block_size=64,
+                                         device=device),
+                      2 * bound, -bound, DT)
+        part, delta, e_min, dt = banded
+        cb = torch.as_tensor(cheby_coeffs(delta, dt),
+                             device=device)
+        kw = dict(delta=delta, e_min=e_min, dt=dt)
+    for name, make in (("BSR step", sbsr.make_sharded_bsr_cheby_step),
+                       ("BSR dd step", sbsr.make_sharded_bsr_cheby_step_dd)):
+        if name in names:
+            sites[name] = (make(mesh, part, **kw), [state(part.shape[0]), cb],
+                           lambda fn, v, ins, part=part: fn(part, v, ins[1]))
+    for name, partition, make in (
+            ("BSR halo apply", lambda: sbsr.partition_bsr(
+                A, n, block_size=64, device=device),
+             sbsr.make_banded_bsr_apply),
+            ("BSR all-gather apply", lambda: sbsr.partition_bsr(
+                A, n, block_size=64, mode="allgather", device=device),
+             sbsr.make_allgather_bsr_apply),
+            ("CSR all-gather apply", lambda: scsr.partition_csr_rows(
+                A, n, device=device), scsr.make_allgather_csr_apply),
+            ("CSR halo apply", lambda: scsr.partition_csr_banded(
+                A, n, device=device), scsr.make_banded_csr_apply)):
+        if name in names:
+            q = partition()
+            sites[name] = (make(mesh, q), [state(A.shape[0])],
+                           lambda fn, v, ins, q=q: fn(q, v))
+    return sites
+
+
 def _renew_first(args, kwargs):
     """The same call with a copy of its first argument (the operator
     tensor): a new address, so a new capture."""
@@ -2891,8 +3105,14 @@ def sharded_graph_phase(device, card, chain, ctx, group):
     on the card) and dd steps on banded20's partition; the chain step
     over ``sharded_apply`` at L = 24 (tensor coefficients); the BSR and
     CSR applies at phase 10's small sizes.  Then traces of 3 dd chain
-    steps graphed and eager.  Returns the graphed runs' launches by
-    path."""
+    steps graphed and eager.  Under autograd (:func:`hold_graphed_grad`,
+    the forward graph and the graph of its VJP against the body's loop
+    and its backward): the dd chain step raises naming its kernel; the
+    BSR complex and dd steps on banded20's partition (every
+    coefficient) and the L = 24 chain step,
+    ``GRAD_CALLS`` chained calls; every differentiable site at 2^14
+    slots-in-all, ``GRAD_CALLS_SMALL``.  Returns the graphed runs'
+    launches by path."""
     import scipy.sparse as sp
 
     import quantumpropagators_torch as qt
@@ -2912,7 +3132,7 @@ def sharded_graph_phase(device, card, chain, ctx, group):
 
     t_phase = time.perf_counter()
     mesh = chain_mesh(4, group=group, device=device)
-    paths, rates = {}, {}
+    paths, rates, grads = {}, {}, {}
 
     def hold(label, step, state, call, renew, n=N_STEPS):
         rates[label] = r = hold_graphed(label, step, state, call, n, renew,
@@ -2938,6 +3158,19 @@ def sharded_graph_phase(device, card, chain, ctx, group):
     hold(f"sharded dd L={L} per-bit tensor flip_scale", step_dd, psi_sh,
          lambda k, st: ((dmb, st, c64), {"flip_scale": Gbits[k]}),
          _renew_first)
+    # under autograd a kernel-bodied site raises naming its kernel (it
+    # has no backward, as jax.grad has no transpose of a pallas_call)
+    leaf = psi_sh.clone().requires_grad_(True)
+    try:
+        step_dd(dmb, leaf, c64, flip_scale=Gbits[0])
+    except RuntimeError as exc:
+        if "cheby_flip" not in str(exc) or "no backward" not in str(exc):
+            raise
+        log(f"phase 17 sharded dd L={L} under autograd raises: {exc}")
+    else:
+        raise AssertionError("phase 17: the dd step under autograd returned "
+                             "a result cut from the autograd graph")
+    del leaf
     step_f = sf.make_sharded_fused_cheby_step_dd(mesh, L, G_FIELD,
                                                  f32_tail=tail, **kw)
     scales = [float(x) for x in drive]
@@ -2997,7 +3230,16 @@ def sharded_graph_phase(device, card, chain, ctx, group):
     hold("sharded BSR dd banded20 (host coefficients)",
          sbsr.make_sharded_bsr_cheby_step_dd(mesh, pbsr, **bkw), x20,
          lambda k, st: ((pbsr, st, cb), {}), _renew_field("cols"))
-    del pbsr, x20
+    del x20
+    # under autograd, every coefficient
+    for name, (step, inputs, call) in grad_sites(
+            mesh, device, L, None, banded=(pbsr, bw.delta, bw.e_min, bw.dt),
+            names=("BSR step", "BSR dd step")).items():
+        grads[name] = hold_graphed_grad(
+            f"sharded {name} banded20 ({len(cb)} coefficients)", step,
+            inputs, call, GRAD_CALLS, card,
+            grad_tols(name, GRAD_CALLS))
+    del pbsr, step, inputs, call
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3020,6 +3262,14 @@ def sharded_graph_phase(device, card, chain, ctx, group):
                                      e_min=-bound, dt=DT), psi0,
          lambda k, st: ((op, st, cc), {}), renew_op)
     del op, H_diag, H_x
+    gc.collect()
+    torch.cuda.empty_cache()
+    (step, inputs, call), = grad_sites(mesh, device, L, None,
+                                       names=("chain step",)).values()
+    grads["chain step"] = hold_graphed_grad(
+        f"sharded chain step L={L} (amplitude read in place)", step, inputs,
+        call, GRAD_CALLS, card, grad_tols("chain step", GRAD_CALLS))
+    del step, inputs, call
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3046,6 +3296,26 @@ def sharded_graph_phase(device, card, chain, ctx, group):
              scsr.make_banded_csr_apply, "data")):
         hold(f"sharded {label} 2^14", make(mesh, part), xs[0],
              lambda k, _, part=part: ((part, xs[k]), {}), _renew_field(field))
+    del xs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- every differentiable site under autograd at 2^14 slots-in-all ------
+    for name, (step, inputs, call) in grad_sites(mesh, device, 14,
+                                                 A).items():
+        grads[name, 14] = hold_graphed_grad(
+            f"sharded {name} 2^14", step, inputs, call, GRAD_CALLS_SMALL,
+            card, grad_tols(name, GRAD_CALLS_SMALL))
+    del step, inputs, call
+    for name, r in grads.items():
+        label = name if isinstance(name, str) else f"{name[0]} 2^14"
+        log(f"phase 17 grad summary {label}: graphed {r['graph_s']:.4f} s "
+            f"/ eager {r['eager_s']:.4f} s = "
+            f"{r['graph_s'] / r['eager_s']:.3f}, peak reserved "
+            f"{r['peak_graph'][0]:.3f} (first run {r['peak_first'][0]:.3f}) "
+            f"/ {r['peak_eager'][0]:.3f} GiB, allocated "
+            f"{r['peak_graph'][1]:.3f} ({r['peak_first'][1]:.3f}) / "
+            f"{r['peak_eager'][1]:.3f} GiB [{card}]")
 
     g, e = (rates[f"sharded dd L={L} per-bit tensor flip_scale"][k]
             for k in ("graph", "eager"))

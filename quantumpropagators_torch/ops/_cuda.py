@@ -156,6 +156,26 @@ def launch(fn_name: str, args, device, accept=()) -> int:
     return rc
 
 
+def refuse_grad(kernel, *inputs) -> None:
+    """Raise where ``kernel`` (its name, or a function that gives it)
+    would be launched while grad mode is on and one of its ``inputs``
+    requires grad: a launch takes no part in autograd, so its result
+    would drop out of the graph unnoticed (``jax.grad`` refuses a
+    ``pallas_call`` the same way: it has no transpose).  A plain loop,
+    the name made only where it raises: it runs at every eager
+    launch."""
+    if not torch.is_grad_enabled():
+        return
+    for t in inputs:
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            name = kernel() if callable(kernel) else kernel
+            raise RuntimeError(
+                f"{name}: the CUDA kernel has no backward and an input "
+                f"requires grad; call it under torch.no_grad() or on "
+                f"detached inputs, or differentiate a path of plain tensor "
+                f"operations")
+
+
 def load():
     """The loaded kernel library (built on first use)."""
     global _lib

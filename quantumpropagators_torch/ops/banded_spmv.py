@@ -13,7 +13,8 @@ Two window modes:
   output row ``r`` reads rows ``r + TR + offsets[k]``.
 
 :func:`banded_spmv` given CPU tensors runs the plain version; given
-CUDA tensors it launches the kernel or raises.  :data:`LAUNCHES` counts
+CUDA tensors it launches the kernel or raises (also where grad mode is
+on and an input requires grad: the kernel has no backward).  :data:`LAUNCHES` counts
 kernel launches (the plain version does not count).
 """
 
@@ -102,6 +103,7 @@ def banded_spmv(planes, offsets, x, halo=None):
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     _check(planes, offsets, x, halo)
+    _cuda.refuse_grad("banded_spmv<double>", planes, x)
     n_bands, b, R, _ = planes.shape
     y = torch.empty(R * b, dtype=torch.complex128, device=x.device)
     offs = (ctypes.c_int * max(1, n_bands))(*offsets)

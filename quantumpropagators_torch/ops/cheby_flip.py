@@ -38,7 +38,10 @@ independent ``2^L`` states (the shard slots of one process,
 :mod:`..parallel.mesh`); ``dmb`` and ``w`` hold as many entries as the
 state, and one ``G`` serves every slot.  On the card a stack is one
 launch per slot and pass.  A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches the kernel or raises.
+version; given CUDA tensors it launches the kernel or raises (also
+where grad mode is on and an input requires grad: the kernels have no
+backward, and a result cut from the autograd graph would pass
+unnoticed).
 :data:`LAUNCHES` counts kernel launches per instantiation (the plain
 versions do not count).
 """
@@ -297,6 +300,12 @@ def _launch(fn_name, ctype, args, device):
     LAUNCHES[ctype] += 1
 
 
+def _refuse_grad(kernel, v, *tensors, partners=()):
+    """:func:`._cuda.refuse_grad` over every tensor a wrapper takes."""
+    _cuda.refuse_grad(lambda: f"{kernel}<{_TYPES[v.dtype][0]}>", v, *tensors,
+                      *(stack for stack, _ in partners))
+
+
 def _device_kind(v):
     if v.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no kernel for device {v.device}")
@@ -311,6 +320,8 @@ def cheby_flip_first(v0, dmb, G, s, a0, a1, w=None, partners=()):
     if _device_kind(v0) == "cpu":
         return cheby_flip_first_plain(v0, dmb, G, s, a0, a1, w, partners)
     L = _check([v0] + _opt(w), dmb, G, partners)
+    _refuse_grad("cheby_flip_first", v0, dmb, G, s, a0, a1, w,
+                 partners=partners)
     tile_bits, h = flip_split(L, v0.dtype, setup=True)
     w = _outside(v0, G, w, L, h, partners)
     return _launch_first(v0, dmb, G, s, a0, a1, w, L, tile_bits, L - h)
@@ -326,6 +337,8 @@ def cheby_flip_first_low(v0, dmb, G, s, a0, a1, bits, w=None, partners=()):
                                           partners)
     L = _check([v0] + _opt(w), dmb, G, partners)
     _check_bits(bits, 0, L)
+    _refuse_grad("cheby_flip_first", v0, dmb, G, s, a0, a1, w,
+                 partners=partners)
     w = _outside(v0, G, w, L, 0, partners)
     return _launch_first(v0, dmb, G, s, a0, a1, w, L,
                          flip_split(L, v0.dtype, setup=True)[0], bits)
@@ -344,6 +357,8 @@ def cheby_flip_iter(v0, v1, phi, dmb, G, s2, ak, w=None, out=None,
                                      partners)
     out = v0 if out is None else out
     L = _check_iter(v0, v1, phi, out, w, dmb, G, partners)
+    _refuse_grad("cheby_flip_iter", v0, v1, phi, out, dmb, G, s2, ak, w,
+                 partners=partners)
     tile_bits, h = flip_split(L, v0.dtype)
     w = _outside(v1, G, w, L, h, partners)
     _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L, tile_bits, L - h)
@@ -362,6 +377,8 @@ def cheby_flip_iter_low(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
     out = v0 if out is None else out
     L = _check_iter(v0, v1, phi, out, w, dmb, G, partners)
     _check_bits(bits, 0, L)
+    _refuse_grad("cheby_flip_iter", v0, v1, phi, out, dmb, G, s2, ak, w,
+                 partners=partners)
     w = _outside(v1, G, w, L, 0, partners)
     _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L,
                  flip_split(L, v0.dtype)[0], bits)
@@ -378,6 +395,7 @@ def cheby_flip_high(v1, G, h, w=None, partners=()):
         return cheby_flip_high_plain(v1, G, h, w, partners)
     L = _check([v1] + _opt(w), None, G, partners)
     _check_bits(h, 0 if partners else 1, min(L, _MAX_HIGH_BITS))
+    _refuse_grad("cheby_flip_high", v1, G, w, partners=partners)
     return _launch_high(v1, G, w, L, h, partners)
 
 

@@ -193,10 +193,44 @@ def _bsr_slab_matvec(blocks, cols, x_blocks):
         # blocks to complex
         rdtype = torch.promote_types(xg.dtype.to_real(), blocks.dtype)
         xr = torch.view_as_real(xg.to(rdtype.to_complex()))
-        y = torch.einsum("srjoi,srjix->srox", blocks.to(rdtype), xr)
+        y = _SlabContract.apply(blocks.to(rdtype), xr)
         return torch.view_as_complex(y.contiguous())
     dtype = torch.promote_types(blocks.dtype, xg.dtype)
-    return torch.einsum("srjoi,srji->sro", blocks.to(dtype), xg.to(dtype))
+    return _SlabContract.apply(blocks.to(dtype), xg.to(dtype))
+
+
+class _SlabContract(torch.autograd.Function):
+    """The slab matvec's contraction ``y[s,r,o(,x)] = Σ_{j,i}
+    blocks[s,r,j,o,i] xg[s,r,j,i(,x)]``, the einsum itself forward; its
+    backward reads the blocks where they lie (``xg`` is 4-D, or 5-D
+    with the real and imaginary parts last).  The einsum's own backward
+    would keep the permuted copy of the blocks its forward makes, one
+    the size of the operator a call, as the call's residual."""
+
+    @staticmethod
+    def forward(ctx, blocks, xg):
+        ctx.save_for_backward(blocks, xg)
+        if xg.dim() == 5:
+            return torch.einsum("srjoi,srjix->srox", blocks, xg)
+        return torch.einsum("srjoi,srji->sro", blocks, xg)
+
+    @staticmethod
+    def backward(ctx, gy):
+        blocks, xg = ctx.saved_tensors
+        pair = xg.dim() == 5
+        g = (gy if pair else gy[..., None])[:, :, None]  # (S, Rl, 1, b, X)
+        g_blocks = g_x = None
+        if ctx.needs_input_grad[1]:
+            # every block's conjugate transpose against its row's
+            # cotangent, as conj(blocksᵀ conj(g)): one small product a
+            # block over a transposed view, no copy of the blocks (a
+            # conjugated view of them would be made real)
+            g_x = torch.matmul(blocks.mT, g.conj())
+            g_x = (g_x if pair else g_x[..., 0]).conj_physical()
+        if ctx.needs_input_grad[0]:
+            x = (xg if pair else xg[..., None]).conj()
+            g_blocks = torch.einsum("srjox,srjix->srjoi", g, x)
+        return g_blocks, g_x
 
 
 def _halo_extend(v_local, w, mesh: Mesh):

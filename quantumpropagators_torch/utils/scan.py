@@ -96,9 +96,26 @@ the step.
 :func:`graphed` follows the same rules for one call of a function
 (:class:`Graphed`): eager first call, one capture per key (operator
 tensors read in place, per-call inputs and controls copied into static
-buffers), a replay and cloned outputs per later call; the body as it is
-on the CPU, inside an enclosing capture, while autograd records and on a
-mesh of more than one rank.
+buffers), a replay and cloned outputs per later call.  While autograd
+records through a per-call input or an operator tensor, a call is one
+``torch.autograd.Function`` (:class:`_GradCall`), differentiated as
+``jax.grad`` differentiates a ``jax.jit`` call: the body and its VJP
+once eagerly at a key's first call; then a forward graph whose saved
+tensors (the call's residuals) stay in its own pool, where each replay
+rewrites them, and a graph of its VJP that reads them there (no copy:
+they are the tensors the eager loop would keep); every call replays the
+forward, its residuals moved into clones on its node only before a
+next call overwrites them, and that node's backward copies them back
+where it must and replays the VJP, so that chained calls and one
+backward give the loop's gradient.  A tensor read in place (an
+operator's amplitude) has its gradient from the VJP like an input; per
+call it is the call's sum, over calls the sum of those.  The body runs
+as it is on the CPU, inside an enclosing capture or recording, under a
+``torch.func`` transform, on a mesh of more than one rank, and for a
+backward with ``create_graph=True`` (rerun from the node's inputs).
+Operator tensors that require grad are first used on the side stream,
+so the backward synchronizes their gradient's stream (PyTorch warns
+once that the AccumulateGrad stream differs).
 """
 
 from __future__ import annotations
@@ -107,6 +124,7 @@ import contextlib
 import functools
 import gc
 import inspect
+import weakref
 
 import numpy as np
 import torch
@@ -285,9 +303,10 @@ def _device(carry, xs) -> torch.device:
     return device
 
 
-def _first_on_side(step, device, fn):
-    """``fn()``, the first interval ``(carry, y)`` of ``step``, run eagerly
-    on the device's side stream (where the captures run: the one-time
+def _first_on_side(step, device, fn, what="scan"):
+    """``fn()``, the first interval ``(carry, y)`` of ``step`` (or the
+    first call of a :class:`Graphed` body and ``None``), run eagerly on
+    the device's side stream (where the captures run: the one-time
     constants it makes belong to that stream)."""
     cur = torch.cuda.current_stream(device)
     side = _side_stream(device)
@@ -298,7 +317,7 @@ def _first_on_side(step, device, fn):
     for t in _leaves(carry1) + _leaves(y0):
         if t.device != device:
             raise RuntimeError(_refused(
-                step, f"it returns a tensor on {t.device}"))
+                step, f"it returns a tensor on {t.device}", what))
         t.record_stream(cur)
     return carry1, y0
 
@@ -337,15 +356,25 @@ def _graph_pool(device):
     return _POOLS[index][0]
 
 
+def _name(step) -> str:
+    return getattr(step, "__qualname__", None) or repr(step)
+
+
 def _refused(step, why, what="scan") -> str:
-    name = getattr(step, "__qualname__", None) or repr(step)
-    return (f"{what}: step {name} cannot be captured as a CUDA graph (a "
-            f"step on the card must not read the host): {why}")
+    return (f"{what}: step {_name(step)} cannot be captured as a CUDA graph "
+            f"(a step on the card must not read the host): {why}")
 
 
-def _captured(device, fn, refused):
+#: :func:`_captured`'s ``pool`` for a graph with a pool of its own
+_OWN_POOL = "own"
+
+
+def _captured(device, fn, refused, pool=None):
     """``fn()`` captured as a CUDA graph on the device's side stream into
-    the shared pool (capturing runs nothing on the device).  Returns the
+    ``pool``: the shared pool (``None``), a pool of its own
+    (:data:`_OWN_POOL`: for a graph whose tensors outlive its replay,
+    which no other graph may reuse) or a graph's ``pool()`` (capturing
+    runs nothing on the device).  Returns the
     graph, what ``fn`` returned and the launches one replay issues (the
     counters' delta over the capture, which is taken back).  A failed
     capture raises ``RuntimeError(refused(exc))``, or :class:`_NotOut`
@@ -358,7 +387,8 @@ def _captured(device, fn, refused):
     side.wait_stream(cur)
     before = [dict(c) for c in _COUNTERS]
     graph = torch.cuda.CUDAGraph()
-    pool = _graph_pool(device)
+    pool = _graph_pool(device) if pool is None else \
+        torch.cuda.graph_pool_handle() if pool == _OWN_POOL else pool
     collecting = gc.isenabled()
     gc.disable()
     try:
@@ -564,16 +594,18 @@ def _differentiable(t: torch.Tensor) -> bool:
 def _unflatten(tree, leaves):
     """``tree``'s structure (tensors, or any other leaf) over ``leaves``,
     in order."""
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, (tuple, list)):
-            return type(node)(build(u) for u in node)
-        return next(it)
 
-    return build(tree)
+def _build(node, it):
+    # no closure over itself: a recursive nested function is a reference
+    # cycle, which would hold the results (and their autograd graph)
+    # until the garbage collector runs
+    if node is None:
+        return None
+    if isinstance(node, (tuple, list)):
+        return type(node)(_build(u, it) for u in node)
+    return next(it)
 
 
 class _Writes(TorchDispatchMode):
@@ -623,11 +655,20 @@ class _Saved:
     recorded fixes the entries, one per saved tensor in the order the
     interval saves them; every later one must save alike (the second is
     also watched for writes to a tensor kept itself; later ones follow
-    the entries unwatched).  Unpacking reads a stack at ``read_at``."""
+    the entries unwatched).  Unpacking reads a stack at ``read_at`` (a
+    view of the one slot where there is one).  ``in_place`` (one slot):
+    a produced storage is kept itself, its stack a view of it, rebound
+    at every recording (a captured call's saves, which its replays
+    rewrite in place).  :attr:`depth` counts the recordings under way: a
+    :class:`Graphed` call inside one runs its body, whose saves are the
+    recording's own."""
 
-    def __init__(self, step, slots, write_at, read_at):
+    depth = 0
+
+    def __init__(self, step, slots, write_at, read_at, in_place=False):
         self.step = step
         self.slots = slots
+        self.in_place = in_place
         self.write_at = write_at   # (1,) int64: the interval being run
         self.read_at = read_at     # (1,) int64: the interval differentiated
         self.stacks = []           # (slots, words), one per storage
@@ -664,10 +705,14 @@ class _Saved:
         self._inputs = {_storage(t) for t in inputs}
         self._copied = {}
         self._writes = _Writes() if self.runs < 2 else None
-        with torch.autograd.graph.saved_tensors_hooks(self._pack,
-                                                      self._unpack), \
-                self._writes or contextlib.nullcontext():
-            yield
+        _Saved.depth += 1
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(self._pack,
+                                                          self._unpack), \
+                    self._writes or contextlib.nullcontext():
+                yield
+        finally:
+            _Saved.depth -= 1
         if self.fixed and self._pos != len(self.entries):
             self._differs(f"{self._pos} tensors saved, {len(self.entries)} "
                           f"before")
@@ -714,8 +759,11 @@ class _Saved:
             if words.shape != stack.shape[1:] or words.dtype != stack.dtype:
                 self._differs(f"saved tensor {pos} lies in a storage of "
                               f"another size")
-            with torch.no_grad():
-                stack.index_copy_(0, self.write_at, words[None])
+            if self.in_place:
+                self.stacks[b] = words[None]
+            else:
+                with torch.no_grad():
+                    stack.index_copy_(0, self.write_at, words[None])
             self._copied[b] = key
         elif self._copied[b] != key:
             self._differs(f"saved tensor {pos} lies in another storage")
@@ -730,7 +778,8 @@ class _Saved:
         if b is None or alive.expired():
             b = len(self.stacks)
             words = _words(t)
-            self.stacks.append(words.new_empty((self.slots,) + words.shape))
+            self.stacks.append(words[None] if self.in_place else
+                               words.new_empty((self.slots,) + words.shape))
             self._stacked[key] = (b, StorageWeakRef(t.untyped_storage()))
         return (b, t.dtype, tuple(t.shape), t.stride(), t.storage_offset())
 
@@ -739,8 +788,10 @@ class _Saved:
         if b is None:
             return view[0]
         dtype, shape, stride, offset = view
-        return self.stacks[b].index_select(0, self.read_at)[0].view(
-            dtype).as_strided(shape, stride, offset)
+        stack = self.stacks[b]
+        row = stack[0] if self.slots == 1 else \
+            stack.index_select(0, self.read_at)[0]
+        return row.view(dtype).as_strided(shape, stride, offset)
 
 
 def _words(t):
@@ -769,7 +820,9 @@ class _Record:
                 nodes.append(t.grad_fn)
             elif t.requires_grad and not any(t is u for u in ours):
                 return True
-        seen = set()
+        # the history of a leaf that is a non-leaf tensor (an operator
+        # tensor a Graphed call reads in place) is not the step's
+        seen = {u.grad_fn for u in ours if u.grad_fn is not None}
         while nodes:
             node = nodes.pop()
             if node is None or node in seen:
@@ -1081,9 +1134,11 @@ class _ScanVJP(torch.autograd.Function):
 
 # -- jax.jit of one call --------------------------------------------------
 
+
 def graphed(body, *, mesh=None, operators=(), controls=()):
     """``jax.jit`` of ``body`` on the port: a :class:`Graphed` whose
-    calls on the card each replay one CUDA graph of ``body``.
+    calls on the card each replay one CUDA graph of ``body`` (two while
+    autograd records: its forward and its VJP).
 
     ``operators`` names the parameters whose tensors the graph reads in
     place (planes, diagonals, index arrays: never copied per call);
@@ -1116,12 +1171,24 @@ class Graphed:
       address, shape, strides and dtype, and every other argument's
       value (host tensors and arrays by their bytes).  A call with
       another key captures anew and frees the old graph.
+    - While autograd records through a per-call input or an operator
+      tensor, a call is one ``torch.autograd.Function`` (:class:`_GradCall`,
+      ``jax.grad`` of a ``jax.jit`` call): the first call of such a key
+      runs the body and its VJP once eagerly, then two graphs are
+      captured into a pool of their own, the forward keeping the tensors
+      autograd saves (its residuals) where it wrote them and the VJP
+      reading them there; every call replays the forward and returns
+      clones of the outputs (its residuals are moved into clones only
+      when a next call would overwrite them), its backward replays the
+      VJP.  The key then also holds which tensors require grad.
     - ``body`` runs as it is (no graph): on the CPU, inside an enclosing
-      capture (a :func:`scan` over a graphed step captures straight
-      through it), while autograd records, and on a mesh whose group
-      spans more than one rank (decided from ``mesh.world_size``).
-    - A body that reads the host raises ``RuntimeError`` at its capture,
-      naming the step; it never falls back to the eager body.
+      capture or recording (a :func:`scan` over a graphed step captures
+      straight through it), under a ``torch.func`` transform, and on a
+      mesh whose group spans more than one rank (decided from
+      ``mesh.world_size``).
+    - A body (or its VJP) that reads the host raises ``RuntimeError`` at
+      its capture, naming the step; it never falls back to the eager
+      body.
 
     :attr:`captures` counts the captures, :attr:`body` is the function
     itself.  The launch counters see each replay's launches, as in
@@ -1136,13 +1203,16 @@ class Graphed:
         self.captures = 0
         self._params = inspect.signature(body)
         self._call = None
+        self._grad = None
 
     def __call__(self, *args, **kwargs):
         bound = self._params.bind(*args, **kwargs)
-        device = self._device(bound.arguments)
+        device, grad = self._route(bound.arguments)
         if device is None:
             return self.body(*args, **kwargs)
-        key, inputs = self._key(bound.arguments)
+        key, inputs = self._key(bound.arguments, device.type)
+        if grad:
+            return self._differentiated(key, device, bound, inputs)
         if self._call is not None and self._call.key == key:
             self._call.load(inputs)
             return self._call.replay()
@@ -1151,30 +1221,36 @@ class Graphed:
         self.captures += 1
         return out
 
-    def _device(self, arguments):
-        """The card the call runs on, or ``None`` to run the body."""
+    def _route(self, arguments):
+        """The card the call runs on (``None``: run the body) and whether
+        autograd records through one of its tensors."""
         if self.mesh is not None and self.mesh.world_size > 1:
-            return None
+            return None, False
         tensors = []
         _walk(arguments, tensors, set(), keyed=False)
-        cards = [t.device for t in tensors if t.device.type == "cuda"]
-        if not cards or torch.cuda.is_current_stream_capturing():
-            return None
-        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-            return None
-        return cards[0]
+        cards = [t.device for t in tensors if t.is_cuda]
+        if not cards or _Saved.depth or \
+                torch.cuda.is_current_stream_capturing():
+            return None, False
+        if not (torch.is_grad_enabled()
+                and any(t.requires_grad for t in tensors)):
+            return cards[0], False
+        if torch._C._are_functorch_transforms_active():
+            return None, False
+        return cards[0], True
 
-    def _key(self, arguments):
-        """The graph's key and the per-call inputs ``(name, value)``."""
+    def _key(self, arguments, card="cuda"):
+        """The graph's key and the per-call inputs ``(name, value)``: the
+        tensors on a device of type ``card`` that are no operator."""
         key, inputs = [], []
         for name, value in arguments.items():
-            on_card = isinstance(value, torch.Tensor) \
-                and value.device.type == "cuda"
-            if name in self.operators and not on_card:
+            here = isinstance(value, torch.Tensor) \
+                and value.device.type == card
+            if name in self.operators and not here:
                 key.append((name, _walk(value, [], set())))
             elif name in self.operators:
                 key.append((name, "operator", _identity(value)))
-            elif on_card:
+            elif here:
                 key.append((name, "input", _layout(value)))
                 inputs.append((name, value))
             elif name in self.controls and _is_number(value):
@@ -1187,6 +1263,270 @@ class Graphed:
             else:
                 key.append((name, _walk(value, [], set())))
         return tuple(key), inputs
+
+    def _differentiated(self, key, device, bound, inputs):
+        """The call as an output of :class:`_GraphedVJP`, or the body
+        where it closes over a tensor that requires grad.  The key
+        gains which tensors require grad."""
+        per_call = {name for name, value in inputs
+                    if isinstance(value, torch.Tensor)}
+        flags, grads = _grad_inputs(bound.arguments, per_call)
+        key = key + (flags,)
+        call = self._grad
+        if call is None or call.key != key:
+            self._grad = None  # its graphs and their pool go first
+            call = self._grad = _GradCall(self.body, self._params, key,
+                                          device, bound, inputs, per_call)
+            self.captures += 0 if call.closes else 2
+        if call.closes:
+            return self.body(*bound.args, **bound.kwargs)
+        return call(bound, inputs, grads)
+
+
+def _grad_inputs(arguments, per_call):
+    """Which tensors of a call require grad, in argument order (a
+    per-call input 1 or 0; a tensor read in place 1, 2 where the same
+    tensor came before: its gradient is taken once, or 0), and those the
+    call is differentiated with respect to, as ``(name, tensor)``: a
+    per-call input's argument name, ``None`` for a tensor read in
+    place."""
+    flags, grads, seen = [], [], set()
+    for name, value in arguments.items():
+        if name in per_call:
+            flags.append(int(value.requires_grad))
+            if value.requires_grad:
+                grads.append((name, value))
+            continue
+        tensors = []
+        _walk(value, tensors, set(), keyed=False)
+        for t in tensors:
+            flags.append(0 if not t.requires_grad else
+                         2 if id(t) in seen else 1)
+            if flags[-1] == 1:
+                grads.append((None, t))
+            seen.add(id(t))
+    return tuple(flags), grads
+
+
+class _GradCall:
+    """One key of a :class:`Graphed` body under autograd, differentiated
+    as ``jax.grad`` differentiates a ``jax.jit`` call.  The forward
+    graph F records one call over the static buffers; the tensors
+    autograd saves there (the call's residuals) stay where F writes
+    them, held by a one-slot in-place :class:`_Saved` in a pool of F's
+    own (no other graph reuses their blocks), and the graph B of its
+    VJP (``torch.autograd.grad`` of F's template) reads them there.  A
+    call replays F and returns clones of its outputs
+    (:class:`_GraphedVJP`); the next call first moves the residuals F
+    holds into clones on their call's node (as a ``jax.jit`` forward
+    returns fresh residual buffers), unless its backward has run.  A
+    node's backward copies its clones back where it has them and
+    replays B, so that a call whose residuals a later call overwrote is
+    never read: N chained calls and one backward clone and copy back
+    N − 1 calls' residuals, a call and its backward none.  A second
+    backward of a call whose residuals were overwritten since
+    (``retain_graph=True``) reruns its body."""
+
+    def __init__(self, body, params, key, device, bound, inputs, per_call):
+        """The body and its VJP run once eagerly on the side stream (the
+        kernels get built, autograd's device thread comes up), then F
+        and B are captured.  The warm-up's cached blocks are released
+        first: a capture that runs short of memory cannot release
+        them."""
+        self.body, self.params, self.key = body, params, key
+        self.per_call = per_call
+        self.holder = None  # weak reference to the node whose residuals
+        #                     F's blocks hold
+        with torch.no_grad():
+            # compact buffers, copied into at every call
+            self.buffers = [
+                value.detach().clone(memory_format=torch.contiguous_format)
+                if isinstance(value, torch.Tensor) else _buffer(value, device)
+                for _, value in inputs]
+        # the body's arguments over the buffers, leaves where they
+        # require grad
+        self.args = self.params.bind(*bound.args, **bound.kwargs)
+        for (name, value), buf in zip(inputs, self.buffers):
+            self.args.arguments[name] = _leaf(buf, value.requires_grad) \
+                if name in self.per_call else buf
+        self.ins = [t for _, t in _grad_inputs(self.args.arguments,
+                                                per_call)[1]]
+        self.closes = False
+
+        def warm_up():
+            with torch.enable_grad():
+                out = body(*self.args.args, **self.args.kwargs)
+            self.closes = _Record(self.ins, None, out, None) \
+                .closes_over_grad()
+            if not self.closes:
+                self._vjp_of(out, [torch.zeros_like(t) for t in
+                                   _leaves(out)], retain=False)
+            return out, None
+
+        out, _ = _first_on_side(body, device, warm_up, "graphed")
+        if self.closes:
+            return
+        self.tree = _map(lambda t: True, out)
+        self.signature = _signature(out)
+        with torch.no_grad():
+            self.gouts = [torch.zeros_like(t) if _differentiable(t) else None
+                          for t in _leaves(out)]
+            self.gins = [torch.zeros_like(t) for t in self.ins]
+        del out
+        torch.cuda.empty_cache()
+        zero = torch.zeros(1, dtype=torch.int64, device=device)
+        self.saved = _Saved(body, 1, zero, zero, in_place=True)
+        self.tpl = None
+        self.graph, _, self.delta = _captured(
+            device, self._template, lambda exc: _refused(body, exc,
+                                                         "graphed"),
+            pool=_OWN_POOL)
+        self.vjp_graph, _, self.vjp_delta = _captured(
+            device, self._vjp, lambda exc: _refused(body, exc,
+                                                    "graphed backward"),
+            pool=self.graph.pool())
+
+    def _template(self):
+        """One call over the static buffers with autograd recording, its
+        saves kept in :attr:`saved`: F's body, kept as the template of
+        the VJP."""
+        with torch.enable_grad(), self.saved.recording(self.buffers):
+            out = self.body(*self.args.args, **self.args.kwargs)
+        if _signature(out) != self.signature:
+            raise ValueError(f"the output changed from {self.signature} to "
+                             f"{_signature(out)}")
+        self.tpl = out
+        return out
+
+    def _vjp_of(self, out, gouts, retain=True):
+        """The cotangents ``gouts`` of ``out``'s leaves pulled back to
+        :attr:`ins`, into :attr:`gins` where ``retain`` (B's body, over
+        the template)."""
+        pairs = [(t, g) for t, g in zip(_leaves(out), gouts)
+                 if g is not None and t.requires_grad]
+        got = torch.autograd.grad(
+            [t for t, _ in pairs], self.ins, [g for _, g in pairs],
+            retain_graph=retain, allow_unused=True) \
+            if pairs else [None] * len(self.ins)
+        if retain:
+            with torch.no_grad():
+                for buf, g in zip(self.gins, got):
+                    buf.zero_() if g is None else buf.copy_(g)
+
+    def _vjp(self):
+        self._vjp_of(self.tpl, self.gouts)
+
+    def __call__(self, bound, inputs, grads):
+        """One call: the residuals F holds moved to their node, the
+        per-call inputs loaded, F replayed; its outputs (clones) as
+        outputs of :class:`_GraphedVJP`, whose inputs are the tensors
+        ``grads`` (:func:`_grad_inputs`), in the body's structure."""
+        self._evict()
+        _load(self.buffers, inputs)
+        self.graph.replay()
+        _add_launches(self.delta)
+        outs = _GraphedVJP.apply(self, bound, *(t for _, t in grads))
+        return _unflatten(self.tree, outs)
+
+    def _evict(self):
+        """The residuals F holds into clones on their node, where it
+        lives and its backward has not run."""
+        ctx = self.holder and self.holder()
+        self.holder = None
+        if ctx is not None and not ctx.done:
+            with torch.no_grad():
+                ctx.residuals = [s.clone() for s in self.saved.stacks]
+
+    def holds(self, ctx) -> bool:
+        """Whether the residuals of ``ctx``'s call are still at hand."""
+        return ctx.residuals is not None or (
+            self.holder is not None and self.holder() is ctx)
+
+    def backward(self, ctx, grads, needs):
+        """A call's cotangents: its residuals (unless F's blocks hold
+        them) and the output cotangents into the static buffers, B
+        replayed."""
+        with torch.no_grad():
+            if ctx.residuals is not None:
+                self._evict()
+                for stack, r in zip(self.saved.stacks, ctx.residuals):
+                    stack.copy_(r)
+                ctx.residuals = None
+                self.holder = weakref.ref(ctx)
+            for buf, g in zip(self.gouts, grads):
+                if buf is not None:
+                    buf.zero_() if g is None else buf.copy_(g)
+        self.vjp_graph.replay()
+        _add_launches(self.vjp_delta)
+        ctx.done = True
+        return tuple(g.clone() if need else None
+                     for g, need in zip(self.gins, needs))
+
+    def recompute(self, bound, inputs, grads):
+        """The call's body rerun under recording from its own arguments,
+        and its gradient: a backward with ``create_graph=True`` (grad
+        mode on; second derivatives are the body's) or of a call whose
+        residuals are gone.  The per-call inputs enter the rerun as
+        leaves (as views with ``create_graph``, so that second
+        derivatives reach their history): its gradient with respect to
+        a tensor it also reaches through an input's history (the
+        coefficients of chained calls) is this call's share alone."""
+        create = torch.is_grad_enabled()
+        args = self.params.bind(*bound.args, **bound.kwargs)
+        ins, in_place, history = [], False, False
+        for (name, _), t in zip(_grad_inputs(bound.arguments,
+                                             self.per_call)[1], inputs):
+            if name is None:
+                in_place = True
+            else:
+                history = history or t.grad_fn is not None
+                t = t.view_as(t) if create else _leaf(t, True)
+                args.arguments[name] = t
+            ins.append(t)
+        if create and in_place and history:
+            raise RuntimeError(
+                f"graphed: step {_name(self.body)}: a backward with "
+                f"create_graph=True through a call whose operator tensors "
+                f"require grad needs its per-call inputs to be leaves (an "
+                f"operator tensor reached through an input's history would "
+                f"be counted twice)")
+        with torch.enable_grad():
+            out = self.body(*args.args, **args.kwargs)
+            pairs = [(o, g) for o, g in zip(_leaves(out), grads)
+                     if o.requires_grad and g is not None]
+            if not pairs:
+                return (None,) * len(inputs)
+            return torch.autograd.grad(
+                [o for o, _ in pairs], ins, [g for _, g in pairs],
+                create_graph=create, allow_unused=True)
+
+
+class _GraphedVJP(torch.autograd.Function):
+    """The autograd node of one :class:`Graphed` call under autograd
+    (:class:`_GradCall`): inputs the tensors the call is differentiated
+    with respect to, outputs clones of F's outputs.  Its call's
+    residuals are F's until the next call moves them into
+    :attr:`residuals`."""
+
+    @staticmethod
+    def forward(ctx, call, bound, *inputs):
+        ctx.call, ctx.bound = call, bound
+        ctx.save_for_backward(*inputs)
+        ctx.residuals, ctx.done = None, False
+        call.holder = weakref.ref(ctx)
+        outs = [t.detach().clone() for t in _leaves(call.tpl)]
+        ctx.mark_non_differentiable(*[t for t in outs
+                                      if not _differentiable(t)])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        call = ctx.call
+        if call.holds(ctx) and not torch.is_grad_enabled():
+            got = call.backward(ctx, grads, ctx.needs_input_grad[2:])
+        else:
+            got = call.recompute(ctx.bound, ctx.saved_tensors, grads)
+        return (None, None) + tuple(got)
 
 
 class _Call:
@@ -1205,18 +1545,10 @@ class _Call:
         """The body run eagerly on the side stream (its result is the
         call's), then one call captured over static buffers.  Returns
         ``(result, _Call)``."""
-        cur = torch.cuda.current_stream(device)
-        side = _side_stream(device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = owner.body(*bound.args, **bound.kwargs)
-        cur.wait_stream(side)
-        for t in _leaves(out):
-            if t.device != device:
-                raise RuntimeError(_refused(
-                    owner.body, f"it returns a tensor on {t.device}",
-                    "graphed"))
-            t.record_stream(cur)
+        out, _ = _first_on_side(
+            owner.body, device,
+            lambda: (owner.body(*bound.args, **bound.kwargs), None),
+            "graphed")
         buffers = [_buffer(value, device) for _, value in inputs]
         for (name, _), buf in zip(inputs, buffers):
             bound.arguments[name] = buf
@@ -1226,22 +1558,28 @@ class _Call:
         return out, cls(key, buffers, graph, static, delta)
 
     def load(self, inputs):
-        """A later call's per-call inputs into the static buffers: host
-        arrays through pinned memory, so that no copy waits for the
-        device."""
-        for buf, (_, value) in zip(self.buffers, inputs):
-            if isinstance(value, torch.Tensor):
-                buf.copy_(value)
-            elif isinstance(value, np.ndarray):
-                buf.copy_(torch.from_numpy(value).pin_memory(),
-                          non_blocking=True)
-            else:
-                buf.fill_(value)
+        _load(self.buffers, inputs)
 
     def replay(self):
         self.graph.replay()
         _add_launches(self.delta)
         return _map(torch.clone, self.out)
+
+
+def _load(buffers, inputs):
+    """A later call's per-call inputs into the static buffers: host
+    arrays through pinned memory on the card, so that no copy waits for
+    the device."""
+    with torch.no_grad():
+        for buf, (_, value) in zip(buffers, inputs):
+            if isinstance(value, torch.Tensor):
+                buf.copy_(value)
+            elif isinstance(value, np.ndarray):
+                host = torch.from_numpy(value)
+                buf.copy_(host.pin_memory() if buf.is_cuda else host,
+                          non_blocking=True)
+            else:
+                buf.fill_(value)
 
 
 def _is_number(x) -> bool:
@@ -1283,7 +1621,7 @@ def _walk(obj, tensors, seen, keyed=True):
     fields.  ``keyed=False`` only collects the tensors."""
     if isinstance(obj, torch.Tensor):
         tensors.append(obj)
-        if not keyed or obj.device.type == "cuda":
+        if not keyed or obj.is_cuda:
             return _identity(obj) if keyed else None
         flat = obj.detach().contiguous().reshape(-1)
         return ("host", str(obj.dtype), tuple(obj.shape),

@@ -5,8 +5,12 @@ one capture over calls whose flip scale (a tensor, a host array or a
 Python float) and coefficients change, and one more for a new operator
 (``chip_smoke.hold_graphed``, as phase 17 holds them at full width); a
 body that reads the host raises at capture; a scan over a graphed step
-captures straight through it; a multi-rank mesh and autograd run the
-body.  Small sizes: L = 14 on 4 slots, 2^12 banded, 2^12 sparse.  Needs
+captures straight through it; a multi-rank mesh runs the body.  Under
+autograd each differentiable site (``chip_smoke.GRAD_SITES``) replays
+its forward graph and the graph of its VJP, its gradients equal to the
+body's (``chip_smoke.hold_graphed_grad``), also with other graphs
+replayed between a call and its backward, and a kernel-bodied site
+raises naming its kernel.  Small sizes: L = 14 on 4 slots, 2^12 banded, 2^12 sparse.  Needs
 an NVIDIA GPU with nvcc (``-m cuda``); skips without one.  Imports no
 jax: run with ``--noconftest``."""
 
@@ -208,13 +212,145 @@ def test_scan_over_a_graphed_step_captures_through_it(cuda):
     assert n_scan == chip_smoke._launch_counts()
 
 
-def test_multi_rank_mesh_and_autograd_run_the_body(cuda):
+def test_multi_rank_mesh_runs_the_body(cuda):
     x = _state(64, 2, cuda)
     wide = scan_mod.graphed(lambda x: 3.0 * x,
                             mesh=SimpleNamespace(world_size=2))
     assert torch.equal(wide(x), 3.0 * x) and wide.captures == 0
+
+
+def test_autograd_replays_the_forward_and_its_vjp(cuda):
+    """Under autograd a call is the graphed forward and VJP: two
+    captures at the first call, none after; each call's gradient its
+    own, accumulated over calls."""
+    x = _state(64, 2, cuda)
     step = scan_mod.graphed(lambda x: 3.0 * x)
     y = x.real.clone().requires_grad_(True)
-    out = step(y)
-    out.sum().backward()
-    assert step.captures == 0 and torch.equal(y.grad, torch.full_like(y, 3))
+    for k in range(3):
+        out = step(y)
+        assert type(out.grad_fn).__name__ == "_GraphedVJPBackward"
+        out.sum().backward()
+        assert step.captures == 2
+        assert torch.equal(y.grad, torch.full_like(y, 3 * (k + 1)))
+
+
+# -- under autograd: the forward graph and the graph of its VJP -------------
+
+def _grad_site(name, device):
+    """``(step, inputs, call)`` of one differentiable site on 4 slots:
+    the L = 14 chain, the 2^12 banded matrix of :func:`_site`."""
+    rng = np.random.default_rng(7)
+    N = 2 ** 12
+    A = sp.diags([rng.standard_normal(N - abs(k)) for k in range(-9, 10)],
+                 list(range(-9, 10))).tocsr()
+    A = (0.5 * (A + A.T)).tocsr()
+    mesh = chain_mesh(SLOTS, device=device)
+    return chip_smoke.grad_sites(mesh, device, L, A, names=(name,))[name]
+
+
+@pytest.mark.parametrize("calls", [1, 3])
+@pytest.mark.parametrize("name", chip_smoke.GRAD_SITES)
+def test_graphed_gradients_equal_eager(cuda, name, calls):
+    """One call, and three chained calls with one backward: every
+    gradient equal to the body's loop bit for bit (the CSR applies
+    within 1e-14 relative: their backward adds with atomics; over
+    chained calls the chain's amplitude within 1e-12), the first call
+    too; two captures for the key and none after; two graph replays a
+    call and no call of the body (``chip_smoke.hold_graphed_grad``
+    raises otherwise)."""
+    step, inputs, call = _grad_site(name, cuda)
+    chip_smoke.hold_graphed_grad(name, step, inputs, call, calls, "test",
+                                 chip_smoke.grad_tols(name, calls))
+
+
+@pytest.mark.parametrize("name", chip_smoke.GRAD_SITES)
+def test_create_graph_reruns_the_body(cuda, name):
+    """A backward with ``create_graph=True`` reruns the call's body:
+    second derivatives equal the body's double backward within 1e-13
+    relative."""
+    step, inputs, call = _grad_site(name, cuda)
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+
+    def second(fn):
+        out = call(fn, ins[0], ins)
+        g, = torch.autograd.grad((out.real ** 2 + out.imag ** 2).sum(),
+                                 ins[0], create_graph=True)
+        return torch.autograd.grad((g.real ** 2 + g.imag ** 2).sum(), ins)
+
+    second(step)  # the first call: the warm-up, then the two captures
+    for got, want in zip(second(step), second(step.body)):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-13 * scale + 1e-15
+    assert step.captures == 2
+
+
+def test_other_graphs_between_forward_and_backward(cuda):
+    """A call's residuals stay in its forward graph's own pool: graphs
+    of other steps captured and replayed between its forward and its
+    backward (the shared pool of the no-grad route) leave its gradient
+    equal to the body's loop bit for bit."""
+    step, inputs, call = _grad_site("BSR step", cuda)
+    other, o_inputs, o_call = _grad_site("BSR halo apply", cuda)
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+
+    def grads(fn, between=()):
+        out = call(fn, call(fn, ins[0], ins), ins)
+        for k in between:
+            with torch.no_grad():
+                o_call(other, o_inputs[0] * (k + 1), o_inputs)
+        return torch.autograd.grad((out.real ** 2 + out.imag ** 2).sum(),
+                                   ins)
+
+    want = grads(step.body)
+    grads(step)  # the first call: the warm-up, then the two captures
+    for got, w in zip(grads(step, between=range(3)), want):
+        assert torch.equal(got, w)
+    assert step.captures == 2 and other.captures == 1
+
+
+@pytest.mark.parametrize("name", ["dd tensor", "f32 tensor", "banded step",
+                                  "BSR step", "chain step"])
+def test_no_grad_keeps_the_forward_graph(cuda, name):
+    """Under ``torch.no_grad()`` a state that requires grad takes the
+    forward's one graph: bit for bit, equal launches, one capture
+    (``hold_graphed``), no autograd key."""
+    step, state, call, renew = _site(name, cuda)
+    state = scan_mod._map(lambda t: t.detach().clone().requires_grad_(True),
+                          state)
+    with torch.no_grad():
+        chip_smoke.hold_graphed(name, step, state, call, N_CALLS, renew,
+                                "test")
+    assert step._grad is None
+
+
+def test_kernel_launch_under_autograd_raises(cuda):
+    """A launch takes no part in autograd: its result would be cut from
+    the graph (the raw launch shows it), so a wrapper given an input
+    that requires grad raises naming the kernel, and a kernel-bodied
+    site under autograd raises at its first call; under ``no_grad`` both
+    run."""
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    Lk = 12
+    _, v1, _, _, G, _ = chip_smoke.kernel_inputs(Lk, "double", cuda, 3)
+    leaf = v1.clone().requires_grad_(True)
+    cut = cf._launch_high(leaf, G, None, Lk, 2)
+    assert not cut.requires_grad  # the fault the wrappers refuse
+    with pytest.raises(RuntimeError,
+                       match=r"cheby_flip_high<double>.*no backward"):
+        cf.cheby_flip_high(leaf, G, 2)
+    with torch.no_grad():
+        assert torch.equal(cf.cheby_flip_high(leaf, G, 2), cut)
+    planes = torch.ones((1, 8, 4, 8), dtype=torch.float64, device=cuda)
+    x = _state(32, 4, cuda).requires_grad_(True)
+    with pytest.raises(RuntimeError, match=r"banded_spmv<double>"):
+        bs.banded_spmv(planes, (0,), x)
+    step, state, call, _ = _site("dd tensor", cuda)
+    args, kwargs = call(0, state.clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match=r"cheby_flip_\w+<double>"):
+        step(*args, **kwargs)
+    assert step._grad is None and step.captures == 0
+    with torch.no_grad():
+        step(*args, **kwargs)
+    assert step.captures == 1
