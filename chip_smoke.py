@@ -113,6 +113,21 @@ more for a new operator, with steps/s and host µs a call both ways;
 then traces of 3 dd chain steps graphed and eager (busy share).  Phases
 10, 14 and the sharded example step through the same graphs.
 
+Phase 18 (after phase 9, before the NCCL group) runs the stepwise path's
+graphed sites (the port of the JAX package's ``jax.jit`` of the Chebyshev
+interval and of the Arnoldi iteration) graphed and with every site's body
+run eagerly: (a) 20 stepwise ``propagate(method="cheby",
+precision="dd")`` intervals on banded20 with phase 7's band planes as
+``dd_operator_terms`` (bit for bit both ways, within 1e-10 of phase 7,
+``orders − 1`` banded launches an interval); (b) 100 stepwise intervals
+with ``check_normalization=True`` on the N = 10 transmon and a driven
+N = 1024 sparse Hermitian, amplitudes changing every interval: one
+capture a propagator, none for new controls nor for a moved envelope
+of the same length; (c) the Arnoldi site: ``specrange`` on banded20
+(``Hess`` bit for bit), 5 ``newton`` and ``expv`` dd steps (one capture
+a propagator, matvecs = banded launches), and the reserved memory
+before an envelope, after it and after its propagator is dropped.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -1235,6 +1250,309 @@ def small_configs(device, card):
     log(f"phase 9 transmon N={N} newton_leja 100 steps: max|d| vs expm="
         f"{err:.3e} (<= 1e-11), {100 / t:.3f} steps/s [{card}]")
     return op, psi
+
+
+@contextlib.contextmanager
+def bodies_only():
+    """Every graphed site (``utils/scan.Graphed``) runs its body while
+    entered: the eager way of phase 18."""
+    from quantumpropagators_torch.utils import scan
+
+    route = scan.Graphed._route
+    scan.Graphed._route = lambda self, arguments: (None, False)
+    try:
+        yield
+    finally:
+        scan.Graphed._route = route
+
+
+def _timed_run(prop, psi, reps=1):
+    """``reps`` stepwise propagations of ``prop`` from ``psi``
+    (``reinit_prop`` each), the device synchronized: ``(final state,
+    seconds of the last)``."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.propagate import propagate_propagator
+
+    for _ in range(reps):
+        qt.reinit_prop(prop, psi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = propagate_propagator(prop)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    return out, t
+
+
+def _reserved_gib():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2 ** 30
+
+
+def step_graph_banded(device, card, ctx):
+    """Phase 18a: 20 stepwise dd Chebyshev intervals on banded20 with
+    phase 7's band planes as ``dd_operator_terms``, graphed and eager.
+    Returns the graphed run's banded launches."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops import banded_spmv as bs
+
+    op, psi0, tlist = ctx["op"], ctx["psi0"], ctx["tlist"]
+    L = N_BANDED.bit_length() - 1
+    kw = dict(method="cheby", precision="dd",
+              dd_operator_terms=(ctx["banded"],), coeffs_pad_to=1)
+    runs = {}
+    for way in ("graph", "eager"):
+        with bodies_only() if way == "eager" else contextlib.nullcontext():
+            bs.reset_launches()
+            prop = qt.init_prop(psi0, op, tlist,
+                                rng=np.random.default_rng(SEED + 60), **kw)
+            torch.cuda.synchronize()
+            n_env = bs.LAUNCHES[BANDED]
+            orders = len(prop.wrk.coeffs)
+            bs.reset_launches()
+            psi, _ = _timed_run(prop, psi0)
+            n = bs.LAUNCHES[BANDED]
+            _, t = _timed_run(prop, psi0, reps=2)
+            runs[way] = (psi, t, n, n_env, orders, prop._step.captures)
+            del prop
+    (pg, tg, ng, eg, orders, cg), (pe, te, ne, ee, oe, ce) = \
+        runs["graph"], runs["eager"]
+    same = torch.equal(pg, pe)
+    err = float((pg - ctx["psi_T"]).abs().max())
+    want = N_STEPS * (orders - 1)
+    if not (same and err <= 1e-10 and ng == ne == want and oe == orders
+            and cg == 1 and ce == 0):
+        raise AssertionError(
+            f"phase 18a: graph vs eager equal {same} (max|d| "
+            f"{float((pg - pe).abs().max())}), vs phase 7 {err} (<= 1e-10), "
+            f"banded launches graph {ng} eager {ne} (expected {want}), "
+            f"orders {orders} / {oe}, captures {cg} / {ce}")
+    log(f"phase 18a stepwise cheby dd banded20 2^{L} {N_STEPS} steps: graph "
+        f"vs eager bit for bit, max|d| vs phase 7 fused dd={err:.3e} (<= "
+        f"1e-10), {BANDED} launches={ng} = {N_STEPS} x ({orders} - 1) both "
+        f"ways (the envelope's own: {eg}), 1 capture over 3 propagations; "
+        f"graph {N_STEPS / tg:.3f} steps/s, eager {N_STEPS / te:.3f} "
+        f"steps/s [{card}]")
+    return ng
+
+
+def _small_driven(device, sparse):
+    """Phase 18b's systems: the N = 10 transmon ladder of phase 9 (its
+    terms on the card, and as numpy matrices, which a propagator copies
+    onto the card once) and phase 9's N = 1024 sparse Hermitian with a
+    diagonal drive, each ``(generator, state, tlist)`` over 100
+    intervals."""
+    import scipy.sparse as sp
+
+    import quantumpropagators_torch as qt
+
+    N = 10
+    a = sp.diags(np.sqrt(np.arange(1, N, dtype=float)), 1).tocsr()
+    ad = a.T.tocsr()
+    n_op = (ad @ a).tocsr()
+    H0 = (6.0 * n_op - 0.1 * (n_op @ (n_op - sp.identity(N)))).tocsr()
+    Hd = (a + ad).tocsr()
+    transmon = qt.hamiltonian(
+        qt.dia_from_scipy(H0, device=device),
+        (qt.dia_from_scipy(Hd, device=device),
+         lambda t: 0.3 * float(np.cos(5.8 * t))))
+    psi_t = torch.as_tensor(np.eye(N)[0].astype(complex), device=device)
+    host = qt.hamiltonian(H0.toarray(), (Hd.toarray(),
+                                         transmon.amplitudes[0]))
+    op, psi_s = sparse
+    rng = np.random.default_rng(SEED + 90)
+    drive = qt.csr_from_scipy(sp.diags(rng.uniform(-1.0, 1.0, 1024))
+                              .tocsr(), device=device)
+    hermitian = qt.hamiltonian(op, (drive,
+                                    lambda t: 0.5 * float(np.cos(2.0 * t))))
+    return {"transmon N=10": (transmon, psi_t, np.linspace(0.0, 10.0, 101)),
+            "transmon N=10 numpy terms": (host, psi_t,
+                                          np.linspace(0.0, 10.0, 101)),
+            "sparse Hermitian N=1024": (hermitian, psi_s,
+                                        np.linspace(0.0, 10.0, 101))}
+
+
+def _moved_envelope(prop):
+    """New controls past the certified range whose envelope keeps the
+    coefficient count: widens the range until one does."""
+    import quantumpropagators_torch as qt
+
+    (control,) = prop.parameters.keys()
+    vals = prop.parameters[control]
+    lo, hi = prop.control_ranges[control]
+    n, delta = len(prop.wrk.coeffs), prop.wrk.delta
+    for f in (0.002, 0.005, 0.01, 0.02, 0.05):
+        vals[:] = np.linspace(lo - f * (hi - lo), hi + f * (hi - lo),
+                              len(vals))
+        qt.reinit_prop(prop, prop.state)
+        if len(prop.wrk.coeffs) == n and prop.wrk.delta != delta:
+            return f
+    raise AssertionError("no moved envelope kept the coefficient count")
+
+
+def step_graph_small(device, card, sparse):
+    """Phase 18b: 100 stepwise Chebyshev intervals with
+    ``check_normalization=True`` and amplitudes changing every interval,
+    graphed and eager, on two small systems; one capture a propagator
+    through new controls and a moved envelope of the same length."""
+    import quantumpropagators_torch as qt
+
+    for label, (gen, psi0, tlist) in _small_driven(device, sparse).items():
+        n = len(tlist) - 1
+        finals, rates = {}, {}
+        for way in ("graph", "eager"):
+            with bodies_only() if way == "eager" \
+                    else contextlib.nullcontext():
+                prop = qt.init_prop(psi0, gen, tlist, method="cheby",
+                                    check_normalization=True)
+                _timed_run(prop, psi0)
+                first = prop._step.captures
+                psi, t = _timed_run(prop, psi0, reps=2)
+                # new controls inside the certified range
+                (control,) = prop.parameters.keys()
+                vals = prop.parameters[control]
+                vals[:] = 0.5 * vals[::-1].copy()
+                _timed_run(prop, psi0)
+                new = prop._step.captures - first
+                f = _moved_envelope(prop)
+                moved, _ = _timed_run(prop, psi0)
+                again = prop._step.captures - first - new
+                finals[way], rates[way] = (psi, moved), n / t
+                counts = (first, new, again)
+                del prop
+            if way == "graph" and counts != (1, 0, 0):
+                raise AssertionError(f"phase 18b {label}: captures {counts} "
+                                     f"(expected 1, 0, 0)")
+        err = max(float((g - e).abs().max())
+                  for g, e in zip(finals["graph"], finals["eager"]))
+        norm_err = abs(float(torch.linalg.vector_norm(finals["graph"][0]))
+                       - 1.0)
+        if not (err <= 1e-12 and norm_err <= 1e-12):
+            raise AssertionError(f"phase 18b {label}: graph vs eager {err}, "
+                                 f"norm {norm_err}")
+        log(f"phase 18b stepwise cheby {label} {n} steps, "
+            f"check_normalization: graph vs eager max|d|={err:.3e} (<= "
+            f"1e-12, also after a moved envelope, range +{f:g} a side), "
+            f"captures 1, then 0 for new controls, 0 for the moved "
+            f"envelope; graph {rates['graph']:.3f} "
+            f"steps/s, eager {rates['eager']:.3f} steps/s [{card}]")
+
+
+def step_graph_arnoldi(device, card, ctx):
+    """Phase 18c: the Arnoldi site on banded20: ``specrange`` graphed and
+    eager (``Hess`` bit for bit), 5 ``newton`` and ``expv`` dd steps both
+    ways, and the reserved memory around an envelope.  Returns the
+    graphed runs' banded launches."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops import arnoldi as arn
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.ops.specrange import random_state
+
+    op, psi0, tlist = ctx["op"], ctx["psi0"], ctx["tlist"]
+    L = N_BANDED.bit_length() - 1
+    start = torch.as_tensor(random_state(op, rng=np.random.default_rng(
+        SEED + 95)), device=device)
+    m = 60
+
+    def hess():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        H, _, m_eff = arn._arnoldi(op, start, m, 1.0, extended=False,
+                                   basis=False)
+        return H, m_eff, time.perf_counter() - t0
+
+    with arn.arnoldi_sites(arn.ArnoldiSites()) as sites:
+        _, _, t_first = hess()  # eager
+        _, _, t_capture = hess()  # captured, then replayed
+        Hg, mg, tg = hess()
+        captures = sites.captures
+    with bodies_only():
+        He, me, te = hess()
+    if not (np.array_equal(Hg, He) and mg == me and captures == 1):
+        raise AssertionError(f"phase 18c specrange: Hess equal "
+                             f"{np.array_equal(Hg, He)}, m_eff {mg} / {me}, "
+                             f"captures {captures}")
+    log(f"phase 18c Arnoldi m={m} banded20 2^{L} (specrange's call): Hess "
+        f"bit for bit graph vs eager, m_eff={mg}, 1 capture; graph "
+        f"{tg:.4f} s, eager {te:.4f} s, first call (eager) "
+        f"{t_first:.4f} s, second (capture and replay) {t_capture:.4f} s "
+        f"[{card}]")
+
+    from quantumpropagators_torch.utils.timings import (disable_timings,
+                                                        enable_timings)
+
+    launches = {}
+    short = tlist[:6]
+    enable_timings()
+    for method in ("newton", "expv"):
+        states, rates, counts, peaks, bases = {}, {}, {}, {}, {}
+        for way in ("graph", "eager"):
+            bases[way] = base = _reserved_gib()
+            torch.cuda.reset_peak_memory_stats()
+            with bodies_only() if way == "eager" \
+                    else contextlib.nullcontext():
+                prop = qt.init_prop(psi0, op, short, method=method,
+                                    precision="dd",
+                                    dd_operator_terms=(ctx["banded"],))
+                bs.reset_launches()
+                prop.timing_data.reset()
+                states[way], _ = _timed_run(prop, psi0)
+                counts[way] = (bs.LAUNCHES[BANDED],
+                               prop.timing_data.counters.get("matvec", 0),
+                               prop._arnoldi_sites.captures)
+                _, t = _timed_run(prop, psi0, reps=2)
+                rates[way] = 5 / t
+                del prop
+            peaks[way] = torch.cuda.max_memory_reserved() / 2 ** 30 - base
+        (ng, mv, cg), (ne, me, ce) = counts["graph"], counts["eager"]
+        err = float((states["graph"] - states["eager"]).abs().max())
+        err5 = float((states["graph"] - ctx["psi_5"]).abs().max())
+        if not (ng == mv == ne == me and ng > 0 and cg == 1 and ce == 0
+                and err5 <= 1e-10):
+            raise AssertionError(f"phase 18c {method} dd: launches {ng} / "
+                                 f"{ne}, matvecs {mv} / {me}, captures {cg}"
+                                 f" / {ce}, vs 5 cheby steps {err5}")
+        launches[f"phase 18c {method} dd graph"] = ng
+        log(f"phase 18c {method} dd banded20 2^{L} 5 steps: graph vs eager "
+            f"max|d|={err:.3e}, vs phase 7's 5 steps {err5:.3e} (<= 1e-10), "
+            f"launches={ng} = matvecs both ways, 1 capture over 3 "
+            f"propagations; graph {rates['graph']:.3f} steps/s, eager "
+            f"{rates['eager']:.3f} steps/s; peak reserved GiB above the "
+            f"reserved before (graph {bases['graph']:.3f}, eager "
+            f"{bases['eager']:.3f}): graph {peaks['graph']:.3f}, eager "
+            f"{peaks['eager']:.3f} [{card}]")
+    disable_timings()
+
+    before = _reserved_gib()
+    prop = qt.init_prop(psi0, op, tlist, method="cheby",
+                        rng=np.random.default_rng(SEED + 60))
+    torch.cuda.synchronize()
+    after_env = torch.cuda.memory_reserved() / 2 ** 30
+    _timed_run(prop, psi0)
+    after_run = torch.cuda.memory_reserved() / 2 ** 30
+    del prop
+    dropped = _reserved_gib()
+    if not abs(dropped - before) <= 0.5:
+        raise AssertionError(f"phase 18c: reserved {before:.3f} GiB before, "
+                             f"{dropped:.3f} after the propagator is dropped")
+    log(f"phase 18c reserved GiB around a banded20 cheby propagator (m=60 "
+        f"envelope, 20 graphed steps): {before:.3f} before, {after_env:.3f} "
+        f"after the envelope, {after_run:.3f} after the steps, {dropped:.3f} "
+        f"after it is dropped (within 0.5 of before) [{card}]")
+    return launches
+
+
+def step_graph_phase(device, card, ctx, sparse):
+    """Phase 18: the stepwise path's graphed sites (a-c).  Returns the
+    banded launches of its graphed paths."""
+    t0 = time.perf_counter()
+    launches = {"phase 18a stepwise cheby dd graph":
+                step_graph_banded(device, card, ctx)}
+    step_graph_small(device, card, sparse)
+    launches.update(step_graph_arnoldi(device, card, ctx))
+    log(f"phase 18 {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def free_port() -> int:
@@ -3998,6 +4316,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sparse = small_configs(device, card)
+    for path, n in step_graph_phase(device, card, ctx, sparse).items():
+        banded["launches_by_path"][path] = n
+        banded["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
     scan_paths, _ = graph_phase(device, card, chain, ctx)
     gc.collect()
     torch.cuda.empty_cache()

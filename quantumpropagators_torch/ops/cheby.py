@@ -7,7 +7,10 @@ normalized Hamiltonian (reference ``src/cheby.jl``): coefficients
 three-vector recurrence ``v₂ = c (H v₁ − β v₁) + v₀`` with
 ``β = Δ/2 + E_min`` and ``c = ∓2i/Δ``, and a final global phase
 ``exp(-i β dt)``.  The recurrence is a plain Python loop over ``apply``
-calls.
+calls that never reads the host: ``Δ``, ``E_min``, ``dt`` and the
+normalization check are 0-d tensors on the state's device, so one call
+is captured whole as a CUDA graph (the JAX package jits it with those
+values traced; ``propagators/cheby.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 from scipy.special import jv as _besselj
 
-from .operators import apply, vdot
+from .operators import apply, device_scalar, vdot
 
 __all__ = ["cheby_coeffs", "n_cheby_coeffs", "ChebyWorkspace", "cheby_apply"]
 
@@ -118,23 +121,28 @@ def cheby_apply(
     ``op`` is any operator implementing the ``apply`` protocol,
     ``coeffs`` the coefficient array: a host array (each order multiplies
     by a Python number) or a tensor (each order multiplies by its 0-d
-    row, so coefficients on the card are never read back).  ``dt`` is the *signed* time step
-    and ``forward`` must match its sign (it selects ``c = ∓2i/Δ``,
+    row, so coefficients on the card are never read back).
+    ``delta``/``e_min``/``dt`` are numbers or 0-d tensors (as JAX traces
+    them); either way they become 0-d float64 tensors on ``psi``'s
+    device, so both give the same bits.  ``dt`` is the *signed* time
+    step and ``forward`` must match its sign (it selects ``c = ∓2i/Δ``,
     reference ``src/cheby.jl:158-162``).
 
     With ``check_normalization=True``, additionally returns the maximum
     over the recurrence of ``|⟨v₁, H_norm v₁⟩| / ‖v₁‖²`` (reference
-    ``src/cheby.jl:194-200``).  ``out`` (optional, ``psi``'s shape in
-    the complex dtype) receives the result, which is then returned.
+    ``src/cheby.jl:194-200``) as a 0-d tensor on the device, kept with
+    ``torch.maximum`` as the JAX scan keeps it.  ``out`` (optional,
+    ``psi``'s shape in the complex dtype) receives the result, which is
+    then returned.
     """
     if apply_fn is None:
         apply_fn = apply
     cdtype = torch.promote_types(psi.dtype, torch.complex64)
     psi = psi.to(cdtype)
-    delta = float(delta)
-    beta = delta / 2.0 + float(e_min)
-    sign = -1.0 if forward else 1.0
-    c = sign * 2.0j / delta
+    delta = device_scalar(delta, psi.device)
+    beta = delta / 2.0 + device_scalar(e_min, psi.device)
+    s = (-2.0 if forward else 2.0) / delta
+    c = torch.complex(torch.zeros_like(s), s)
     a = coeffs if isinstance(coeffs, torch.Tensor) \
         else np.asarray(coeffs).tolist()
 
@@ -143,18 +151,19 @@ def cheby_apply(
     v1 = c * (apply_fn(op, v0) - beta * v0)
     phi = phi + a[1] * v1
     c2 = 2.0 * c
-    max_norm = 0.0
+    max_norm = torch.zeros((), dtype=psi.real.dtype, device=psi.device)
     for ak in a[2:]:
         hv = c2 * (apply_fn(op, v1) - beta * v1)
         if check_normalization:
-            map_norm = float(abs(vdot(v1, hv)) / (2.0 * vdot(v1, v1).real))
-            max_norm = max(max_norm, map_norm)
+            map_norm = vdot(v1, hv).abs() / (2.0 * vdot(v1, v1).real)
+            max_norm = torch.maximum(max_norm, map_norm)
         v2 = hv + v0
         phi = phi + ak * v2
         v0, v1 = v1, v2
 
-    result = torch.mul(phi, complex(np.exp(-1j * beta * float(dt))),
-                       out=out)
+    theta = beta * device_scalar(dt, psi.device)
+    phase = torch.polar(torch.ones_like(theta), -theta)
+    result = torch.mul(phi, phase, out=out)
     if check_normalization:
         return result, max_norm
     return result

@@ -30,11 +30,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .arnoldi import arnoldi
+from .arnoldi import _arnoldi_impl, _read, graphed_call
 from .banded_spmv import banded_dd_apply
 from .bsr_dd import BandedDD
 from .df64 import DD, cdd_from_c128
-from .operators import BSROperator, as_tensor, host_np, resolve_device, vdot
+from .operators import (BSROperator, as_tensor, host_np, op_mesh,
+                        resolve_device, vdot)
 
 __all__ = [
     "dd_sum",
@@ -258,15 +259,47 @@ class _Applied:
         return apply_cdd_op(self.op, v)
 
 
+def _split_dd(op):
+    """``(terms, amplitudes)`` of a :class:`TermsDDOp` (its ``coeffs4``
+    are per-call data of the graphed site); any other operator as itself
+    and ``None``."""
+    if isinstance(op, TermsDDOp):
+        return ("terms", tuple(op.terms), op.shape), op.coeffs4
+    return ("op", op), None
+
+
+def _join_dd(terms, amps):
+    if terms[0] == "terms":
+        return _Applied(TermsDDOp(terms[1], amps, terms[2]))
+    return _Applied(terms[1])
+
+
+def _arnoldi_dd_impl(op, amps, psi, m: int, dt, norm_min):
+    """The body of :func:`arnoldi_dd`, the JAX ``_arnoldi_dd_impl``
+    (``m``, ``dt`` and ``norm_min`` static there).  ``m`` and
+    ``norm_min`` are part of the graphed site's key; ``dt`` is per-call
+    data, as in :func:`.arnoldi.arnoldi`: a time grid's intervals differ
+    in their last bits, and the site holds one graph where ``jax.jit``
+    caches one executable for each."""
+    return _arnoldi_impl(op, amps, psi, m, dt, norm_min, True, True,
+                         join=_join_dd)
+
+
 def arnoldi_dd(op, psi, m: int, dt: float = 1.0, *,
                norm_min: float = 1e-12):
     """Extended Arnoldi factorization of ``H·dt`` in complex128 from the
     normalized ``psi``: ``(Hess, q, m_eff)`` with ``Hess`` an
     ``(m+1, m+1)`` host complex128 array, ``q`` the ``(m+1, N)`` basis on
-    ``psi``'s device and ``m_eff ≤ m`` (< m at Krylov breakdown)."""
+    ``psi``'s device and ``m_eff ≤ m`` (< m at Krylov breakdown).  The
+    call runs through the active :func:`~.arnoldi.arnoldi_sites` scope's
+    graphed site, as :func:`~.arnoldi.arnoldi` does."""
     psi = cdd_from_c128(psi)
-    return arnoldi(_Applied(op), psi, int(m), float(dt), extended=True,
-                   norm_min=float(norm_min))
+    terms, amps = _split_dd(op)
+    Hess, q, m_eff = graphed_call(
+        _arnoldi_dd_impl, {"controls": ("amps", "dt")}, op_mesh(op), terms,
+        amps, psi, int(m), float(dt), float(norm_min))
+    Hess, m_eff = _read(Hess, m_eff)
+    return Hess, q, m_eff
 
 
 def _device_of(op) -> torch.device:

@@ -14,7 +14,10 @@ generalized-residual error estimate ``β·|dt·h_{m+1,m}·[exp]_{m,1}|`` is
 evaluated and ``m`` is doubled until it passes.
 
 A sharded state under an operator that carries the mesh goes through
-unchanged (see :mod:`.newton`).
+unchanged (see :mod:`.newton`).  Inside a propagator's step the Arnoldi
+call replays one CUDA graph of its :func:`.arnoldi.arnoldi_sites` scope;
+outside every scope it runs the body (one call, or one a doubled ``m``,
+has nothing to replay).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ def _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max, N, mesh):
             err = beta * h_next * abs(E[m_eff - 1, 0])
             if err > tol and m < min(m_max, N):
                 m = min(2 * m, m_max, N)
+                del q  # before the next call makes its basis
                 continue
         weights = torch.as_tensor(beta * np.asarray(E[:, 0], np.complex128))
         return torch.tensordot(weights.to(q.device, q.dtype), q[:m_eff],

@@ -11,6 +11,8 @@ The O(N) work of a restart (the Arnoldi matvecs and Gram-Schmidt of
 state's device; the O(m²) bookkeeping (Hessenberg eigenvalues, greedy
 Leja ordering, divided differences, the small polynomial recurrences)
 stays on the host in complex128, and the host drives the restarts.
+Every restart's Arnoldi call replays one CUDA graph: the call's own
+:func:`.arnoldi.arnoldi_sites` scope, or its propagator's.
 :func:`newton_apply_dd` is the same loop over a reference-accuracy
 operator (:mod:`.dd_linalg`) with the state in complex128.
 
@@ -28,7 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .arnoldi import arnoldi, diagonalize_hessenberg_matrix
+from .arnoldi import arnoldi, arnoldi_sites, diagonalize_hessenberg_matrix
 from .operators import sharded_dim, sharded_norm
 
 __all__ = [
@@ -200,6 +202,7 @@ def _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
         if beta <= norm_min:
             break  # residual vanished: expansion is exact
         v = _combine(R / beta, q)
+        del q  # a lent basis: the next restart's call overwrites it
 
         psi_relerr = beta * abs(a[n_leja - 1]) / (
             1.0 + float(sharded_norm(Psi, mesh)))
@@ -251,8 +254,10 @@ def newton_apply(
     def arnoldi_fn(v, m):
         return arnoldi(op, v, m, dt, extended=True, norm_min=norm_min)
 
-    return _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
-                        max_restarts, info, *sharded_dim(op, psi))
+    with arnoldi_sites():  # the restarts replay one graph
+        return _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min,
+                            relerr, max_restarts, info,
+                            *sharded_dim(op, psi))
 
 
 def _split_c128_planes(w) -> np.ndarray:
@@ -287,5 +292,7 @@ def newton_apply_dd(
     def arnoldi_fn(v, m):
         return arnoldi_dd(op, v, m, dt, norm_min=norm_min)
 
-    return _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
-                        max_restarts, info, *sharded_dim(op, psi))
+    with arnoldi_sites():  # the restarts replay one graph
+        return _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min,
+                            relerr, max_restarts, info,
+                            *sharded_dim(op, psi))

@@ -118,6 +118,38 @@ def host_np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def device_scalar(x, device, dtype=torch.float64) -> torch.Tensor:
+    """``x`` as a 0-d ``dtype`` tensor on ``device``: a tensor is cast
+    where it is needed, a number written there by a fill, so that
+    neither reads nor copies host memory and a CUDA graph captures
+    either (the number as the fill's constant)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+class DeviceCopies:
+    """Dense operator terms on another device than the state (a numpy
+    matrix, a tensor on the host) copied onto the state's device once,
+    and kept as long as this object: :func:`apply` would copy such a
+    term at every matvec, a host-to-device copy that a CUDA graph cannot
+    capture.  Any other operator is returned as it is."""
+
+    def __init__(self):
+        self._copies = {}
+
+    def __call__(self, term, device):
+        device = torch.device(device)
+        if not _is_dense(term) or (isinstance(term, torch.Tensor)
+                                   and term.device == device):
+            return term
+        key = (id(term), device)
+        if key not in self._copies:
+            # the term itself is kept too, so that its id is not reused
+            self._copies[key] = (term, as_tensor(term, device=device))
+        return self._copies[key][1]
+
+
 def _promote(a: torch.Tensor, b: torch.Tensor):
     dtype = torch.promote_types(a.dtype, b.dtype)
     return a.to(dtype), b.to(dtype)

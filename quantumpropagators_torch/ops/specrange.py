@@ -17,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .arnoldi import arnoldi, diagonalize_hessenberg_matrix
+from .arnoldi import _arnoldi, diagonalize_hessenberg_matrix
 from .operators import (as_tensor, host_np, op_device, op_mesh, op_shape,
                         sharded_norm, to_dense)
 
@@ -61,9 +61,9 @@ def ritzvals(
 
     psi0 = as_tensor(state, device=op_device(op))
     psi0 = psi0 / sharded_norm(psi0, op_mesh(op))
-    Hess, _q, m_eff = arnoldi(op, psi0, m_max, 1.0, extended=False,
-                              norm_min=norm_min)
-    del _q
+    # the basis stays inside the call: only Hess and m_eff come out
+    Hess, _, m_eff = _arnoldi(op, psi0, m_max, 1.0, extended=False,
+                              norm_min=norm_min, basis=False)
     m_cap = min(m_eff, m_max)
 
     def _extremes(j):

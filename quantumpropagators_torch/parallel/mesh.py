@@ -142,9 +142,11 @@ class Mesh:
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum over all slots of per-slot values ``x`` of shape
         ``(n_local, ...)``, the same on every rank.  Runs one
-        ``all_reduce`` whenever the mesh has a group."""
+        ``all_reduce`` when the group spans more than one rank (with one
+        rank the local sum is the sum, and a graph that captures it holds
+        no collective)."""
         total = x.sum(0)
-        if self.group is not None:
+        if self.group is not None and self.world_size > 1:
             dist.all_reduce(_wire(total), group=self.group)
         return total
 

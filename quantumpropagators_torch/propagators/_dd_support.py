@@ -102,7 +102,10 @@ def state_to_cdd(state) -> torch.Tensor:
 
 def interval_terms_dd(dd_terms, coeffs):
     """The interval operator as a :class:`~..ops.dd_linalg.TermsDDOp`:
-    only the coefficients change per interval."""
+    only the coefficients change per interval.  The graphed Arnoldi site
+    takes them apart from the terms again (``ops/dd_linalg.py``
+    ``_split_dd``) and copies them in as per-call data, so that no
+    graph's key holds them."""
     from ..ops.dd_linalg import TermsDDOp
     from ..ops.newton import _split_c128_planes
     from ..ops.operators import host_np

@@ -9,6 +9,17 @@ it by ``specrange_buffer``, and fixes the Chebyshev coefficients for the
 uniform time step.  Re-initialization only recomputes coefficients when
 current control amplitudes leave the certified range
 (``src/cheby_propagator.jl:243-299``).
+
+The per-interval step is one graphed call (:func:`~..utils.scan.graphed`,
+the port of the JAX ``jax.jit`` of :func:`_cheby_step`): on the card each
+interval replays one CUDA graph that reads the term operators in place
+and takes the interval's amplitudes, the Chebyshev coefficients, ``Δ``,
+``E_min`` and ``dt`` as data, so control updates and a re-initialized
+envelope of the same length replay the same graph.  Each propagator
+owns its site (and the site its memory pool), so dropping the
+propagator frees its graph, and its copies of host terms on the state's
+device, made once.  A generator sharded over a group of more than one
+rank runs the interval eagerly (no cross-rank capture).
 """
 
 from __future__ import annotations
@@ -17,10 +28,13 @@ import numpy as np
 import torch
 
 from ..models.controls import discretize
+from ..models.generators import Operator
+from ..ops.arnoldi import ArnoldiSites, arnoldi_sites
 from ..ops.cheby import ChebyWorkspace, cheby_apply
-from ..ops.operators import as_tensor
+from ..ops.operators import DeviceCopies, as_tensor, op_mesh
 from ..ops.specrange import specrange
 from ..utils.iddict import IdDict
+from ..utils.scan import graphed
 from ..utils.timings import TimingData
 from .base import get_uniform_dt, register_method
 from .pwc import PWCPropagatorBase
@@ -28,11 +42,38 @@ from .pwc import PWCPropagatorBase
 __all__ = ["ChebyPropagator", "cheby_get_spectral_envelope"]
 
 
+def _cheby_step(ops, amps, psi, coeffs, delta, e_min, dt, forward,
+                check_normalization):
+    """One interval over ``Operator(ops, amps)``: the JAX ``_cheby_step``,
+    jitted with the operator, ``coeffs``, ``delta``, ``e_min`` and ``dt``
+    traced and ``forward``/``check_normalization`` static."""
+    return cheby_apply(
+        Operator(list(ops), amps), psi, coeffs, delta, e_min, dt,
+        forward=forward, check_normalization=check_normalization,
+    )
+
+
+def _cheby_step_dd(terms, amps, psi, coeffs, delta, e_min, dt, forward):
+    """One reference-accuracy interval over the dd terms with the
+    interval's amplitudes (the JAX ``_cheby_step_dd`` over a
+    ``TermsDDOp``, jitted with ``delta``, ``e_min``, ``dt`` and
+    ``forward`` static); a banded term is one ``banded_spmv<double>``
+    launch per order on the card."""
+    from ..ops.dd_linalg import TermsDDOp, apply_cdd_op
+    from ..ops.df64_sparse import cheby_dd_recurrence
+
+    op = TermsDDOp(terms=tuple(terms), coeffs4=amps)
+    return cheby_dd_recurrence(lambda v: apply_cdd_op(op, v), psi, coeffs,
+                               0.0, delta, e_min, dt, forward)
+
+
 def cheby_get_spectral_envelope(generator, tlist, control_ranges, method, **kwargs):
     """Estimate ``(E_min, E_max)`` of ``generator`` over the whole
     propagation, by evaluating at minimal and maximal control values and
     taking the union of both spectral ranges
-    (reference ``src/cheby_propagator.jl:331-345``)."""
+    (reference ``src/cheby_propagator.jl:331-345``).  The two
+    ``specrange`` calls share one graphed Arnoldi site, which lives for
+    this call only."""
     from ..models.controls import evaluate
 
     n = len(tlist) // 2
@@ -40,8 +81,9 @@ def cheby_get_spectral_envelope(generator, tlist, control_ranges, method, **kwar
     max_vals = IdDict([(c, r[1]) for c, r in control_ranges.items()])
     G_min = evaluate(generator, tlist, n, vals_dict=min_vals)
     G_max = evaluate(generator, tlist, n, vals_dict=max_vals)
-    E_min, E_max = specrange(G_max, method, **kwargs)
-    e2_min, e2_max = specrange(G_min, method, **kwargs)
+    with arnoldi_sites(ArnoldiSites()):
+        E_min, E_max = specrange(G_max, method, **kwargs)
+        e2_min, e2_max = specrange(G_min, method, **kwargs)
     return min(E_min, e2_min), max(E_max, e2_max)
 
 
@@ -49,8 +91,12 @@ class ChebyPropagator(PWCPropagatorBase):
     """Piecewise-constant Chebyshev propagator.
 
     ``precision="dd"`` keeps the JAX package's name for its
-    reference-accuracy tier; here it runs every step in complex128
-    (``dd_operator_terms`` is accepted and ignored).
+    reference-accuracy tier: the state is complex128 and each interval
+    applies the dd terms built once at init
+    (:func:`~._dd_support.build_dd_terms`: the generator's terms, or
+    ``dd_operator_terms`` in their place; a ready
+    :class:`~..ops.bsr_dd.BandedDD` term is one ``banded_spmv<double>``
+    launch per order on the card).
     """
 
     def __init__(
@@ -80,6 +126,26 @@ class ChebyPropagator(PWCPropagatorBase):
         )
         self.precision = precision
         self.set_state(state)
+        self._dd_terms = None
+        self._copies = DeviceCopies()
+        if precision == "dd":
+            from ..ops.dd_linalg import TermsDDOp
+            from ._dd_support import build_dd_terms
+
+            self._dd_terms = build_dd_terms(
+                self._interval_operator(0), dd_operator_terms,
+                device=self.state.device,
+            )
+            self._step = graphed(_cheby_step_dd,
+                                 mesh=op_mesh(TermsDDOp(self._dd_terms, None)),
+                                 operators=("terms",),
+                                 controls=("amps", "coeffs"), own_pool=True)
+        else:
+            self._step = graphed(
+                _cheby_step, mesh=op_mesh(self._generator),
+                operators=("ops",),
+                controls=("amps", "coeffs", "delta", "e_min", "dt"),
+                own_pool=True)
         self.specrange_method = specrange_method
         self.specrange_buffer = float(specrange_buffer)
         self.specrange_options = dict(specrange_kwargs)
@@ -155,25 +221,39 @@ class ChebyPropagator(PWCPropagatorBase):
         """The complex128 state (the JAX package's dd planes merged)."""
         return self.state.to(torch.complex128)
 
+    def _amplitudes(self, n: int):
+        """The amplitudes of interval ``n``, apart from the terms."""
+        gen = self._generator
+        if isinstance(gen, Operator) and isinstance(gen.coeffs, torch.Tensor):
+            return gen.coeffs
+        return self._interval_coeffs(n)
+
     def prop_step(self):
         if self._done:
             return None
         with self.timing_data.section("prop_step"):
             n = self.n
-            op = self._interval_operator(n)
+            wrk = self.wrk
             dt = -self._dt if self.backward else self._dt
-            result = cheby_apply(
-                op,
-                self.state,
-                self.wrk.coeffs,
-                self.wrk.delta,
-                self.wrk.e_min,
-                dt,
-                forward=not self.backward,
-                check_normalization=self.check_normalization,
-            )
-            if self.check_normalization:
+            if self.precision == "dd":
+                result = self._step(
+                    self._dd_terms,
+                    np.asarray(self._amplitudes(n), np.complex128),
+                    self.state, wrk.coeffs, wrk.delta, wrk.e_min, dt,
+                    not self.backward,
+                )
+            else:
+                device = self.state.device
+                result = self._step(
+                    tuple(self._copies(t, device)
+                          for t in self._interval_terms()),
+                    self._amplitudes(n),
+                    self.state, wrk.coeffs, wrk.delta, wrk.e_min, dt,
+                    not self.backward, self.check_normalization,
+                )
+            if self.check_normalization and self.precision != "dd":
                 psi, max_norm = result
+                # the interval's one read of the device, as in JAX
                 if float(max_norm) > 1.0 + self.wrk.limit:
                     raise RuntimeError(
                         f"Incorrect normalization "

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..ops.expv import expv_apply, expv_apply_dd
+from ..ops.arnoldi import ArnoldiSites, arnoldi_sites
 from ..ops.operators import as_tensor
 from ..utils.timings import TimingData
 from ._dd_support import DDStateMixin
@@ -50,11 +51,14 @@ class KrylovPropagator(DDStateMixin, PWCPropagatorBase):
         self.norm_min = float(norm_min)
         self.timing_data = TimingData()
         self._init_dd(state, precision, dd_operator_terms)
+        # every step's Arnoldi calls replay this propagator's graphs
+        self._arnoldi_sites = ArnoldiSites()
 
     def prop_step(self):
         if self._done:
             return None
-        with self.timing_data.section("prop_step"):
+        with self.timing_data.section("prop_step"), \
+                arnoldi_sites(self._arnoldi_sites):
             n = self.n
             if self.precision == "dd":
                 self._dd_step(n, expv_apply_dd, m=self.m_max, tol=self.tol,

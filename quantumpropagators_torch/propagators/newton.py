@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from ..ops.newton import NewtonInfo, newton_apply, newton_apply_dd
+from ..ops.arnoldi import ArnoldiSites, arnoldi_sites
 from ..ops.operators import as_tensor
 from ..utils.timings import TimingData
 from ._dd_support import DDStateMixin
@@ -55,11 +56,14 @@ class NewtonPropagator(DDStateMixin, PWCPropagatorBase):
         self.timing_data = TimingData()
         self.newton_info = NewtonInfo()
         self._init_dd(state, precision, dd_operator_terms)
+        # every step's Arnoldi calls replay this propagator's graphs
+        self._arnoldi_sites = ArnoldiSites()
 
     def prop_step(self):
         if self._done:
             return None
-        with self.timing_data.section("prop_step"):
+        with self.timing_data.section("prop_step"), \
+                arnoldi_sites(self._arnoldi_sites):
             n = self.n
             kwargs = dict(func=self.func, m_max=self.m_max,
                           relerr=self.relerr, max_restarts=self.max_restarts,

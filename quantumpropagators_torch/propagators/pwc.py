@@ -140,13 +140,20 @@ class IntervalStepper(Propagator):
         ]
         return np.asarray(coeffs)
 
+    def _interval_terms(self) -> list:
+        """The term operators of every interval: only the amplitudes of
+        :meth:`_interval_coeffs` change from one interval to the next,
+        and a graphed step takes them apart, as data."""
+        gen = self._generator
+        if isinstance(gen, (Generator, Operator)):
+            return list(gen.ops)
+        return [gen]
+
     def _interval_operator(self, n: int) -> Operator:
         gen = self._generator
-        if isinstance(gen, Generator):
-            return Operator(gen.ops, self._interval_coeffs(n))
         if isinstance(gen, Operator):
             return gen
-        return Operator([gen], np.zeros((0,)))
+        return Operator(self._interval_terms(), self._interval_coeffs(n))
 
 
 class PWCPropagatorBase(IntervalStepper, PWCPropagator):

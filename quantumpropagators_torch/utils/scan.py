@@ -124,6 +124,7 @@ import contextlib
 import functools
 import gc
 import inspect
+import types
 import weakref
 
 import numpy as np
@@ -1135,7 +1136,8 @@ class _ScanVJP(torch.autograd.Function):
 # -- jax.jit of one call --------------------------------------------------
 
 
-def graphed(body, *, mesh=None, operators=(), controls=()):
+def graphed(body, *, mesh=None, operators=(), controls=(), own_pool=False,
+            lend=False):
     """``jax.jit`` of ``body`` on the port: a :class:`Graphed` whose
     calls on the card each replay one CUDA graph of ``body`` (two while
     autograd records: its forward and its VJP).
@@ -1151,8 +1153,18 @@ def graphed(body, *, mesh=None, operators=(), controls=()):
     kernel scalars, Python numbers, ``None``) is part of the graph's key
     by value.  ``mesh``: a mesh whose group spans more than one rank
     makes every call run ``body`` eagerly (cross-rank exchanges are not
-    captured)."""
-    return Graphed(body, mesh=mesh, operators=operators, controls=controls)
+    captured).  ``own_pool``: each capture goes into a memory pool of
+    its own instead of the process's shared one, so that the blocks it
+    holds (an Arnoldi basis, a step's temporaries) go back to the
+    device at ``torch.cuda.empty_cache()`` once the graph is freed (a
+    new key, or the site dropped with its owner).  ``lend``: a replay
+    returns the graph's own output tensors, valid until the site's next
+    call, instead of clones; and a key is captured at its second call,
+    after ``torch.cuda.empty_cache()`` has given back what the first,
+    eager call left (its outputs dropped by then), so that the site
+    never holds a large output (an Arnoldi basis) twice."""
+    return Graphed(body, mesh=mesh, operators=operators, controls=controls,
+                   own_pool=own_pool, lend=lend)
 
 
 class Graphed:
@@ -1162,10 +1174,12 @@ class Graphed:
       stream (the kernels get built and one-time device constants made)
       and returns that result; then it captures one call over static
       buffers (capturing runs nothing on the device), so that every
-      call issues one call's launches.
+      call issues one call's launches.  With ``lend`` the capture waits
+      for the key's second call, which then replays it.
     - A later call with the same key copies its per-call inputs into the
       static buffers, replays once and returns clones of the outputs, so
-      that the next call does not overwrite a result the caller holds.
+      that the next call does not overwrite a result the caller holds
+      (with ``lend``, the static outputs themselves).
     - The key holds each per-call input's shape, dtype and device (not
       its strides: it is copied into its buffer), each operator tensor's
       address, shape, strides and dtype, and every other argument's
@@ -1194,16 +1208,20 @@ class Graphed:
     itself.  The launch counters see each replay's launches, as in
     :func:`scan`."""
 
-    def __init__(self, body, *, mesh=None, operators=(), controls=()):
+    def __init__(self, body, *, mesh=None, operators=(), controls=(),
+                 own_pool=False, lend=False):
         functools.update_wrapper(self, body)
         self.body = body
         self.mesh = mesh
         self.operators = frozenset(operators)
         self.controls = frozenset(controls)
+        self.own_pool = bool(own_pool)
+        self.lend = bool(lend)
         self.captures = 0
         self._params = inspect.signature(body)
         self._call = None
         self._grad = None
+        self._seen = None  # with lend: the key whose first call ran
 
     def __call__(self, *args, **kwargs):
         bound = self._params.bind(*args, **kwargs)
@@ -1217,9 +1235,27 @@ class Graphed:
             self._call.load(inputs)
             return self._call.replay()
         self._call = None  # its blocks go back to the pool first
+        if self.lend:
+            return self._lent(key, device, bound, inputs)
         out, self._call = _Call.first(self, key, device, bound, inputs)
         self.captures += 1
         return out
+
+    def _lent(self, key, device, bound, inputs):
+        """A call of a lending site with a key it has no graph of: the
+        key's first call runs eagerly on the side stream; its second is
+        captured, once the first's blocks are given back, and replayed."""
+        if self._seen != key:
+            self._seen = key
+            out, _ = _first_on_side(
+                self.body, device,
+                lambda: (self.body(*bound.args, **bound.kwargs), None),
+                "graphed")
+            return out
+        torch.cuda.empty_cache()
+        self._call = _Call.captured(self, key, device, bound, inputs)
+        self.captures += 1
+        return self._call.replay()
 
     def _route(self, arguments):
         """The card the call runs on (``None``: run the body) and whether
@@ -1533,12 +1569,13 @@ class _Call:
     """One call of a :class:`Graphed` body captured over static
     buffers."""
 
-    def __init__(self, key, buffers, graph, out, delta):
+    def __init__(self, key, buffers, graph, out, delta, lend=False):
         self.key = key
         self.buffers = buffers   # static per-call inputs
         self.graph = graph
         self.out = out           # static outputs
         self.delta = delta       # launches one replay issues
+        self.lend = lend         # a replay returns ``out`` itself
 
     @classmethod
     def first(cls, owner, key, device, bound, inputs):
@@ -1549,13 +1586,20 @@ class _Call:
             owner.body, device,
             lambda: (owner.body(*bound.args, **bound.kwargs), None),
             "graphed")
+        return out, cls.captured(owner, key, device, bound, inputs)
+
+    @classmethod
+    def captured(cls, owner, key, device, bound, inputs):
+        """One call captured over static buffers that hold ``inputs``
+        (capturing runs nothing on the device)."""
         buffers = [_buffer(value, device) for _, value in inputs]
         for (name, _), buf in zip(inputs, buffers):
             bound.arguments[name] = buf
         graph, static, delta = _captured(
             device, lambda: owner.body(*bound.args, **bound.kwargs),
-            lambda exc: _refused(owner.body, exc, "graphed"))
-        return out, cls(key, buffers, graph, static, delta)
+            lambda exc: _refused(owner.body, exc, "graphed"),
+            pool=_OWN_POOL if owner.own_pool else None)
+        return cls(key, buffers, graph, static, delta, owner.lend)
 
     def load(self, inputs):
         _load(self.buffers, inputs)
@@ -1563,7 +1607,7 @@ class _Call:
     def replay(self):
         self.graph.replay()
         _add_launches(self.delta)
-        return _map(torch.clone, self.out)
+        return self.out if self.lend else _map(torch.clone, self.out)
 
 
 def _load(buffers, inputs):
@@ -1637,6 +1681,12 @@ def _walk(obj, tensors, seen, keyed=True):
     if obj is None or isinstance(obj, (bool, int, str, np.generic,
                                        torch.dtype, torch.device)):
         return (type(obj).__name__, repr(obj))
+    if isinstance(obj, (types.FunctionType, types.MethodType,
+                        types.BuiltinFunctionType)):
+        # a key cannot see what a function closes over: a function is
+        # equal only to itself (a method: the same function of the same
+        # object), and the key holds it, so that its id is not reused
+        return ("callable", obj) if keyed else None
     if id(obj) in seen:
         return ("cycle", id(obj))
     seen = seen | {id(obj)}
@@ -1646,6 +1696,9 @@ def _walk(obj, tensors, seen, keyed=True):
     if isinstance(obj, dict):
         return ("dict",) + tuple((k, _walk(v, tensors, seen, keyed))
                                  for k, v in obj.items())
+    if isinstance(obj, functools.partial):
+        return ("partial",) + tuple(_walk(x, tensors, seen, keyed) for x in
+                                    (obj.func, obj.args, obj.keywords))
     fields = getattr(obj, "__dict__", None)
     if fields is None:
         return ("object", id(obj))
