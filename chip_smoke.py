@@ -128,6 +128,24 @@ of the same length; (c) the Arnoldi site: ``specrange`` on banded20
 a propagator, matvecs = banded launches), and the reserved memory
 before an envelope, after it and after its propagator is dropped.
 
+Phase 19 (after phase 18) runs the stepwise ODE and expprop intervals
+(the port of the JAX package's ``lax.while_loop`` of DP5 under the
+``jax.jit`` of ``_pwc_ode_step`` and ``_cont_step``, and of
+``_exp_step``) graphed (captured chunks of masked DP5 attempts, the
+step control on the card, one flag read a chunk; one graph an expprop
+interval) and with every site's body run eagerly: (a) ``method="ode"``
+``pwc=True`` and continuous (a ``torch.cos`` drive) on phase 9's
+N = 1024 sparse Hermitian (its drive term the operator itself, so that
+``expm`` of the integrated generator is the oracle, 1e-7) and on 10
+intervals of the N = 10 transmon; (b) both variants on the driven
+L = 20 chain over 2 intervals of DT (the continuous drive the chain's
+flattop in ``torch`` math), against fused dd Chebyshev results at 1e-7;
+(c) ``method="expprop"`` on both small systems against ``expm`` at
+1e-10.  Each path: steps/s both ways, attempts and host reads an
+interval, one capture a propagator and none after ``reinit_prop`` or
+for a new time grid of the same length, graph equal to eager bit for
+bit, peak reserved memory both ways.
+
 It checks the results, and times every kernel beside its plain version,
 its bound and (where one exists) the one PyTorch call that computes the
 same function.  The flip setup and the flip iteration are two kernels
@@ -1172,6 +1190,23 @@ def krylov_phase(device, card, ctx):
     return launches, rates
 
 
+def sparse_hermitian(N=1024):
+    """The sparse Hermitian of ``bench.py:330-342`` (spectral radius 10)
+    as a scipy matrix, and its seeded state."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import eigsh
+
+    rng = np.random.default_rng(42)
+    A = sp.random(N, N, density=0.01, random_state=rng,
+                  data_rvs=rng.standard_normal)
+    H = (0.5 * (A + A.T)).tocsr()
+    lam = [abs(eigsh(H, k=1, which=w, return_eigenvectors=False)[0])
+           for w in ("LA", "SA")]
+    H = (H * (10.0 / max(lam))).astype(np.float64)
+    psi0 = rng.standard_normal(N) + 1j * rng.standard_normal(N)
+    return H, psi0 / np.linalg.norm(psi0)
+
+
 def small_configs(device, card):
     """Phase 9, small configurations against host ``expm`` oracles: every
     registered method on the N = 1024 sparse Hermitian of
@@ -1181,22 +1216,13 @@ def small_configs(device, card):
     operator and state on the card."""
     import scipy.linalg
     import scipy.sparse as sp
-    from scipy.sparse.linalg import eigsh
 
     import quantumpropagators_torch as qt
     from quantumpropagators_torch.models.controls import \
         discretize_on_midpoints
 
-    N = 1024
-    rng = np.random.default_rng(42)
-    A = sp.random(N, N, density=0.01, random_state=rng,
-                  data_rvs=rng.standard_normal)
-    H = (0.5 * (A + A.T)).tocsr()
-    lam = [abs(eigsh(H, k=1, which=w, return_eigenvectors=False)[0])
-           for w in ("LA", "SA")]
-    H = (H * (10.0 / max(lam))).astype(np.float64)
-    psi0 = rng.standard_normal(N) + 1j * rng.standard_normal(N)
-    psi0 /= np.linalg.norm(psi0)
+    H, psi0 = sparse_hermitian()
+    N = H.shape[0]
     tlist = np.linspace(0.0, 10.0, 21)
     oracle = scipy.linalg.expm(-10j * H.toarray()) @ psi0
     op = qt.csr_from_scipy(H, device=device)
@@ -1552,6 +1578,289 @@ def step_graph_phase(device, card, ctx, sparse):
     step_graph_small(device, card, sparse)
     launches.update(step_graph_arnoldi(device, card, ctx))
     log(f"phase 18 {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# -- phase 19: the ODE loop and expprop's step as graphed sites -------------
+
+ODE_L = 20             # phase 19b's chain: 2^20 complex128 amplitudes
+ODE_INTERVALS = 2      # ... over 2 intervals of DT
+TRANSMON_ODE_STEPS = 10  # phase 19a's transmon: the first 10 intervals
+RICHARDSON = (32, 64)  # 19b's continuous reference: substeps an interval
+
+
+def _torch_flattop(T, t_rise, a=0.16):
+    """``qt.flattop(t, T=T, t_rise=t_rise)`` (half Blackman windows, the
+    chain's drive) in ``torch`` math, which the continuous ODE variant
+    calls on a time on the card."""
+    import math
+
+    def drive(t):
+        ramps = []
+        for x in (t / (2.0 * t_rise), (t - T + 2.0 * t_rise) / (2.0 * t_rise)):
+            ramps.append(0.5 * (1.0 - a - torch.cos(2.0 * math.pi * x)
+                                + a * torch.cos(4.0 * math.pi * x)))
+        on, off = ramps
+        inner = torch.where(t < t_rise, on, torch.where(
+            t > T - t_rise, off, torch.ones_like(t)))
+        return torch.where((t >= 0.0) & (t <= T), inner, torch.zeros_like(t))
+
+    return drive
+
+
+def _loop_state(prop):
+    """The loop state ``(t, y, h, k, done, n, err_prev)`` of ``prop``'s
+    graphed loop site: its static buffers, as the last replay left them."""
+    (state,) = [loop[1] for _, _, loop in prop._step._call.graph.parts
+                if loop is not None]
+    return state
+
+
+def _stepwise(prop, psi, attempts=False):
+    """One stepwise propagation of ``prop`` from ``psi``, timed:
+    ``(final state, seconds, flag reads an interval, attempts an
+    interval)``.  With ``attempts``, each interval's count is copied on
+    the card from the loop site's state and read after the run."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.utils import scan
+
+    qt.reinit_prop(prop, psi)
+    torch.cuda.synchronize()
+    reads, counts = [], []
+    t0 = time.perf_counter()
+    while True:
+        before = sum(scan.FLAG_READS.values())
+        out = prop.prop_step()
+        if out is None:
+            break
+        final = out
+        reads.append(sum(scan.FLAG_READS.values()) - before)
+        if attempts:
+            counts.append(_loop_state(prop)[5].clone())
+    torch.cuda.synchronize()
+    return final, time.perf_counter() - t0, reads, [int(c) for c in counts]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms while entered: the port's CSR
+    product sums a row by ``index_add``, whose atomics add in another
+    order each run on the card, so that two eager runs differ in their
+    last bits; deterministic, it sums in one order, graphed or not."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def hold_ways(label, make, psi, card, check, ordered=False):
+    """One phase-19 path both ways: graphed (a first run, which captures;
+    a timed run; a run on a new time grid of the same length) and with
+    every site's body run eagerly (a timed run).  Holds the graph to the
+    body bit for bit, the captures to 1, 0, 0, the flag reads of an ODE
+    interval to at most ``⌈attempts / K⌉ + 2`` (none for expprop), and
+    the result by ``check(result) -> (ok, text)``; logs one line.
+    ``ordered``: both ways under :func:`deterministic`.  Returns the
+    graphed result."""
+    from quantumpropagators_torch.utils import scan
+
+    K = scan.WHILE_CHUNK
+    runs, peaks = {}, {}
+    for way in ("graph", "eager"):
+        base = _reserved_gib()
+        torch.cuda.reset_peak_memory_stats()
+        with bodies_only() if way == "eager" else \
+                contextlib.nullcontext(), \
+                deterministic() if ordered else contextlib.nullcontext():
+            prop = make()
+            loop = prop._step.loop
+            if way == "graph":
+                _stepwise(prop, psi)
+                first = prop._step.captures
+            runs[way] = _stepwise(prop, psi, loop and way == "graph")
+            if way == "graph":
+                again = prop._step.captures - first
+                tlist = prop.tlist
+                prop.tlist = tlist[0] + 0.9 * (tlist - tlist[0])
+                _stepwise(prop, psi)
+                prop.tlist = tlist
+                captures = (first, again, prop._step.captures - first - again)
+            del prop
+        peaks[way] = torch.cuda.max_memory_reserved() / 2 ** 30 - base
+    (pg, tg, reads, att), (pe, te, reads_e, _) = runs["graph"], runs["eager"]
+    n = len(reads)
+    err = float((pg - pe).abs().max())
+    limits = [-(-a // K) + 2 for a in att] if loop else [0] * n
+    ok, text = check(pg)
+    ok = ok and err == 0.0 and captures == (1, 0, 0) and all(
+        (r > 0 or not loop) and r <= m for r, m in zip(reads, limits)) \
+        and len(limits) == n
+    if not ok:
+        raise AssertionError(
+            f"phase 19 {label}: graph vs eager max|d| {err}, captures "
+            f"{captures}, reads {reads} (limits {limits}), {text}")
+    how = (f"attempts/interval mean {np.mean(att):.1f} (min {min(att)}, "
+           f"max {max(att)}), host reads/interval graph mean "
+           f"{np.mean(reads):.2f} (max {max(reads)}, limit "
+           f"ceil(attempts/{K}) + 2), eager mean {np.mean(reads_e):.2f}"
+           if loop else f"host reads/interval graph {max(reads)}, eager "
+           f"{max(reads_e)}")
+    log(f"phase 19 {label} {n} steps: graph {n / tg:.3f} steps/s, eager "
+        f"{n / te:.3f} steps/s; {how}; captures 1, 0 after reinit_prop, 0 "
+        f"for a new tlist of the same length; graph vs eager max|d|="
+        f"{err:.1e}; {text}; peak reserved GiB above before: graph "
+        f"{peaks['graph']:.3f}, eager {peaks['eager']:.3f} [{card}]")
+    return pg
+
+
+def _near(oracle, tol, what):
+    """A ``check`` for :func:`hold_ways`: ‖result − oracle‖₂ ≤ ``tol``."""
+    def check(out):
+        d = float(np.linalg.norm(out.cpu().numpy() - oracle))
+        return d <= tol, f"|d| vs {what}={d:.3e} (<= {tol:g})"
+    return check
+
+
+def _host_product(H0, Hd, values, dt, substeps=1):
+    """``Π exp(−i·(H0 + v·Hd)·dt)`` over ``values`` on the host, each
+    interval as ``substeps`` equal steps of its own values: a list of
+    ``substeps`` values an interval, or one."""
+    import scipy.linalg
+
+    U = np.eye(H0.shape[0], dtype=complex)
+    for v in values:
+        for s in np.atleast_1d(v):
+            U = scipy.linalg.expm(-1j * (H0 + s * Hd) * (dt / substeps)) @ U
+    return U
+
+
+def ode_expprop_small(device, card, sparse):
+    """Phase 19a and 19c on the small systems: ``method="ode"``
+    (``pwc=True`` and a continuous ``torch.cos`` drive) and
+    ``method="expprop"`` on phase 9's N = 1024 sparse Hermitian (20
+    steps; its drive term is the operator itself, so that ``expm`` of
+    the integrated generator is the oracle) and on the N = 10 transmon
+    of phase 18b."""
+    import scipy.sparse as sp
+
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.models.controls import \
+        discretize_on_midpoints
+
+    op, psi = sparse
+    H, psi_h = sparse_hermitian()
+    N = H.shape[0]
+    lam, V = np.linalg.eigh(H.toarray())
+    tlist = np.linspace(0.0, 10.0, 21)
+    host_drive = lambda t: 0.5 * float(np.cos(2.0 * t))
+    S_pwc = float(np.sum(np.diff(tlist) * (1.0 + discretize_on_midpoints(
+        host_drive, tlist))))
+    S_cont = 10.0 + 0.25 * np.sin(20.0)  # ∫ (1 + cos(2t)/2) dt over [0, 10]
+
+    def oracle(S):
+        return V @ (np.exp(-1j * lam * S) * (V.T @ psi_h))
+
+    pwc_gen = qt.hamiltonian(op, (op, host_drive))
+    cont_gen = qt.hamiltonian(op, (op, lambda t: 0.5 * torch.cos(2.0 * t)))
+    # the ODE's every product is the CSR one: summed in one order
+    # (deterministic); expprop's are dense matrix products
+    for label, gen, kw, S, tol, ordered in (
+            (f"19a ode pwc sparse Hermitian N={N}", pwc_gen,
+             dict(method="ode", pwc=True), S_pwc, 1e-7, True),
+            (f"19a ode continuous (torch.cos drive) sparse Hermitian N={N}",
+             cont_gen, dict(method="ode", pwc=False), S_cont, 1e-7, True),
+            (f"19c expprop sparse Hermitian N={N}", pwc_gen,
+             dict(method="expprop"), S_pwc, 1e-10, False)):
+        hold_ways(label, lambda: qt.init_prop(psi, gen, tlist, **kw), psi,
+                  card, _near(oracle(S), tol, "expm"), ordered)
+
+    N = 10
+    a = sp.diags(np.sqrt(np.arange(1, N, dtype=float)), 1).toarray()
+    n_op = a.T @ a
+    H0 = 6.0 * n_op - 0.1 * (n_op @ (n_op - np.eye(N)))
+    Hd = a + a.T
+    host_eps = lambda t: 0.3 * float(np.cos(5.8 * t))
+    terms = [qt.dia_from_scipy(sp.csr_matrix(H0), device=device),
+             qt.dia_from_scipy(sp.csr_matrix(Hd), device=device)]
+    psi_t = torch.as_tensor(np.eye(N)[0].astype(complex), device=device)
+    e0 = np.eye(N)[0]
+    full = np.linspace(0.0, 10.0, 101)
+    short = full[:TRANSMON_ODE_STEPS + 1]
+    dt = full[1] - full[0]
+
+    def fine(M):
+        mids = [short[k] + dt * (np.arange(M) + 0.5) / M
+                for k in range(len(short) - 1)]
+        return _host_product(H0, Hd, [0.3 * np.cos(5.8 * m) for m in mids],
+                             dt, M) @ e0
+
+    coarse, finer = (fine(M) for M in RICHARDSON)
+    cont_oracle = (4.0 * finer - coarse) / 3.0
+    pwc_gen = qt.hamiltonian(terms[0], (terms[1], host_eps))
+    cont_gen = qt.hamiltonian(terms[0], (terms[1],
+                                         lambda t: 0.3 * torch.cos(5.8 * t)))
+    for label, gen, tl, kw, want, tol, what in (
+            ("19a ode pwc transmon N=10", pwc_gen, short,
+             dict(method="ode", pwc=True),
+             _host_product(H0, Hd, discretize_on_midpoints(host_eps, short),
+                           dt) @ e0, 1e-7, "expm"),
+            ("19a ode continuous (torch.cos drive) transmon N=10", cont_gen,
+             short, dict(method="ode", pwc=False), cont_oracle, 1e-7,
+             f"Richardson of expm on {RICHARDSON} substeps"),
+            ("19c expprop transmon N=10", pwc_gen, full,
+             dict(method="expprop"),
+             _host_product(H0, Hd, discretize_on_midpoints(host_eps, full),
+                           dt) @ e0, 1e-10, "expm")):
+        hold_ways(label, lambda: qt.init_prop(psi_t, gen, tl, **kw), psi_t,
+                  card, _near(want, tol, what))
+
+
+def ode_chain(device, card):
+    """Phase 19b: the L = 20 chain with its driven amplitude over 2
+    intervals of DT, ``pwc=True`` (against the fused dd Chebyshev result
+    of the same grid) and continuous (the drive in ``torch`` math; against
+    the Richardson extrapolation of the fused dd Chebyshev results on the
+    grid cut into 32 and 64 substeps an interval: the piecewise error is
+    O(dt²)).  Returns the flip launches of the Chebyshev references."""
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops import cheby_flip as cf
+
+    T = N_STEPS * DT
+    H_diag, H = tfim_generator(ODE_L, device)
+    cont = qt.hamiltonian(H_diag, (H.ops[1], _torch_flattop(T, 0.3 * T)))
+    psi0 = random_state(ODE_L, torch.complex128, device, SEED + 190)
+    tlist = np.linspace(0.0, ODE_INTERVALS * DT, ODE_INTERVALS + 1)
+    cf.reset_launches()
+    refs = {}
+    for M in (1,) + RICHARDSON:
+        grid = np.linspace(0.0, tlist[-1], ODE_INTERVALS * M + 1)
+        refs[M] = qt.propagate(psi0, H, grid, method="cheby", fused=True,
+                               kernel="dd").cpu().numpy()
+    torch.cuda.synchronize()
+    launches = dict(cf.LAUNCHES)
+    lo, hi = (refs[M] for M in RICHARDSON)
+    for label, gen, kw, want, what in (
+            ("19b ode pwc chain", H, dict(pwc=True), refs[1],
+             "fused dd cheby"),
+            ("19b ode continuous (torch flattop) chain", cont,
+             dict(pwc=False), (4.0 * hi - lo) / 3.0,
+             f"Richardson of fused dd cheby on {RICHARDSON} substeps")):
+        hold_ways(f"{label} L={ODE_L}", lambda: qt.init_prop(
+            psi0, gen, tlist, method="ode", **kw), psi0, card,
+            _near(want, 1e-7, what))
+    return launches
+
+
+def ode_phase(device, card, sparse):
+    """Phase 19: the ODE loop and expprop's step as graphed sites (19a,
+    19c small systems; 19b the L = 20 chain).  Returns the flip launches
+    of 19b's Chebyshev references."""
+    t0 = time.perf_counter()
+    ode_expprop_small(device, card, sparse)
+    launches = ode_chain(device, card)
+    log(f"phase 19 {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4321,6 +4630,9 @@ def main() -> int:
         banded["launches"] += n
     gc.collect()
     torch.cuda.empty_cache()
+    ode_flips = ode_phase(device, card, sparse)
+    gc.collect()
+    torch.cuda.empty_cache()
     scan_paths, _ = graph_phase(device, card, chain, ctx)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4345,6 +4657,7 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     flip_paths["phase 16 profiling dd_stages"] = probe_flips
+    flip_paths["phase 19b cheby dd references"] = ode_flips
     banded["launches_by_path"]["phase 10 sharded banded20"] = n
     banded["launches"] += n
     for path, counts in scan_paths.items():

@@ -221,13 +221,6 @@ class ChebyPropagator(PWCPropagatorBase):
         """The complex128 state (the JAX package's dd planes merged)."""
         return self.state.to(torch.complex128)
 
-    def _amplitudes(self, n: int):
-        """The amplitudes of interval ``n``, apart from the terms."""
-        gen = self._generator
-        if isinstance(gen, Operator) and isinstance(gen.coeffs, torch.Tensor):
-            return gen.coeffs
-        return self._interval_coeffs(n)
-
     def prop_step(self):
         if self._done:
             return None

@@ -19,6 +19,7 @@ from __future__ import annotations
 import warnings
 
 import numpy as np
+import torch
 
 from ..models.controls import discretize_on_midpoints, evaluate, get_controls
 from ..models.generators import Generator, Operator
@@ -148,6 +149,15 @@ class IntervalStepper(Propagator):
         if isinstance(gen, (Generator, Operator)):
             return list(gen.ops)
         return [gen]
+
+    def _amplitudes(self, n: int):
+        """The amplitudes of interval ``n``, apart from the terms of
+        :meth:`_interval_terms` (an :class:`Operator`'s coefficient tensor
+        as it is)."""
+        gen = self._generator
+        if isinstance(gen, Operator) and isinstance(gen.coeffs, torch.Tensor):
+            return gen.coeffs
+        return self._interval_coeffs(n)
 
     def _interval_operator(self, n: int) -> Operator:
         gen = self._generator

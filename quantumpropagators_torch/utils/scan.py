@@ -1,9 +1,12 @@
-"""The port's ``jax.lax.scan`` and ``jax.jit``: a loop over intervals
-that runs, on the card, as one captured CUDA graph replayed once per
-interval (:func:`scan`, :class:`GraphedScan`), and a function whose
-every call replays one captured CUDA graph of itself (:func:`graphed`,
-the counterpart of ``jax.jit(shard_map(...))`` for the sharded steps of
-``parallel/``).
+"""The port's ``jax.lax.scan``, ``jax.lax.while_loop`` and ``jax.jit``:
+a loop over intervals that runs, on the card, as one captured CUDA graph
+replayed once per interval (:func:`scan`, :class:`GraphedScan`), a
+function whose every call replays one captured CUDA graph of itself
+(:func:`graphed`, the counterpart of ``jax.jit(shard_map(...))`` for the
+sharded steps of ``parallel/`` and of the stepwise sites), and a loop
+that ends on device data (:func:`while_loop`), whose chunk of masked
+iterations such a graph replays until a flag read once a chunk says it
+has ended.
 
 The JAX fused layer runs a whole propagation as ONE compiled program: a
 ``lax.scan`` of the step over the per-interval coefficient table, with
@@ -116,6 +119,19 @@ backward with ``create_graph=True`` (rerun from the node's inputs).
 Operator tensors that require grad are first used on the side stream,
 so the backward synchronizes their gradient's stream (PyTorch warns
 once that the AccumulateGrad stream differs).
+
+A ``graphed(..., loop=True)`` site's body runs a :func:`while_loop`
+(the DP5 integrator's): its capture is cut there into a graph of the
+work before the loop, a graph of one chunk of :data:`WHILE_CHUNK`
+iterations over the loop's own state buffers, and a graph of the work
+after it (:class:`_Segments`).  A call replays the first, the chunk
+until its flag reads false and the last; the host reads the flag of
+one chunk while the next is already issued (pinned memory and an
+event), so the card never waits for the host.  An iteration past the
+loop's end is computed and masked (PyTorch 2.11 on the card offers no
+conditional graph nodes), so a chunk's size trades those iterations
+against reads of the flag.  Under autograd such a site runs its body
+(``jax.grad`` refuses a ``while_loop``).
 """
 
 from __future__ import annotations
@@ -135,7 +151,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..ops import banded_spmv as _banded
 from ..ops import cheby_flip as _flip
 
-__all__ = ["scan", "GraphedScan", "graphed", "Graphed"]
+__all__ = ["scan", "GraphedScan", "graphed", "Graphed", "while_loop"]
 
 _COUNTERS = (_flip.LAUNCHES, _banded.LAUNCHES)
 _SIDE_STREAMS: dict = {}
@@ -370,14 +386,17 @@ def _refused(step, why, what="scan") -> str:
 _OWN_POOL = "own"
 
 
-def _captured(device, fn, refused, pool=None):
+def _captured(device, fn, refused, pool=None, split=False):
     """``fn()`` captured as a CUDA graph on the device's side stream into
     ``pool``: the shared pool (``None``), a pool of its own
     (:data:`_OWN_POOL`: for a graph whose tensors outlive its replay,
     which no other graph may reuse) or a graph's ``pool()`` (capturing
     runs nothing on the device).  Returns the
     graph, what ``fn`` returned and the launches one replay issues (the
-    counters' delta over the capture, which is taken back).  A failed
+    counters' delta over the capture, which is taken back).  With
+    ``split``, each :func:`while_loop` that ``fn`` runs cuts the capture
+    (:class:`_Segments`), which is returned in place of the graph, with
+    its own deltas.  A failed
     capture raises ``RuntimeError(refused(exc))``, or :class:`_NotOut`
     as it is.  The garbage collector is held off while it captures: a
     graph it destroyed then (one left in a reference cycle, such as an
@@ -387,19 +406,21 @@ def _captured(device, fn, refused, pool=None):
     side = _side_stream(device)
     side.wait_stream(cur)
     before = [dict(c) for c in _COUNTERS]
-    graph = torch.cuda.CUDAGraph()
     pool = _graph_pool(device) if pool is None else \
         torch.cuda.graph_pool_handle() if pool == _OWN_POOL else pool
+    segments = _Segments(pool, before)
     collecting = gc.isenabled()
     gc.disable()
     try:
         with torch.cuda.stream(side):
-            graph.capture_begin(pool=pool)
+            segments.begin()
+            if split:
+                _Segments.active = segments
             try:
                 out = fn()
             except Exception as exc:
                 try:
-                    graph.capture_end()
+                    segments.graph.capture_end()
                 except RuntimeError:
                     # the capture was already invalidated by exc, and the
                     # allocator still counts it as under way: end that,
@@ -417,16 +438,111 @@ def _captured(device, fn, refused, pool=None):
                 if isinstance(exc, _NotOut):
                     raise
                 raise RuntimeError(refused(exc)) from exc
-            graph.capture_end()
-        delta = tuple((c, k, c[k] - b[k]) for c, b in zip(_COUNTERS, before)
-                      for k in c if c[k] != b[k])
+            finally:
+                _Segments.active = None
+            delta = segments.end()
     finally:
         if collecting:
             gc.enable()
         for c, b in zip(_COUNTERS, before):
             c.update(b)
     cur.wait_stream(side)
-    return graph, out, delta
+    if split:
+        return segments, out, ()
+    return segments.graph, out, delta
+
+
+class _Segments:
+    """A capture cut by :func:`while_loop` into the graphs one call
+    replays in order: straight graphs (run once) and, between them, one
+    graph of each loop's chunk, replayed until its flag reads false
+    (:meth:`replay`).  ``parts`` holds ``(graph, delta, loop)``, ``loop``
+    being ``None`` for a straight graph and ``(flag, state)`` for a
+    chunk: the 0-d bool ``cond`` of the loop's state after the chunk,
+    and that state (the loop's static buffers, which every replay of the
+    chunk rewrites in place)."""
+
+    #: the capture under way that a :func:`while_loop` may cut
+    active = None
+
+    def __init__(self, pool, before):
+        self.pool = pool
+        self.before = before     # the launch counters at the capture's start
+        self.parts = []
+        self.graph = None        # the graph being captured
+        self._loop = None
+        self._pins = None
+
+    def begin(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self._loop = None
+        self.graph.capture_begin(pool=self.pool)
+
+    def end(self):
+        """Ends the graph being captured; returns its launches (taken
+        back)."""
+        self.graph.capture_end()
+        delta = tuple((c, k, c[k] - b[k])
+                      for c, b in zip(_COUNTERS, self.before)
+                      for k in c if c[k] != b[k])
+        for c, b in zip(_COUNTERS, self.before):
+            c.update(b)
+        self.parts.append((self.graph, delta, self._loop))
+        return delta
+
+    def loop(self, cond, body, state):
+        """A :func:`while_loop` inside the capture: the state copied into
+        buffers of the loop's own (in the straight graph before it), one
+        chunk of :data:`WHILE_CHUNK` masked iterations captured as a graph
+        that writes its result back into them and computes the flag, and
+        the straight graph after it begun with copies of the final
+        state."""
+        state = tuple(torch.clone(s) for s in state)
+        self.end()     # the straight graph before the loop
+        self.begin()   # the chunk
+        new = _chunk(cond, body, state)
+        for s, n in zip(state, new):
+            s.copy_(n)
+        self._loop = (cond(state), state)
+        self.end()
+        self.begin()   # the straight graph after it
+        return tuple(torch.clone(s) for s in state)
+
+    def replay(self):
+        """Each graph in order, a chunk until its flag reads false.  A
+        chunk's flag comes back through pinned memory and an event while
+        the next chunk is already issued, so the device never waits for
+        the host; one chunk more than the loop needs is issued, and
+        changes nothing."""
+        for graph, delta, loop in self.parts:
+            if loop is None:
+                graph.replay()
+                _add_launches(delta)
+            else:
+                self._spin(graph, delta, loop[0])
+
+    def _spin(self, graph, delta, flag):
+        if self._pins is None:
+            self._pins = [torch.empty((), dtype=torch.bool, pin_memory=True)
+                          for _ in range(2)]
+            self._events = [torch.cuda.Event() for _ in range(2)]
+        pins, events = self._pins, self._events
+
+        def issue(slot):
+            graph.replay()
+            _add_launches(delta)
+            pins[slot].copy_(flag, non_blocking=True)
+            events[slot].record()
+
+        issue(0)
+        slot = 0
+        while True:
+            issue(1 - slot)
+            events[slot].synchronize()
+            FLAG_READS["graph"] += 1
+            if not bool(pins[slot]):
+                return
+            slot = 1 - slot
 
 
 def _add_launches(delta, times=1):
@@ -1133,11 +1249,59 @@ class _ScanVJP(torch.autograd.Function):
         return (None,) + tape.backward(grads, ctx.needs_input_grad[1:])
 
 
+# -- jax.lax.while_loop ----------------------------------------------------
+
+#: masked iterations of a :func:`while_loop` between two reads of its flag
+#: (``tools/ode_graph_sweep.py chunks``: of 4, 8 and 16, 4 ran the graphed
+#: ODE intervals fastest, host-bound and device-bound alike; an interval
+#: computes up to two chunks past its end)
+WHILE_CHUNK = 4
+
+#: the host's reads of a :func:`while_loop`'s flag: by replays of a
+#: captured chunk (``"graph"``) and by the eager loop (``"eager"``)
+FLAG_READS = {"graph": 0, "eager": 0}
+
+
+def while_loop(cond, body, state):
+    """``jax.lax.while_loop`` on the port: ``state`` (a tuple of tensors
+    on one device) through ``body`` while ``cond(state)`` (a 0-d bool
+    tensor) holds; returns the final state.
+
+    The loop runs in chunks of :data:`WHILE_CHUNK` masked iterations,
+    ``state = where(cond(state), body(state), state)``, so that an
+    iteration after the loop has ended changes nothing, bit for bit, and
+    the host reads the flag once a chunk.  Eagerly (on the CPU, under
+    autograd, for a mesh of more than one rank) it reads it after each
+    chunk.  Inside the capture of a ``graphed(..., loop=True)`` site the
+    chunk is captured once and replayed until the flag reads false
+    (:class:`_Segments`): the same iterations, so the same bits."""
+    state = tuple(state)
+    if _Segments.active is not None:
+        return _Segments.active.loop(cond, body, state)
+    while True:
+        state = _chunk(cond, body, state)
+        FLAG_READS["eager"] += 1
+        if not bool(cond(state)):
+            return state
+
+
+def _masked(cond, body, state):
+    go = cond(state)
+    return tuple(torch.where(go, new, old)
+                 for new, old in zip(body(state), state))
+
+
+def _chunk(cond, body, state):
+    for _ in range(WHILE_CHUNK):
+        state = _masked(cond, body, state)
+    return state
+
+
 # -- jax.jit of one call --------------------------------------------------
 
 
 def graphed(body, *, mesh=None, operators=(), controls=(), own_pool=False,
-            lend=False):
+            lend=False, loop=False):
     """``jax.jit`` of ``body`` on the port: a :class:`Graphed` whose
     calls on the card each replay one CUDA graph of ``body`` (two while
     autograd records: its forward and its VJP).
@@ -1162,9 +1326,14 @@ def graphed(body, *, mesh=None, operators=(), controls=(), own_pool=False,
     call, instead of clones; and a key is captured at its second call,
     after ``torch.cuda.empty_cache()`` has given back what the first,
     eager call left (its outputs dropped by then), so that the site
-    never holds a large output (an Arnoldi basis) twice."""
+    never holds a large output (an Arnoldi basis) twice.  ``loop``: the
+    body runs a :func:`while_loop` (``jax.jit`` of a function around
+    ``lax.while_loop``); its capture is cut there (:class:`_Segments`),
+    a replay runs the loop's chunk until its flag reads false, and while
+    autograd records the body runs eagerly (``jax.grad`` refuses a
+    ``while_loop``)."""
     return Graphed(body, mesh=mesh, operators=operators, controls=controls,
-                   own_pool=own_pool, lend=lend)
+                   own_pool=own_pool, lend=lend, loop=loop)
 
 
 class Graphed:
@@ -1209,7 +1378,7 @@ class Graphed:
     :func:`scan`."""
 
     def __init__(self, body, *, mesh=None, operators=(), controls=(),
-                 own_pool=False, lend=False):
+                 own_pool=False, lend=False, loop=False):
         functools.update_wrapper(self, body)
         self.body = body
         self.mesh = mesh
@@ -1217,6 +1386,7 @@ class Graphed:
         self.controls = frozenset(controls)
         self.own_pool = bool(own_pool)
         self.lend = bool(lend)
+        self.loop = bool(loop)
         self.captures = 0
         self._params = inspect.signature(body)
         self._call = None
@@ -1226,7 +1396,7 @@ class Graphed:
     def __call__(self, *args, **kwargs):
         bound = self._params.bind(*args, **kwargs)
         device, grad = self._route(bound.arguments)
-        if device is None:
+        if device is None or (grad and self.loop):
             return self.body(*args, **kwargs)
         key, inputs = self._key(bound.arguments, device.type)
         if grad:
@@ -1572,7 +1742,7 @@ class _Call:
     def __init__(self, key, buffers, graph, out, delta, lend=False):
         self.key = key
         self.buffers = buffers   # static per-call inputs
-        self.graph = graph
+        self.graph = graph       # a loop site's: its :class:`_Segments`
         self.out = out           # static outputs
         self.delta = delta       # launches one replay issues
         self.lend = lend         # a replay returns ``out`` itself
@@ -1595,7 +1765,9 @@ class _Call:
         buffers = [_buffer(value, device) for _, value in inputs]
         for (name, _), buf in zip(inputs, buffers):
             bound.arguments[name] = buf
-        graph, static, delta = _captured(
+        capture = functools.partial(_captured, split=True) if owner.loop \
+            else _captured
+        graph, static, delta = capture(
             device, lambda: owner.body(*bound.args, **bound.kwargs),
             lambda exc: _refused(owner.body, exc, "graphed"),
             pool=_OWN_POOL if owner.own_pool else None)
