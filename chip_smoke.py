@@ -123,10 +123,20 @@ precision="dd")`` intervals on banded20 with phase 7's band planes as
 with ``check_normalization=True`` on the N = 10 transmon and a driven
 N = 1024 sparse Hermitian, amplitudes changing every interval: one
 capture a propagator, none for new controls nor for a moved envelope
-of the same length; (c) the Arnoldi site: ``specrange`` on banded20
+of the same length; and 20 ``newton`` and ``expv`` steps in complex128
+on both (the Arnoldi call and Newton's restart tail or ``expv``'s
+combine each a graph); (c) the Arnoldi site: ``specrange`` on banded20
 (``Hess`` bit for bit), 5 ``newton`` and ``expv`` dd steps (one capture
-a propagator, matvecs = banded launches), and the reserved memory
-before an envelope, after it and after its propagator is dropped.
+a propagator for the Arnoldi site and one a Krylov dimension for the
+tail, none after the first propagation, matvecs = banded launches, host
+reads a restart), and the reserved memory before an envelope, after it
+and after its propagator is dropped; (d) the standalone dd Chebyshev
+applies as graphed sites: ``cheby_apply_dd`` on the L = 20 chain and
+``cheby_apply_dd_bsr`` on an optomech chain, 10 calls with new
+coefficients in one scope against 10 eager calls (bit for bit, one
+capture, host oracles at 1e-10); (e) a ``torch.cos`` control with the
+default ``check`` through ``cheby``, ``newton``, ``expprop`` and
+``ode`` against a ``numpy`` control at 1e-12.
 
 Phase 19 (after phase 18) runs the stepwise ODE and expprop intervals
 (the port of the JAX package's ``lax.while_loop`` of DP5 under the
@@ -1465,6 +1475,278 @@ def step_graph_small(device, card, sparse):
             f"steps/s, eager {rates['eager']:.3f} steps/s [{card}]")
 
 
+def _krylov_captures(prop, method):
+    """A Newton or Krylov propagator's captures: its Arnoldi site's, its
+    tail's (Newton's restart tail, ``expv``'s combine) and the Krylov
+    dimensions the tail has a site for."""
+    from quantumpropagators_torch.ops import arnoldi, dd_linalg, expv, newton
+
+    sites = prop._arnoldi_sites
+    tail = newton._newton_tail if method == "newton" else expv._expv_combine
+    return (sites.captures_of(arnoldi._arnoldi_impl,
+                              dd_linalg._arnoldi_dd_impl),
+            sites.captures_of(tail), tuple(sites.parts(tail)))
+
+
+def _counted_run(prop, psi):
+    """One stepwise propagation of ``prop`` from ``psi``: ``(state,
+    Arnoldi calls, host reads)``, the reads being the synchronizing
+    operations ``torch.cuda.set_sync_debug_mode`` reports while it
+    runs."""
+    import warnings
+
+    import quantumpropagators_torch as qt
+    from quantumpropagators_torch.ops import arnoldi as arn
+    from quantumpropagators_torch.ops import dd_linalg
+    from quantumpropagators_torch.propagate import propagate_propagator
+
+    qt.reinit_prop(prop, psi)
+    torch.cuda.synchronize()
+    calls, read = [], arn._read
+    # each Arnoldi call reads its Hessenberg matrix once, by _read
+    arn._read = dd_linalg._read = \
+        lambda *args: calls.append(1) or read(*args)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = propagate_propagator(prop)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        arn._read = dd_linalg._read = read
+    torch.cuda.synchronize()
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    return out, len(calls), reads
+
+
+def krylov_ways(label, method, make, psi0, n, card, banded=False,
+                ordered=False):
+    """Phase 18b/c: the Newton or Krylov propagator ``make()`` over ``n``
+    steps graphed and with every site's body run eagerly
+    (:func:`bodies_only`): the states of a first and a later propagation
+    bit for bit, captures after the first (the Arnoldi site's 1, the
+    tail's 1 for each Krylov dimension it met) and none after, Arnoldi
+    calls (restarts) and host reads of the later one, banded launches
+    equal to matvecs (``banded``), steps/s of a third.  ``ordered``:
+    both ways under :func:`deterministic` (a CSR product's sums in one
+    order).  Returns each way's numbers."""
+    from quantumpropagators_torch.ops import banded_spmv as bs
+    from quantumpropagators_torch.utils.timings import (disable_timings,
+                                                        enable_timings)
+
+    ways = {}
+    enable_timings()
+    try:
+        for way in ("graph", "eager"):
+            with bodies_only() if way == "eager" \
+                    else contextlib.nullcontext(), \
+                    deterministic(warn_only=True) if ordered \
+                    else contextlib.nullcontext():
+                prop = make()
+                bs.reset_launches()
+                prop.timing_data.reset()
+                first, _ = _timed_run(prop, psi0)
+                launches = bs.LAUNCHES[BANDED]
+                matvecs = prop.timing_data.counters.get("matvec", 0)
+                captures = _krylov_captures(prop, method)
+                state, calls, reads = _counted_run(prop, psi0)
+                _, t = _timed_run(prop, psi0, reps=2)
+                ways[way] = dict(first=first, state=state, launches=launches,
+                                 matvecs=matvecs, captures=captures,
+                                 after=_krylov_captures(prop, method),
+                                 calls=calls, reads=reads, rate=n / t)
+                del prop
+    finally:
+        disable_timings()
+    g, e = ways["graph"], ways["eager"]
+    same = torch.equal(g["first"], e["first"]) and torch.equal(g["state"],
+                                                               e["state"])
+    arnoldi, tail, parts = g["captures"]
+    ok = (same and arnoldi == 1 and tail == len(parts) >= 1
+          and g["after"] == g["captures"] and e["after"][:2] == (0, 0)
+          and g["calls"] == e["calls"]
+          and g["reads"] <= n + 2 * g["calls"])
+    if banded:
+        ok = ok and g["launches"] == g["matvecs"] == e["launches"] \
+            == e["matvecs"] > 0
+    if not ok:
+        raise AssertionError(
+            f"phase {label}: graph vs eager equal {same} (max|d| "
+            f"{float((g['state'] - e['state']).abs().max())}), captures "
+            f"{g['captures']} then {g['after']} (eager {e['after']}), "
+            f"Arnoldi calls {g['calls']} / {e['calls']}, host reads "
+            f"{g['reads']} (at most {n} + 2 x {g['calls']}), launches "
+            f"{g['launches']} / {e['launches']}, matvecs {g['matvecs']} / "
+            f"{e['matvecs']}")
+    restarts = g["calls"] / n
+    tail_what = "restart tail" if method == "newton" else "combine"
+    log(f"phase {label} {n} steps: graph vs eager bit for bit (two "
+        f"propagations), captures Arnoldi {arnoldi}, {tail_what} {tail} "
+        f"(Krylov dimensions {[m for _, m in parts]}), 0 after the first "
+        f"propagation; {restarts:g} Arnoldi calls a step, host reads "
+        f"graph {g['reads']} = {n} start norms + "
+        f"{(g['reads'] - n) / g['calls']:.3f} a call (eager "
+        f"{e['reads']})"
+        + (f", {BANDED} launches={g['launches']} = matvecs both ways"
+           if banded else "")
+        + f"; graph {g['rate']:.3f} steps/s, eager {e['rate']:.3f} steps/s"
+        f" [{card}]")
+    return ways
+
+
+def step_graph_krylov_small(device, card, sparse):
+    """Phase 18b (Krylov): ``newton`` and ``expv`` in complex128 on the
+    N = 10 transmon and the driven N = 1024 sparse Hermitian of 18b, 20
+    steps each, graphed and eager."""
+    import quantumpropagators_torch as qt
+
+    systems = _small_driven(device, sparse)
+    for label in ("transmon N=10", "sparse Hermitian N=1024"):
+        gen, psi0, tlist = systems[label]
+        for method in ("newton", "expv"):
+            krylov_ways(f"18b {method} {label}", method,
+                        lambda: qt.init_prop(psi0, gen, tlist[:21],
+                                             method=method), psi0, 20, card,
+                        ordered=label.startswith("sparse"))
+
+
+def step_graph_dd_applies(device, card):
+    """Phase 18d: the standalone dd Chebyshev applies as graphed sites.
+    ``cheby_apply_dd`` on the diagonal and flip table of the L = 20
+    chain of phase 19b and ``cheby_apply_dd_bsr`` on the optomech chain
+    of ``bench_torch.py:602-622`` at R = 16 (64-level units, block 64):
+    10 calls with new coefficients inside one scope against 10 eager
+    calls, bit for bit, one capture, the first call against a host
+    oracle (``bench_torch.flip_oracle_step``, dense ``expm``) at 1e-10;
+    the flip apply also against ``flip_cheby_step`` with the
+    coefficients as kernel arguments, bit for bit.  Returns the flip
+    launches of the graphed calls."""
+    import scipy.linalg
+    import scipy.sparse as sp
+
+    from bench_torch import flip_oracle_step
+    from quantumpropagators_torch.ops import arnoldi as arn
+    from quantumpropagators_torch.ops import cheby_flip as cf
+    from quantumpropagators_torch.ops import df64, df64_sparse
+    from quantumpropagators_torch.ops.cheby import cheby_coeffs
+    from quantumpropagators_torch.ops.fused_cheby import flip_cheby_step
+
+    H_diag, _ = tfim_generator(ODE_L, device)
+    diag = H_diag.diag.real.to(torch.float64).contiguous()
+    bound = float(diag.abs().max()) + ODE_L * G_FIELD
+    delta, e_min = 2.0 * bound, -bound
+    psi = random_state(ODE_L, torch.complex128, device, SEED + 260)
+    flip = [G_FIELD] * ODE_L
+
+    rng = np.random.default_rng(1)
+    R, b = 16, 64
+    blocks, rows, cols = [], [], []
+    for r in range(R):
+        for c in (r - 1, r, r + 1):
+            if 0 <= c < R:
+                rows.append(r)
+                cols.append(c)
+                blocks.append(rng.standard_normal((b, b)))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=R))])
+    H2 = sp.bsr_matrix((np.stack(blocks), np.asarray(cols), indptr),
+                       shape=(R * b, R * b)).tocsr()
+    H2 = (0.5 * (H2 + H2.T)).tocsr()
+    op = df64_sparse.bsr_dd_from_scipy(H2, block_size=b, device=device)
+    bound2 = float(np.abs(H2).sum(axis=1).max())
+    psi2 = random_state(10, torch.complex128, device, SEED + 261)
+
+    cases = {
+        f"cheby_apply_dd L={ODE_L}": (
+            df64._cheby_dd_impl, cheby_coeffs(delta, DT),
+            lambda c: df64.cheby_apply_dd(psi, diag, flip, c, delta, e_min,
+                                          DT, L=ODE_L),
+            lambda c: flip_oracle_step(
+                psi.cpu().numpy(), diag.cpu().numpy(), G_FIELD, ODE_L, c,
+                delta, e_min, DT)),
+        f"cheby_apply_dd_bsr optomech chain R={R} (dim {R * b})": (
+            df64_sparse._cheby_dd_bsr_impl, cheby_coeffs(2 * bound2, 0.02),
+            lambda c: df64_sparse.cheby_apply_dd_bsr(op, psi2, c, 2 * bound2,
+                                                     -bound2, 0.02),
+            lambda c: scipy.linalg.expm(-0.02j * H2.toarray())
+            @ psi2.cpu().numpy()),
+    }
+    launches = {}
+    for label, (body, coeffs, call, oracle) in cases.items():
+        # new coefficients at every call, their count kept
+        tables = [coeffs * (1.0 + 1e-3 * k) for k in range(10)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = [call(c) for c in tables]  # outside every scope: the body
+        torch.cuda.synchronize()
+        te = time.perf_counter() - t0
+        cf.reset_launches()
+        with arn.arnoldi_sites(arn.ArnoldiSites()) as sites:
+            graph = [call(tables[0])]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph += [call(c) for c in tables[1:]]
+            torch.cuda.synchronize()
+            tg = time.perf_counter() - t0
+            captures = sites.captures_of(body)
+        if body is df64._cheby_dd_impl:
+            launches[f"phase 18d {label} graph"] = dict(cf.LAUNCHES)
+        same = all(torch.equal(g, e) for g, e in zip(graph, eager))
+        err = float(np.abs(graph[0].cpu().numpy() - oracle(tables[0])).max())
+        scalar = None if body is not df64._cheby_dd_impl else (
+            torch.equal(graph[0], flip_cheby_step(
+                psi, (diag - (delta / 2 + e_min)).contiguous(),
+                torch.full((ODE_L,), G_FIELD, dtype=torch.float64,
+                           device=device), tables[0], delta, e_min, DT)))
+        if not (same and captures == 1 and err <= 1e-10
+                and scalar in (None, True)):
+            raise AssertionError(
+                f"phase 18d {label}: graph vs eager equal {same}, captures "
+                f"{captures}, vs the host oracle {err} (<= 1e-10), vs "
+                f"coefficients as kernel arguments {scalar}")
+        log(f"phase 18d {label}, {len(coeffs)} coefficients: 10 calls with "
+            f"new coefficients graph vs eager bit for bit, 1 capture, first "
+            f"call vs the host oracle {err:.3e} (<= 1e-10)"
+            + (", equal to the coefficients as kernel arguments"
+               if scalar else "")
+            + f"; 9 later calls graph {1e3 * tg / 9:.4f} ms a call, eager "
+            f"{1e3 * te / 10:.4f} ms a call [{card}]")
+    return launches
+
+
+def torch_controls_on_card(device, card):
+    """Phase 18e: a control written in ``torch`` math (``torch.cos``) on
+    the N = 10 transmon through ``cheby``, ``newton``, ``expprop`` and
+    ``ode`` (``pwc=True``) with the default ``check``, each against the
+    same generator with the ``numpy`` control at 1e-12."""
+    import scipy.sparse as sp
+
+    import quantumpropagators_torch as qt
+
+    N = 10
+    a = sp.diags(np.sqrt(np.arange(1, N, dtype=float)), 1).tocsr()
+    n_op = (a.T @ a).tocsr()
+    H0 = (6.0 * n_op - 0.1 * (n_op @ (n_op - sp.identity(N)))).tocsr()
+    H0, Hd = (qt.dia_from_scipy(M, device=device) for M in (H0, a + a.T))
+    psi0 = torch.as_tensor(np.eye(N)[0].astype(complex), device=device)
+    tlist = np.linspace(0.0, 2.0, 21)
+    errs = {}
+    for method, kw in (("cheby", {}), ("newton", {}), ("expprop", {}),
+                       ("ode", {"pwc": True})):
+        out = [qt.propagate(psi0, qt.hamiltonian(H0, (Hd, control)), tlist,
+                            method=method, **kw)
+               for control in (lambda t: 0.3 * torch.cos(5.8 * t),
+                               lambda t: 0.3 * np.cos(5.8 * t))]
+        errs[method] = float((out[0] - out[1]).abs().max())
+    if not all(e <= 1e-12 for e in errs.values()):
+        raise AssertionError(f"phase 18e torch vs numpy controls: {errs}")
+    log(f"phase 18e torch.cos control with the default check, transmon "
+        f"N={N} 20 steps, max|d| vs the numpy control: "
+        + ", ".join(f"{m} {e:.3e}" for m, e in errs.items())
+        + f" (<= 1e-12) [{card}]")
+
+
 def step_graph_arnoldi(device, card, ctx):
     """Phase 18c: the Arnoldi site on banded20: ``specrange`` graphed and
     eager (``Hess`` bit for bit), 5 ``newton`` and ``expv`` dd steps both
@@ -1505,50 +1787,20 @@ def step_graph_arnoldi(device, card, ctx):
         f"{t_first:.4f} s, second (capture and replay) {t_capture:.4f} s "
         f"[{card}]")
 
-    from quantumpropagators_torch.utils.timings import (disable_timings,
-                                                        enable_timings)
-
     launches = {}
-    short = tlist[:6]
-    enable_timings()
     for method in ("newton", "expv"):
-        states, rates, counts, peaks, bases = {}, {}, {}, {}, {}
-        for way in ("graph", "eager"):
-            bases[way] = base = _reserved_gib()
-            torch.cuda.reset_peak_memory_stats()
-            with bodies_only() if way == "eager" \
-                    else contextlib.nullcontext():
-                prop = qt.init_prop(psi0, op, short, method=method,
-                                    precision="dd",
-                                    dd_operator_terms=(ctx["banded"],))
-                bs.reset_launches()
-                prop.timing_data.reset()
-                states[way], _ = _timed_run(prop, psi0)
-                counts[way] = (bs.LAUNCHES[BANDED],
-                               prop.timing_data.counters.get("matvec", 0),
-                               prop._arnoldi_sites.captures)
-                _, t = _timed_run(prop, psi0, reps=2)
-                rates[way] = 5 / t
-                del prop
-            peaks[way] = torch.cuda.max_memory_reserved() / 2 ** 30 - base
-        (ng, mv, cg), (ne, me, ce) = counts["graph"], counts["eager"]
-        err = float((states["graph"] - states["eager"]).abs().max())
-        err5 = float((states["graph"] - ctx["psi_5"]).abs().max())
-        if not (ng == mv == ne == me and ng > 0 and cg == 1 and ce == 0
-                and err5 <= 1e-10):
-            raise AssertionError(f"phase 18c {method} dd: launches {ng} / "
-                                 f"{ne}, matvecs {mv} / {me}, captures {cg}"
-                                 f" / {ce}, vs 5 cheby steps {err5}")
-        launches[f"phase 18c {method} dd graph"] = ng
-        log(f"phase 18c {method} dd banded20 2^{L} 5 steps: graph vs eager "
-            f"max|d|={err:.3e}, vs phase 7's 5 steps {err5:.3e} (<= 1e-10), "
-            f"launches={ng} = matvecs both ways, 1 capture over 3 "
-            f"propagations; graph {rates['graph']:.3f} steps/s, eager "
-            f"{rates['eager']:.3f} steps/s; peak reserved GiB above the "
-            f"reserved before (graph {bases['graph']:.3f}, eager "
-            f"{bases['eager']:.3f}): graph {peaks['graph']:.3f}, eager "
-            f"{peaks['eager']:.3f} [{card}]")
-    disable_timings()
+        ways = krylov_ways(
+            f"18c {method} dd banded20 2^{L}", method, lambda: qt.init_prop(
+                psi0, op, tlist[:6], method=method, precision="dd",
+                dd_operator_terms=(ctx["banded"],)), psi0, 5, card,
+            banded=True)
+        err5 = float((ways["graph"]["state"] - ctx["psi_5"]).abs().max())
+        if not err5 <= 1e-10:
+            raise AssertionError(f"phase 18c {method} dd vs 5 cheby steps "
+                                 f"{err5}")
+        launches[f"phase 18c {method} dd graph"] = ways["graph"]["launches"]
+        log(f"phase 18c {method} dd banded20: vs phase 7's 5 steps "
+            f"{err5:.3e} (<= 1e-10) [{card}]")
 
     before = _reserved_gib()
     prop = qt.init_prop(psi0, op, tlist, method="cheby",
@@ -1570,15 +1822,19 @@ def step_graph_arnoldi(device, card, ctx):
 
 
 def step_graph_phase(device, card, ctx, sparse):
-    """Phase 18: the stepwise path's graphed sites (a-c).  Returns the
-    banded launches of its graphed paths."""
+    """Phase 18: the stepwise path's graphed sites (a-e).  Returns the
+    banded launches of its graphed paths and the flip launches of 18d's
+    graphed calls."""
     t0 = time.perf_counter()
     launches = {"phase 18a stepwise cheby dd graph":
                 step_graph_banded(device, card, ctx)}
     step_graph_small(device, card, sparse)
+    step_graph_krylov_small(device, card, sparse)
     launches.update(step_graph_arnoldi(device, card, ctx))
+    flips = step_graph_dd_applies(device, card)
+    torch_controls_on_card(device, card)
     log(f"phase 18 {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, flips
 
 
 # -- phase 19: the ODE loop and expprop's step as graphed sites -------------
@@ -1642,17 +1898,25 @@ def _stepwise(prop, psi, attempts=False):
 
 
 @contextlib.contextmanager
-def deterministic():
+def deterministic(warn_only=False):
     """PyTorch's deterministic algorithms while entered: the port's CSR
     product sums a row by ``index_add``, whose atomics add in another
     order each run on the card, so that two eager runs differ in their
-    last bits; deterministic, it sums in one order, graphed or not."""
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
+    last bits; deterministic, it sums in one order, graphed or not.
+    ``warn_only``: the operations with no deterministic form (cuBLAS
+    products without a workspace setting, which sum in one order on one
+    stream) run, their warnings ignored."""
+    import warnings
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
-        yield
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*determinis")
+            yield
     finally:
-        torch.use_deterministic_algorithms(was)
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
 
 
 def hold_ways(label, make, psi, card, check, ordered=False):
@@ -4625,7 +4889,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sparse = small_configs(device, card)
-    for path, n in step_graph_phase(device, card, ctx, sparse).items():
+    step_banded, step_flips = step_graph_phase(device, card, ctx, sparse)
+    for path, n in step_banded.items():
         banded["launches_by_path"][path] = n
         banded["launches"] += n
     gc.collect()
@@ -4658,6 +4923,7 @@ def main() -> int:
         dist.destroy_process_group()
     flip_paths["phase 16 profiling dd_stages"] = probe_flips
     flip_paths["phase 19b cheby dd references"] = ode_flips
+    flip_paths.update(step_flips)
     banded["launches_by_path"]["phase 10 sharded banded20"] = n
     banded["launches"] += n
     for path, counts in scan_paths.items():

@@ -76,7 +76,9 @@
 //     memory (L2), a batch of loads in flight at once.  For L <= tile_bits
 //     the tile is the whole vector.  The setup takes v0[i] from its own
 //     tile and has no v0 or Phi stream to read; its tile is 2^11 elements
-//     (32 KB in double), the iteration's 16 KB.
+//     (32 KB in double), the iteration's 16 KB.  Its Phi weights are
+//     kernel arguments, or (Loaded = true, a third template argument) read
+//     from the device: a replayed graph's coefficients that are data.
 //
 // The caller picks h, tile_bits and line_bits from L and the type
 // (ops/cheby_flip.py:flip_split); h = 0 skips the high pass.  At L = 24
@@ -147,12 +149,16 @@ constexpr int kPartnerBatch = 4;
 //   u = dmb x + sum_{j < bits} G_j x[i ^ 2^j] + w, then
 //   the iteration (First = false, x = v1):  out = v0 + i s u,  Phi += a out;
 //   the setup     (First = true,  x = v0):  out = i s u,  Phi = a0 x + a out.
+// a and a0 are the scalars given, or with Loaded the values at a_ptr and
+// a0_ptr: coefficients that are data on the device (a replayed graph then
+// takes new coefficients).  Loaded is its own instantiation, so that the
+// scalars' instantiation keeps its registers.
 // The block's tile of 2^tile_bits elements of x sits in shared memory.
 // In the iteration v0 and out may be the same buffer (out overwrites v0 in
 // place): each thread reads v0[i] before it writes out[i], and no thread
 // reads another element of either.  The setup reads neither v0 (nullptr)
 // nor Phi: x[i] comes from the tile, and Phi is only written.
-template <typename T, bool First>
+template <typename T, bool First, bool Loaded>
 __global__ void __launch_bounds__(kTiledThreads)
     cheby_flip_tiled(const typename Complex<T>::type* v0,
                      typename Complex<T>::type* out,
@@ -160,9 +166,15 @@ __global__ void __launch_bounds__(kTiledThreads)
                      typename Complex<T>::type* __restrict__ phi,
                      const T* __restrict__ dmb, const T* __restrict__ G,
                      const typename Complex<T>::type* __restrict__ w,
-                     int tile_bits, int bits, T s, T a, T a0) {
+                     int tile_bits, int bits, T s, T a, T a0,
+                     const T* __restrict__ a_ptr,
+                     const T* __restrict__ a0_ptr) {
   using V = typename Complex<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
+  if constexpr (Loaded) {
+    a = __ldg(a_ptr);
+    if constexpr (First) a0 = __ldg(a0_ptr);
+  }
   V* tile = reinterpret_cast<V*>(smem);
   __shared__ T sG[kMaxBits];
   const int tn = 1 << tile_bits;
@@ -390,24 +402,45 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, bool First>
-int launch_tiled(const void* v0, void* out, const void* x, void* phi,
+template <typename T, bool First, bool Loaded>
+int launch_tiled_as(const void* v0, void* out, const void* x, void* phi,
                  const void* dmb, const void* G, const void* w, int L,
                  int64_t n, int tile_bits, int bits, T s, T a, T a0,
-                 void* stream) {
+                 const void* a_ptr, const void* a0_ptr, void* stream) {
   using V = typename Complex<T>::type;
   if (L < 1 || L > kMaxBits || n != (int64_t(1) << L) || bits < 0 ||
       bits > L || tile_bits < 0 || tile_bits > L)
     return int(cudaErrorInvalidValue);
   const int64_t bytes = (int64_t(1) << tile_bits) * int64_t(sizeof(V));
   if (bytes < 16 || bytes > kMaxSmem) return int(cudaErrorInvalidValue);
-  const cudaError_t rc = allow_smem(cheby_flip_tiled<T, First>, int(bytes));
+  const cudaError_t rc =
+      allow_smem(cheby_flip_tiled<T, First, Loaded>, int(bytes));
   if (rc != cudaSuccess) return int(rc);
-  cheby_flip_tiled<T, First><<<int(n >> tile_bits), kTiledThreads,
-                               int(bytes), (cudaStream_t)stream>>>(
+  cheby_flip_tiled<T, First, Loaded><<<int(n >> tile_bits), kTiledThreads,
+                                       int(bytes), (cudaStream_t)stream>>>(
       (const V*)v0, (V*)out, (const V*)x, (V*)phi, (const T*)dmb,
-      (const T*)G, (const V*)w, tile_bits, bits, s, a, a0);
+      (const T*)G, (const V*)w, tile_bits, bits, s, a, a0, (const T*)a_ptr,
+      (const T*)a0_ptr);
   return int(cudaGetLastError());
+}
+
+// The tiled pass with its coefficients as scalars (both pointers null) or
+// read on the device (a_ptr, and for the setup a0_ptr, given).
+template <typename T, bool First>
+int launch_tiled(const void* v0, void* out, const void* x, void* phi,
+                 const void* dmb, const void* G, const void* w, int L,
+                 int64_t n, int tile_bits, int bits, T s, T a, T a0,
+                 const void* a_ptr, const void* a0_ptr, void* stream) {
+  if (a_ptr == nullptr) {
+    if (a0_ptr != nullptr) return int(cudaErrorInvalidValue);
+    return launch_tiled_as<T, First, false>(v0, out, x, phi, dmb, G, w, L, n,
+                                            tile_bits, bits, s, a, a0,
+                                            nullptr, nullptr, stream);
+  }
+  if (First && a0_ptr == nullptr) return int(cudaErrorInvalidValue);
+  return launch_tiled_as<T, First, true>(v0, out, x, phi, dmb, G, w, L, n,
+                                         tile_bits, bits, s, a, a0, a_ptr,
+                                         a0_ptr, stream);
 }
 
 template <typename T>
@@ -452,38 +485,46 @@ int launch_high(const void* x, const void* G, const void* w,
 // the launch (0 on success).
 extern "C" {
 
-// The setup's tiled pass: v1 and Phi from v0.
+// The setup's tiled pass: v1 and Phi from v0.  a0_ptr / a1_ptr (may be
+// null): a0 / a1 read on the device instead.
 int cheby_flip_first_f32(const void* v0, void* v1, void* phi, const void* dmb,
                          const void* G, const void* w, int L, int64_t n,
                          int tile_bits, int bits, float s, float a0, float a1,
+                         const void* a0_ptr, const void* a1_ptr,
                          void* stream) {
   return launch_tiled<float, true>(nullptr, v1, v0, phi, dmb, G, w, L, n,
-                                   tile_bits, bits, s, a1, a0, stream);
+                                   tile_bits, bits, s, a1, a0, a1_ptr, a0_ptr,
+                                   stream);
 }
 
 int cheby_flip_first_f64(const void* v0, void* v1, void* phi, const void* dmb,
                          const void* G, const void* w, int L, int64_t n,
                          int tile_bits, int bits, double s, double a0,
-                         double a1, void* stream) {
+                         double a1, const void* a0_ptr, const void* a1_ptr,
+                         void* stream) {
   return launch_tiled<double, true>(nullptr, v1, v0, phi, dmb, G, w, L, n,
-                                    tile_bits, bits, s, a1, a0, stream);
+                                    tile_bits, bits, s, a1, a0, a1_ptr,
+                                    a0_ptr, stream);
 }
 
-// The iteration's tiled pass: v2 from v0 and v1, Phi updated.
+// The iteration's tiled pass: v2 from v0 and v1, Phi updated.  ak_ptr (may
+// be null): a_k read on the device instead.
 int cheby_flip_iter_f32(const void* v0, void* v2, const void* v1, void* phi,
                         const void* dmb, const void* G, const void* w, int L,
                         int64_t n, int tile_bits, int bits, float s2,
-                        float ak, void* stream) {
+                        float ak, const void* ak_ptr, void* stream) {
   return launch_tiled<float, false>(v0, v2, v1, phi, dmb, G, w, L, n,
-                                    tile_bits, bits, s2, ak, 0.0f, stream);
+                                    tile_bits, bits, s2, ak, 0.0f, ak_ptr,
+                                    nullptr, stream);
 }
 
 int cheby_flip_iter_f64(const void* v0, void* v2, const void* v1, void* phi,
                         const void* dmb, const void* G, const void* w, int L,
                         int64_t n, int tile_bits, int bits, double s2,
-                        double ak, void* stream) {
+                        double ak, const void* ak_ptr, void* stream) {
   return launch_tiled<double, false>(v0, v2, v1, phi, dmb, G, w, L, n,
-                                     tile_bits, bits, s2, ak, 0.0, stream);
+                                     tile_bits, bits, s2, ak, 0.0, ak_ptr,
+                                     nullptr, stream);
 }
 
 // The high pass of either: w_hi from x (v1 or v0) and the n_partners

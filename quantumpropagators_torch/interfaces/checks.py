@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..models.controls import (
+    control_time,
     discretize,
     discretize_on_midpoints,
     evaluate,
@@ -538,8 +539,7 @@ def check_parameterized_function(func, *, tlist, quiet: bool = False) -> bool:
         _err(quiet, "get_parameters(func) must alias func.parameters")
         ok = False
     try:
-        t = float(np.asarray(tlist)[0])
-        float(func(t))
+        float(func(control_time(np.asarray(tlist)[0])))
     except Exception as exc:
         _err(quiet, f"func(t) must return a float: {exc}")
         ok = False

@@ -11,6 +11,13 @@ are evaluated *once* at initialization into an ``(nt-1, n_terms)``
 coefficient table that is fed to jitted propagation steps as a plain
 array, so nothing here ever traces.
 
+A callable control is called at :func:`control_time` of a host time: a
+0-d float64 tensor, the port's counterpart of the JAX package's traced
+scalar, so that a control written in ``torch`` math (``torch.sin(t)``)
+takes it as a ``jnp.sin`` control takes a tracer, and ``numpy``,
+``math`` and Python branches compute on it the values (and ``numpy``
+the types) they compute on the float.
+
 Index convention: intervals are 0-based here (``n`` in ``0..nt-2``),
 unlike the 1-based Julia reference.
 """
@@ -20,10 +27,12 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
 from ..utils.iddict import IdDict
 
 __all__ = [
+    "control_time",
     "discretize",
     "discretize_on_midpoints",
     "get_tlist_midpoints",
@@ -38,6 +47,56 @@ __all__ = [
 
 def _as_float_array(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float64)
+
+
+class _Time(torch.Tensor):
+    """A 0-d float64 tensor that ``numpy`` takes as the float it holds:
+    an array times it is the array ``numpy`` makes of the float (a
+    tensor's priority would refuse the product), and a ufunc of it
+    returns the ``numpy`` scalar (a tensor's ``__array_wrap__`` would
+    return a tensor, with a deprecation warning from NumPy 2).  A true
+    division by zero raises as the float's does (a tensor's gives inf).
+    ``torch`` math on it returns tensors."""
+
+    __array_priority__ = -1
+
+    def __array_wrap__(self, array, context=None, return_scalar=False):
+        return array[()] if array.ndim == 0 else array
+
+    def __truediv__(self, other):
+        if _is_zero(other):
+            return float(self) / 0.0  # raises ZeroDivisionError
+        return super().__truediv__(other)
+
+    def __rtruediv__(self, other):
+        if _is_zero(self):
+            return other / 0.0  # raises for a Python number
+        return super().__rtruediv__(other)
+
+
+def _is_zero(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.dim() == 0 and x.device.type == "cpu" and bool(x == 0)
+    return isinstance(x, (int, float, complex)) and x == 0
+
+
+def control_time(t) -> torch.Tensor:
+    """The host time ``t`` as every callable control is called with it: a
+    0-d float64 tensor on the CPU (``float`` of it is ``t`` exactly)."""
+    return torch.tensor(float(t), dtype=torch.float64).as_subclass(_Time)
+
+
+def _value(x):
+    """A control's value, a 0-d tensor as the Python number it holds (a
+    ``numpy`` ufunc of a tensor returns a tensor)."""
+    if isinstance(x, torch.Tensor) and x.dim() == 0:
+        return x.item()
+    return x
+
+
+def _on_times(control, times) -> np.ndarray:
+    return np.array([float(control(control_time(t))) for t in times],
+                    dtype=np.float64)
 
 
 def get_tlist_midpoints(
@@ -100,7 +159,7 @@ def discretize(control, tlist, *, via_midpoints: bool = True) -> np.ndarray:
         if via_midpoints:
             vals_on_midpoints = discretize_on_midpoints(control, tlist)
             return discretize(vals_on_midpoints, tlist)
-        return np.array([float(control(t)) for t in tlist], dtype=np.float64)
+        return _on_times(control, tlist)
     control = _as_float_array(control)
     if control.ndim != 1:
         raise ValueError("control array must be one-dimensional")
@@ -131,8 +190,7 @@ def discretize_on_midpoints(control, tlist) -> np.ndarray:
     tlist = _as_float_array(tlist)
     nt = len(tlist)
     if callable(control):
-        midpoints = get_tlist_midpoints(tlist)
-        return np.array([float(control(t)) for t in midpoints], dtype=np.float64)
+        return _on_times(control, get_tlist_midpoints(tlist))
     control = _as_float_array(control)
     if control.ndim != 1:
         raise ValueError("control array must be one-dimensional")
@@ -184,10 +242,10 @@ def evaluate(obj: Any, *args, vals_dict: IdDict | None = None):
         return _evaluate_tuple_generator(obj, *args, vals_dict=vals_dict)
     if callable(obj):
         if len(args) == 1:
-            return obj(float(args[0]))
+            return _value(obj(control_time(args[0])))
         if len(args) == 2:
             tlist, n = args
-            return obj(t_mid(tlist, int(n)))
+            return _value(obj(control_time(t_mid(tlist, int(n)))))
         raise TypeError("evaluate(control, ...) takes `t` or `(tlist, n)`")
     if isinstance(obj, (list, np.ndarray)) and np.ndim(obj) == 1:
         if len(args) != 2:

@@ -33,16 +33,18 @@ NVCC_FLAGS = (
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # v0, v1, phi, dmb, G, w, L, n, tile_bits, bits, s, a0, a1, stream
+    # v0, v1, phi, dmb, G, w, L, n, tile_bits, bits, s, a0, a1, a0_ptr,
+    # a1_ptr, stream
     "cheby_flip_first_f32": [_P] * 6 + [_I, _L, _I, _I]
-                            + [ctypes.c_float] * 3 + [_P],
+                            + [ctypes.c_float] * 3 + [_P] * 3,
     "cheby_flip_first_f64": [_P] * 6 + [_I, _L, _I, _I]
-                            + [ctypes.c_double] * 3 + [_P],
-    # v0, v2, v1, phi, dmb, G, w, L, n, tile_bits, bits, s2, ak, stream
+                            + [ctypes.c_double] * 3 + [_P] * 3,
+    # v0, v2, v1, phi, dmb, G, w, L, n, tile_bits, bits, s2, ak, ak_ptr,
+    # stream
     "cheby_flip_iter_f32": [_P] * 7 + [_I, _L, _I, _I]
-                           + [ctypes.c_float] * 2 + [_P],
+                           + [ctypes.c_float] * 2 + [_P] * 2,
     "cheby_flip_iter_f64": [_P] * 7 + [_I, _L, _I, _I]
-                           + [ctypes.c_double] * 2 + [_P],
+                           + [ctypes.c_double] * 2 + [_P] * 2,
     # v1, G, w, partners (host array of device pointers), n_partners, out,
     # L, n, h, line_bits, stream
     "cheby_flip_high_f32": [_P] * 3 + [ctypes.POINTER(_P), _I, _P, _I, _L,

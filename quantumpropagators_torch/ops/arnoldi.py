@@ -19,11 +19,16 @@ basis in its own memory pool, so it lives no longer than its owner: an
 propagator for its steps, by the spectral envelope for its two
 ``specrange`` calls, or by one ``newton_apply`` call for its restarts.
 A site lends its basis: the basis a call returns is the graph's own,
-valid until the scope's next call, and a key's first call runs
-eagerly, its capture waiting for the second, so that a scope never
-holds two bases.  A host matrix among the terms is copied onto the
-state's device once a scope (:class:`~.operators.DeviceCopies`).  A
-call outside every scope runs the body once, as there is nothing to
+valid until the site's next call, and a key's first call runs eagerly,
+its capture waiting for the second, so that a site never holds two
+bases.  A scope has a site for each ``m`` it is called with (one,
+unless a restart after a Krylov breakdown or ``expv``'s doubling asks
+for a smaller or larger basis), so that alternating dimensions replay
+their graphs instead of capturing anew.  The same scope holds the sites
+that read a lent basis in place (Newton's restart tail, ``expv``'s
+combine).  A host matrix among the terms is copied onto the state's
+device once a scope (:class:`~.operators.DeviceCopies`).  A call
+outside every scope runs the body once, as there is nothing to
 replay.
 
 The state may be sharded: with an operator that carries a shard-slot
@@ -138,30 +143,47 @@ def _arnoldi_impl(op, amps, psi, m: int, dt, norm_min, extended: bool,
 
 
 class ArnoldiSites:
-    """The graphed Arnoldi sites of one owner (a propagator, one
-    spectral envelope, one ``newton_apply``): one lending
-    :func:`~..utils.scan.graphed` site per body, each capturing into a
-    pool of its own, so that dropping the owner frees its bases, and
-    the owner's copies of host terms on the device (:attr:`copies`)."""
+    """The graphed Krylov sites of one owner (a propagator, one spectral
+    envelope, one ``newton_apply``): the Arnoldi calls, Newton's restart
+    tail, ``expv``'s combine and the standalone dd Chebyshev applies,
+    each a :func:`~..utils.scan.graphed` site capturing into a pool of
+    its own, so that dropping the owner frees its bases and graphs, and
+    the owner's copies of host terms on the device (:attr:`copies`).
+
+    A site holds one graph, and a call with another key captures anew,
+    so a body gets a site for each ``part`` it is called with (the
+    Krylov dimension: a restart after a breakdown, ``expv``'s doubled
+    ``m``), and each captures once however the parts alternate."""
 
     def __init__(self):
         self._sites = {}
         self.copies = DeviceCopies()
 
-    def site(self, body, **how):
-        """The graphed site of ``body`` (made at its first use with
-        :func:`~..utils.scan.graphed`'s keywords ``how``)."""
-        if body not in self._sites:
+    def site(self, body, part=None, **how):
+        """The graphed site of ``body`` for ``part`` (made at its first
+        use with :func:`~..utils.scan.graphed`'s keywords ``how``; by
+        default a lending site reading ``op`` in place)."""
+        if (body, part) not in self._sites:
             from ..utils.scan import graphed
 
-            self._sites[body] = graphed(body, operators=("op",),
-                                        own_pool=True, lend=True, **how)
-        return self._sites[body]
+            how = {"operators": ("op",), "own_pool": True, "lend": True,
+                   **how}
+            self._sites[body, part] = graphed(body, **how)
+        return self._sites[body, part]
 
     @property
     def captures(self) -> int:
         """The captures of all its sites."""
         return sum(s.captures for s in self._sites.values())
+
+    def captures_of(self, *bodies) -> int:
+        """The captures of the sites of ``bodies``, over all parts."""
+        return sum(s.captures for (body, _), s in self._sites.items()
+                   if body in bodies)
+
+    def parts(self, body) -> list:
+        """The parts ``body`` has a site for."""
+        return [part for b, part in self._sites if b is body]
 
 
 #: the :class:`ArnoldiSites` of the innermost :func:`arnoldi_sites` block
@@ -185,15 +207,23 @@ def arnoldi_sites(sites=None):
         _SCOPE.reset(token)
 
 
-def graphed_call(body, how, mesh, *args):
+def graphed_call(body, how, mesh, *args, part=None):
     """``body(*args)`` through the active scope's graphed site of
-    ``body`` (:func:`arnoldi_sites`; ``how`` names its controls), or run
-    once: outside every scope, and on a ``mesh`` whose group spans more
-    than one rank."""
+    ``body`` for ``part`` (:meth:`ArnoldiSites.site`; ``how`` names its
+    controls), or run once: outside every scope, and on a ``mesh`` whose
+    group spans more than one rank."""
     sites = _SCOPE.get()
     if sites is None or (mesh is not None and mesh.world_size > 1):
         return body(*args)
-    return sites.site(body, **how)(*args)
+    return sites.site(body, part, **how)(*args)
+
+
+def _combine(x, q, k: int):
+    """``Σᵢ xᵢ qᵢ`` over the first ``k`` rows of the basis ``q`` for the
+    complex coordinates ``x`` (a host array, or a site's buffer on the
+    basis's device)."""
+    c = torch.as_tensor(x).to(q.device, q.dtype)
+    return torch.tensordot(c, q[:k], dims=1)
 
 
 def _read(Hess, m_eff):
@@ -215,7 +245,8 @@ def _arnoldi(op, psi, m: int, dt: float = 1.0, *, extended: bool = True,
     out = graphed_call(_arnoldi_impl, {"controls": ("amps", "dt",
                                                     "norm_min")},
                        op_mesh(op), terms, amps, psi, int(m), float(dt),
-                       float(norm_min), bool(extended), bool(basis))
+                       float(norm_min), bool(extended), bool(basis),
+                       part=int(m))
     Hess, m_eff = _read(out[0], out[-1])
     return Hess, (out[1] if basis else None), m_eff
 

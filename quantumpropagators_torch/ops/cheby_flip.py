@@ -10,6 +10,10 @@ With ``dmb = d − β`` and ``c = i·s``:
   ``Φ += a_k·v2``, with ``v2`` written into ``out`` (default: ``v0``'s
   buffer) and ``Φ`` updated in place.
 
+The Φ weights ``a0``, ``a1``, ``a_k`` are numbers (kernel arguments) or
+0-d tensors of the state's real type on its device, which the kernels
+read there: coefficients that are data of a replayed graph.
+
 On the card each of them is two passes (:func:`flip_split` picks the
 split from ``L`` and the type): :func:`cheby_flip_high` sums the flips
 of the top ``h`` bits of ``v0`` (setup) or ``v1`` (order) into a scratch
@@ -265,8 +269,16 @@ def cheby_flip_iter_plain(v0, v1, phi, dmb, G, s2, ak, w=None, out=None,
     L = _check([v0, v1, phi, out] + _opt(w), dmb, G, partners)
     v2 = (1j * s2) * _shifted_h(v1, dmb, G, w, partners, L) + v0
     out.copy_(v2)
-    phi.add_(v2, alpha=ak)
+    _accumulate(phi, v2, ak)
     return out
+
+
+def _accumulate(phi, v2, ak):
+    """``Φ += a_k·v2`` for a number or a 0-d tensor ``a_k``."""
+    if isinstance(ak, torch.Tensor):
+        phi.add_(v2 * ak)
+    else:
+        phi.add_(v2, alpha=ak)
 
 
 def cheby_flip_iter_low_plain(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
@@ -277,7 +289,7 @@ def cheby_flip_iter_low_plain(v0, v1, phi, dmb, G, s2, ak, bits, w=None,
     _check_bits(bits, 0, L)
     v2 = (1j * s2) * _shifted_h(v1, dmb, G, w, partners, bits) + v0
     out.copy_(v2)
-    phi.add_(v2, alpha=ak)
+    _accumulate(phi, v2, ak)
     return out
 
 
@@ -426,8 +438,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _coefficient(a, v):
+    """A Φ weight as the tiled kernels take it, ``(value, address)``: a
+    number by value, a 0-d tensor of the state's real type on its device
+    by address (read on the device, so that a replayed graph takes the
+    values the tensor holds then)."""
+    if not isinstance(a, torch.Tensor):
+        return float(a), None
+    if a.dim() != 0 or a.dtype != _TYPES[v.dtype][2] or a.device != v.device:
+        raise ValueError(
+            f"a coefficient tensor must be 0-d {_TYPES[v.dtype][2]} on "
+            f"{v.device}, got {tuple(a.shape)} {a.dtype} on {a.device}")
+    return 0.0, a.data_ptr()
+
+
 def _launch_first(v0, dmb, G, s, a0, a1, w, L, tile_bits, bits):
     ctype, suffix, _ = _TYPES[v0.dtype]
+    (a0, a0_ptr), (a1, a1_ptr) = _coefficient(a0, v0), _coefficient(a1, v0)
+    if (a0_ptr is None) != (a1_ptr is None):
+        raise ValueError("a0 and a1 must both be numbers or both tensors")
     v1 = torch.empty_like(v0)
     phi = torch.empty_like(v0)
     for x0, x1, p, d, wr in _slots(L, v0, v1, phi, dmb, w):
@@ -435,7 +464,7 @@ def _launch_first(v0, dmb, G, s, a0, a1, w, L, tile_bits, bits):
             f"cheby_flip_first_{suffix}", f"cheby_flip_first<{ctype}>",
             (x0.data_ptr(), x1.data_ptr(), p.data_ptr(), d.data_ptr(),
              G.data_ptr(), _ptr(wr), L, 1 << L, tile_bits, bits, float(s),
-             float(a0), float(a1)),
+             a0, a1, a0_ptr, a1_ptr),
             v0.device,
         )
     return v1, phi
@@ -443,12 +472,13 @@ def _launch_first(v0, dmb, G, s, a0, a1, w, L, tile_bits, bits):
 
 def _launch_iter(v0, v1, phi, dmb, G, s2, ak, w, out, L, tile_bits, bits):
     ctype, suffix, _ = _TYPES[v0.dtype]
+    ak, ak_ptr = _coefficient(ak, v0)
     for x0, o, x1, p, d, wr in _slots(L, v0, out, v1, phi, dmb, w):
         _launch(
             f"cheby_flip_iter_{suffix}", f"cheby_flip_iter<{ctype}>",
             (x0.data_ptr(), o.data_ptr(), x1.data_ptr(), p.data_ptr(),
              d.data_ptr(), G.data_ptr(), _ptr(wr), L, 1 << L, tile_bits,
-             bits, float(s2), float(ak)),
+             bits, float(s2), ak, ak_ptr),
             v0.device,
         )
 

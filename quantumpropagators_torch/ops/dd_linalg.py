@@ -297,7 +297,7 @@ def arnoldi_dd(op, psi, m: int, dt: float = 1.0, *,
     terms, amps = _split_dd(op)
     Hess, q, m_eff = graphed_call(
         _arnoldi_dd_impl, {"controls": ("amps", "dt")}, op_mesh(op), terms,
-        amps, psi, int(m), float(dt), float(norm_min))
+        amps, psi, int(m), float(dt), float(norm_min), part=int(m))
     Hess, m_eff = _read(Hess, m_eff)
     return Hess, q, m_eff
 

@@ -8,7 +8,10 @@ because the TPU has no float64.  Here it is a float64
 complex128 state by :meth:`~.operators.BSROperator.apply`, and the
 Chebyshev recurrence over it is :func:`.cheby.cheby_apply`, global phase
 ``exp(−iβ·dt)`` included (β = Δ/2 + E_min, nonzero for a generic
-envelope).
+envelope).  :func:`cheby_apply_dd_bsr` is a graphed site inside an
+:func:`~.arnoldi.arnoldi_sites` scope; :func:`bsr_apply_dd` stays one
+eager product a call (one product has nothing to replay) and is captured
+wherever a graph calls it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .arnoldi import graphed_call
 from .cheby import cheby_apply
 from .operators import BSROperator, as_tensor, bsr_from_scipy
 
@@ -96,10 +100,29 @@ def cheby_dd_recurrence(apply_cdd, psi, coeffs_hi, coeffs_lo, delta, e_min,
                        apply_fn=lambda _op, v: apply_cdd(v))
 
 
+def _cheby_dd_bsr_impl(op, psi, coeffs, delta, e_min, dt, forward):
+    """The body of :func:`cheby_apply_dd_bsr` (the JAX
+    ``_cheby_dd_bsr_impl``, jitted with ``shape_n``, ``delta``, ``e_min``,
+    ``dt`` and ``forward`` static): the recurrence over ``op``'s blocks
+    and columns read in place, the coefficients data."""
+    coeffs = torch.as_tensor(coeffs).to(psi.device, torch.float64)
+    return cheby_apply(op, psi, coeffs, delta, e_min, dt, forward=forward)
+
+
+#: the site of :func:`cheby_apply_dd_bsr` (see :data:`.df64._APPLY`)
+_APPLY = {"operators": ("op",), "controls": ("coeffs",), "lend": False}
+
+
 def cheby_apply_dd_bsr(op: BSROperator, psi, coeffs, delta, e_min,
                        dt) -> torch.Tensor:
     """``exp(-i H dt)|psi⟩`` in complex128 over a real blocked-ELL
-    operator; ``coeffs`` are host float64 Chebyshev coefficients."""
-    return cheby_apply(op, as_tensor(psi).to(torch.complex128),
-                       np.asarray(coeffs, dtype=np.float64), delta, e_min,
-                       dt, forward=dt > 0)
+    operator; ``coeffs`` are host float64 Chebyshev coefficients.  A
+    graphed site as :func:`.df64.cheby_apply_dd` is: inside an
+    :func:`~.arnoldi.arnoldi_sites` scope a call replays the scope's
+    graph (keyed on the operator's tensors and shape, ``delta``,
+    ``e_min``, ``dt`` and the coefficient count), outside every scope it
+    runs the body."""
+    return graphed_call(_cheby_dd_bsr_impl, _APPLY, None, op,
+                        as_tensor(psi).to(torch.complex128),
+                        np.asarray(coeffs, dtype=np.float64), float(delta),
+                        float(e_min), float(dt), dt > 0)

@@ -15,9 +15,11 @@ evaluated and ``m`` is doubled until it passes.
 
 A sharded state under an operator that carries the mesh goes through
 unchanged (see :mod:`.newton`).  Inside a propagator's step the Arnoldi
-call replays one CUDA graph of its :func:`.arnoldi.arnoldi_sites` scope;
-outside every scope it runs the body (one call, or one a doubled ``m``,
-has nothing to replay).
+call and the final combine (:func:`_expv_combine`, reading the lent
+basis in place) each replay one CUDA graph of its
+:func:`.arnoldi.arnoldi_sites` scope; outside every scope both run
+their bodies (one call, or one a doubled ``m``, has nothing to
+replay).
 """
 
 from __future__ import annotations
@@ -26,12 +28,21 @@ from typing import Optional
 
 import numpy as np
 import scipy.linalg
-import torch
 
-from .arnoldi import arnoldi
+from .arnoldi import _combine, arnoldi, graphed_call
 from .operators import sharded_dim, sharded_norm
 
 __all__ = ["expv_apply", "expv_apply_dd"]
+
+
+def _expv_combine(q, w, m: int):
+    """``Σᵢ wᵢ qᵢ`` over the first ``m`` rows of the basis ``q`` (the JAX
+    ``_combine_dd``)."""
+    return _combine(w, q, m)
+
+
+#: the combine's site: the lent basis read in place, the weights data
+_COMBINE = {"operators": ("q",), "controls": ("w",)}
 
 
 def _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max, N, mesh):
@@ -58,9 +69,12 @@ def _expv_loop(arnoldi_fn, psi, dt, m, func, tol, m_max, N, mesh):
                 m = min(2 * m, m_max, N)
                 del q  # before the next call makes its basis
                 continue
-        weights = torch.as_tensor(beta * np.asarray(E[:, 0], np.complex128))
-        return torch.tensordot(weights.to(q.device, q.dtype), q[:m_eff],
-                               dims=1)
+        weights = beta * np.asarray(E[:, 0], np.complex128)
+        # a lent result (the site's next call overwrites it) kept apart;
+        # the site captures at a key's second call, once the basis it
+        # reads is the Arnoldi site's own
+        return graphed_call(_expv_combine, _COMBINE, mesh, q, weights, m_eff,
+                            part=(len(q), m_eff)).clone()
 
 
 def expv_apply(

@@ -234,8 +234,15 @@ def flip_cheby_step(psi, dmb, G, coeffs, delta, e_min, dt, *,
     every order, the flips of bits held outside the state as
     :mod:`.cheby_flip` partners, summed inside the kernels' high pass;
     ``G`` then holds ``L`` local coefficients and one per partner.
+    ``coeffs``: a host array (kernel arguments) or a tensor (read on the
+    device: a replayed graph takes new coefficients).
     """
-    a = [float(x) for x in np.asarray(coeffs, dtype=np.float64)]
+    if isinstance(coeffs, torch.Tensor):
+        # data on the device: 0-d rows the kernels read there
+        c = coeffs.to(device=psi.device, dtype=dmb.dtype)
+        a = [c[k] for k in range(c.shape[0])]
+    else:
+        a = [float(x) for x in np.asarray(coeffs, dtype=np.float64)]
     beta = float(delta) / 2.0 + float(e_min)
     s = (-1.0 if forward else 1.0) * 2.0 / float(delta)
 

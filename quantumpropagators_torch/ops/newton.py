@@ -11,8 +11,13 @@ The O(N) work of a restart (the Arnoldi matvecs and Gram-Schmidt of
 state's device; the O(m²) bookkeeping (Hessenberg eigenvalues, greedy
 Leja ordering, divided differences, the small polynomial recurrences)
 stays on the host in complex128, and the host drives the restarts.
-Every restart's Arnoldi call replays one CUDA graph: the call's own
-:func:`.arnoldi.arnoldi_sites` scope, or its propagator's.
+Every restart replays two CUDA graphs of the call's own
+:func:`.arnoldi.arnoldi_sites` scope, or its propagator's: the Arnoldi
+call, and the restart's tail (:func:`_newton_tail`: the update of the
+accumulated state, the next start vector and the state's norm, reading
+the Arnoldi call's lent basis in place, a site per Krylov dimension).
+The host reads the Hessenberg matrix and the norm, as the JAX loop
+does.
 :func:`newton_apply_dd` is the same loop over a reference-accuracy
 operator (:mod:`.dd_linalg`) with the state in complex128.
 
@@ -30,7 +35,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .arnoldi import arnoldi, arnoldi_sites, diagonalize_hessenberg_matrix
+from .arnoldi import (_combine, arnoldi, arnoldi_sites,
+                      diagonalize_hessenberg_matrix, graphed_call)
 from .operators import sharded_dim, sharded_norm
 
 __all__ = [
@@ -125,11 +131,18 @@ class NewtonInfo:
         self.matvecs = 0
 
 
-def _combine(x, q):
-    """``Σᵢ xᵢ qᵢ`` for host complex128 coordinates ``x`` over the leading
-    axis of the basis ``q``."""
-    c = torch.as_tensor(np.asarray(x, np.complex128)).to(q.device, q.dtype)
-    return torch.tensordot(c, q[: len(c)], dims=1)
+def _newton_tail(q, P, R, Psi, m: int, mesh):
+    """The restart tail (the JAX ``_newton_update_dd``; for the native
+    precision ``_accumulate`` and ``_norm``): ``Psi + Σᵢ Pᵢ qᵢ`` over the
+    first ``m`` rows of the basis ``q``, the next start vector
+    ``Σᵢ Rᵢ qᵢ`` over ``m + 1`` rows (``R`` normalized on the host), and
+    the new ``Psi``'s norm (over every slot with a ``mesh``)."""
+    Psi = Psi + _combine(P, q, m)
+    return Psi, _combine(R, q, m + 1), sharded_norm(Psi, mesh)
+
+
+#: the tail's site: the lent basis read in place, the coordinates data
+_TAIL = {"operators": ("q",), "controls": ("P", "R")}
 
 
 def _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
@@ -193,19 +206,22 @@ def _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
             R = (Hm @ R - z * R) / radius
             P += a[n_s + k] * R
 
-        delta = _combine(P[:m], q)
-        Psi = delta if Psi is None else Psi + delta
-
         # next restart vector: last Newton basis polynomial applied to v
         R = (Hm @ R - leja[n_s + m - 1] * R) / radius
         beta = float(np.linalg.norm(R))
+
+        # the tail, one graph a restart: Psi's update, the next vector and
+        # ‖Psi‖ (computed also where the native loop breaks first, unused)
+        if Psi is None:  # 0 + x is x: the first update is the expansion
+            Psi = torch.zeros(q.shape[1:], dtype=q.dtype, device=q.device)
+        Psi, v, norm = graphed_call(
+            _newton_tail, _TAIL, mesh, q, P[:m], R / beta if beta > 0 else R,
+            Psi, m, mesh, part=(len(q), m))
+        del q  # a lent basis: the next restart's call overwrites it
         if beta <= norm_min:
             break  # residual vanished: expansion is exact
-        v = _combine(R / beta, q)
-        del q  # a lent basis: the next restart's call overwrites it
 
-        psi_relerr = beta * abs(a[n_leja - 1]) / (
-            1.0 + float(sharded_norm(Psi, mesh)))
+        psi_relerr = beta * abs(a[n_leja - 1]) / (1.0 + float(norm))
         if psi_relerr < relerr:
             break
         s += 1
@@ -218,7 +234,7 @@ def _newton_loop(arnoldi_fn, psi, dt, func, m_max, norm_min, relerr,
     info.n_leja = len(leja)
     info.n_a = len(a)
     info.radius = radius
-    return Psi
+    return Psi.clone()  # the tail lends it: its next call overwrites it
 
 
 def newton_apply(

@@ -46,12 +46,10 @@ import warnings
 import numpy as np
 import torch
 
-from ..models.controls import (discretize_on_midpoints, get_controls,
-                               get_tlist_midpoints)
+from ..models.controls import control_time
 from ..models.generators import Generator, Operator, _scalar
 from ..ops.ode import dopri5_integrate
 from ..ops.operators import DeviceCopies, apply, as_tensor, op_mesh
-from ..utils.iddict import IdDict
 from ..utils.scan import graphed
 from ..utils.timings import TimingData
 from .base import register_method
@@ -113,9 +111,9 @@ def _continuous_interval(amplitudes, ops, psi, t0, t1, rtol, atol,
 
 
 def _at_host_time(amplitude):
-    """``amplitude`` called with the stage time on the CPU, where host
-    math (``numpy``, ``math``, a branch on ``t``) takes it."""
-    return lambda t: amplitude(t.cpu())
+    """``amplitude`` called with the stage time at :func:`control_time`,
+    where host math (``numpy``, ``math``, a branch on ``t``) takes it."""
+    return lambda t: amplitude(control_time(t))
 
 
 def _check_amplitudes(generator, t):
@@ -134,24 +132,6 @@ def _check_amplitudes(generator, t):
                             f"number")
         values.append(value)
     return values
-
-
-def _time(t):
-    """``t`` as this variant's amplitudes take it: a 0-d float64 tensor
-    on the CPU."""
-    return torch.tensor(float(t), dtype=torch.float64)
-
-
-def _midpoint_parameters(generator, tlist) -> IdDict:
-    """The ``parameters`` dict of :class:`..pwc.IntervalStepper`, each
-    callable control called at :func:`_time` of the midpoints, as the
-    continuous integrator calls it: a ``torch.*`` control takes no Python
-    float, and the rule may send it to either variant."""
-    mids = get_tlist_midpoints(tlist)
-    return IdDict([
-        (c, np.array([float(c(_time(t))) for t in mids]) if callable(c)
-         else discretize_on_midpoints(c, tlist))
-        for c in get_controls(generator)])
 
 
 def _traceable(generator) -> bool:
@@ -209,8 +189,6 @@ class ODEPWCPropagator(_ODEBase, PWCPropagatorBase):
         max_steps: int = 100_000,
         **_ignored,
     ):
-        if parameters is None:
-            parameters = _midpoint_parameters(generator, tlist)
         PWCPropagatorBase.__init__(
             self, as_tensor(state), generator, tlist, backward=backward,
             parameters=parameters,
@@ -274,7 +252,7 @@ class ODEContinuousPropagator(_ODEBase, IntervalStepper):
         try:
             with torch.enable_grad():
                 values = _check_amplitudes(generator,
-                                           _time(np.asarray(tlist)[0]))
+                                           control_time(np.asarray(tlist)[0]))
         except Exception as exc:
             raise ValueError(
                 "Time-continuous ODE propagation evaluates H(t) at every "
@@ -283,8 +261,6 @@ class ODEContinuousPropagator(_ODEBase, IntervalStepper):
                 "`pwc=True` (piecewise-constant evaluation on interval "
                 f"midpoints). Underlying error: {exc}"
             ) from None
-        if parameters is None:
-            parameters = _midpoint_parameters(generator, tlist)
         IntervalStepper.__init__(
             self, state, generator, tlist, backward=backward, parameters=parameters
         )

@@ -218,23 +218,37 @@ def test_ode_propagator(pwc):
         assert np.linalg.norm(res.numpy() - np.asarray(want)) < 1e-10
 
 
-def test_ode_backward_and_fallback():
-    """test_expv_ode.py:106-115 (a ``numpy`` control with no flag: the
-    piecewise variant, as the JAX package's rule picks), and the fall
-    back to the piecewise variant when an amplitude is not a function of
-    t."""
+@pytest.mark.parametrize("control", ["numpy", "torch"])
+def test_ode_backward_and_fallback(control):
+    """test_expv_ode.py:106-115 with the default ``check``: a ``torch.sin``
+    control (the JAX test's ``jnp.sin``: it computes on an abstract time,
+    so the continuous variant, within 1e-12 of the JAX package's forward
+    state) and a ``numpy`` control with no flag (the piecewise variant,
+    as the JAX package's rule picks); and the fall back to the piecewise
+    variant when an amplitude is not a function of t."""
     rng = np.random.default_rng(55)
     N = 8
     H0 = _t(random_matrix(N, hermitian=True, spectral_radius=2, rng=rng))
-    gen = qt.hamiltonian(H0, (H0, lambda t: 0.1 * np.sin(t)))
+    sin = torch.sin if control == "torch" else np.sin
+    gen = qt.hamiltonian(H0, (H0, lambda t: 0.1 * sin(t)))
     tlist = np.linspace(0, 2, 21)
     psi0 = _t(random_state_vector(N, rng=rng))
-    with pytest.warns(UserWarning, match="piecewise"):
+    if control == "torch":
         prop = qt.init_prop(psi0, gen, tlist, method="ode")
-    assert isinstance(prop, qt.propagators.ode.ODEPWCPropagator)
+        assert isinstance(prop, qt.propagators.ode.ODEContinuousPropagator)
+    else:
+        with pytest.warns(UserWarning, match="piecewise"):
+            prop = qt.init_prop(psi0, gen, tlist, method="ode")
+        assert isinstance(prop, qt.propagators.ode.ODEPWCPropagator)
     fwd = qt.propagate(psi0, gen, tlist, method="ode")
     back = qt.propagate(fwd, gen, tlist, method="ode", backward=True)
     assert np.linalg.norm(back.numpy() - psi0.numpy()) < 1e-7
+    if control == "torch":
+        H = jnp.asarray(H0.numpy())
+        jgen = qp.hamiltonian(H, (H, lambda t: 0.1 * jnp.sin(t)))
+        want = qp.propagate(jnp.asarray(psi0.numpy()), jgen, tlist,
+                            method="ode")
+        assert np.linalg.norm(fwd.numpy() - np.asarray(want)) < 1e-12
     vals = np.linspace(0.0, 0.1, 20)  # midpoint values: not callable
     gen2 = qt.hamiltonian(H0, (H0, vals))
     with warnings.catch_warnings(record=True) as w:

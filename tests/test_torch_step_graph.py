@@ -23,7 +23,9 @@ needs:
   Arnoldi calls of Newton restarts (in a propagator and in one
   ``newton_apply``), of expv steps and of the envelope's two
   ``specrange`` calls capture once per owner, at a key's second call,
-  and lend their basis; host matrices among the terms are copied onto
+  and lend their basis (which Newton's restart tail and ``expv``'s
+  combine read, each captured once a Krylov dimension:
+  ``test_torch_krylov_graph.py``); host matrices among the terms are copied onto
   the state's device once, not at every matvec inside a graph; a
   generator sharded over more than one rank captures nothing; every
   result equals the body's bit for bit.
@@ -46,6 +48,7 @@ from quantumpropagators.ops import df64 as jdf
 from quantumpropagators.propagators.cheby import _cheby_step as jax_step
 from quantumpropagators_torch.models.generators import Operator
 from quantumpropagators_torch.ops import arnoldi as tarn
+from quantumpropagators_torch.ops.arnoldi import ArnoldiSites
 from quantumpropagators_torch.ops import dd_linalg as tdd
 from quantumpropagators_torch.ops.bsr_dd import banded_dd_from_bsr
 from quantumpropagators_torch.ops.cheby import cheby_coeffs
@@ -337,8 +340,19 @@ def test_arnoldi_site_replays_across_steps(monkeypatch, method, precision):
     _on_the_card(monkeypatch)
     prop = qt.init_prop(psi, gen, tlist, **kw)
     graph = _run(prop, psi)
-    assert prop._arnoldi_sites.captures == 1
+    _captured_once(prop._arnoldi_sites, method)
     assert all(torch.equal(g, e) for g, e in zip(graph, eager))
+
+
+def _captured_once(sites, method):
+    """The Arnoldi site of a propagator's scope captured once, and the
+    site that reads its lent basis (Newton's tail, ``expv``'s combine)
+    once for each Krylov dimension it met."""
+    from quantumpropagators_torch.ops import expv, newton
+
+    assert sites.captures_of(tarn._arnoldi_impl, tdd._arnoldi_dd_impl) == 1
+    tail = newton._newton_tail if method == "newton" else expv._expv_combine
+    assert sites.captures_of(tail) == len(sites.parts(tail)) >= 1
 
 
 def test_envelope_calls_share_one_key(monkeypatch):
@@ -381,8 +395,13 @@ def test_function_operators_get_sites_of_their_own(monkeypatch):
 def test_standalone_newton_restarts_replay_a_lent_basis(monkeypatch):
     """One ``newton_apply`` outside every propagator opens its own scope:
     its first restart runs eagerly, the second captures, every later one
-    replays, and each returns the site's own basis (no clone)."""
-    from quantumpropagators_torch.ops.newton import NewtonInfo, newton_apply
+    replays, and each returns the site's own basis (no clone).  The
+    restart tail reads that basis: its site captures once, at its third
+    call (the second whose basis is the Arnoldi site's own), and replays
+    after."""
+    from quantumpropagators_torch.ops.newton import (NewtonInfo,
+                                                     _newton_tail,
+                                                     newton_apply)
 
     rng = np.random.default_rng(18)
     N = 32
@@ -399,10 +418,15 @@ def test_standalone_newton_restarts_replay_a_lent_basis(monkeypatch):
 
     _on_the_card(monkeypatch)
     monkeypatch.setattr("quantumpropagators_torch.ops.newton.arnoldi", kept)
+    scopes = []
+    monkeypatch.setattr(tarn, "ArnoldiSites",
+                        lambda: scopes.append(ArnoldiSites()) or scopes[-1])
     before, info = _Replayed.replays, NewtonInfo()
     got = newton_apply(op, psi, 1.0, m_max=5, info=info)
     assert info.restarts >= 3 and len(bases) == info.restarts + 1
-    assert _Replayed.replays - before == len(bases) - 1
+    (sites,) = scopes
+    assert sites.captures_of(_newton_tail) == 1
+    assert _Replayed.replays - before == (len(bases) - 1) + (len(bases) - 2)
     assert bases[1] is bases[-1] and bases[0] is not bases[1]
     assert torch.equal(got, want)
 
@@ -424,8 +448,10 @@ def test_host_matrices_are_copied_once(monkeypatch, method):
     _on_the_card(monkeypatch)
     prop = qt.init_prop(psi, gen, tlist, **kw)
     graph = _run(prop, psi)
-    site = prop._step if method == "cheby" else prop._arnoldi_sites
-    assert site.captures == 1
+    if method == "cheby":
+        assert prop._step.captures == 1
+    else:
+        _captured_once(prop._arnoldi_sites, method)
     assert all(torch.equal(g, e) for g, e in zip(graph, eager))
 
 

@@ -12,15 +12,23 @@ warm-up propagation and then the median of 3 timed ones (each after
 ``reinit_prop``), for
 
 - ``transmon``: the N = 10 driven transmon ladder of ``bench.py:142-290``
-  (DIA terms), 100 Chebyshev intervals with ``check_normalization``;
+  (DIA terms), 100 Chebyshev intervals with ``check_normalization``,
+  and 20 ``newton`` and 20 ``expv`` intervals;
 - ``sparse``: the N = 1024 sparse Hermitian of ``bench.py:330-342``
   (spectral radius 10) with a diagonal drive, 100 Chebyshev intervals
-  with ``check_normalization``, and 20 ``newton`` intervals;
+  with ``check_normalization``, and 20 ``newton`` and 20 ``expv``
+  intervals;
 - ``banded20``: ``chip_smoke.banded20_operator`` at 2^20, 20 Chebyshev
   intervals at ``precision="dd"`` with its band planes as
   ``dd_operator_terms`` (dt from the envelope, as phase 7), and 5
-  ``newton`` dd intervals; beside them the seconds of the Chebyshev
-  propagator's initialization (its m = 60 spectral envelope).
+  ``newton`` dd and 5 ``expv`` dd intervals; beside them the seconds of
+  the Chebyshev propagator's initialization (its m = 60 spectral
+  envelope);
+- the standalone dd applies, ms a call inside one
+  ``ops.arnoldi.arnoldi_sites`` scope (3 calls first, then 20 timed):
+  ``cheby_apply_dd`` on the diagonal of the L = 20 chain of
+  ``chip_smoke.tfim_generator`` and ``cheby_apply_dd_bsr`` on the
+  optomech chain of ``bench_torch.py:602-622`` at R = 16.
 
 The runs go through the trees and back (parent, change, change, parent
 for two), ``N`` times over.  Prints one JSON line per run and the
@@ -75,6 +83,9 @@ psi = torch.as_tensor(np.eye(N)[0].astype(complex), device=device)
 tlist = np.linspace(0.0, 10.0, 101)
 steps_s["transmon cheby"] = rate(qt.init_prop(
     psi, gen, tlist, method="cheby", check_normalization=True), psi, 100)
+for method in ("newton", "expv"):
+    steps_s[f"transmon {method}"] = rate(qt.init_prop(
+        psi, gen, tlist[:21], method=method), psi, 20)
 
 N = 1024
 rng = np.random.default_rng(42)
@@ -92,8 +103,9 @@ gen = qt.hamiltonian(qt.csr_from_scipy(H, device=device),
                       lambda t: 0.5 * float(np.cos(2.0 * t))))
 steps_s["sparse cheby"] = rate(qt.init_prop(
     psi, gen, tlist, method="cheby", check_normalization=True), psi, 100)
-steps_s["sparse newton"] = rate(qt.init_prop(
-    psi, gen, tlist[:21], method="newton"), psi, 20)
+for method in ("newton", "expv"):
+    steps_s[f"sparse {method}"] = rate(qt.init_prop(
+        psi, gen, tlist[:21], method=method), psi, 20)
 
 op = cs.banded20_operator(device)
 psi = cs.random_state(20, torch.complex128, device, cs.SEED + 50)
@@ -111,10 +123,60 @@ torch.cuda.synchronize()
 init_s["banded20 cheby dd"] = time.perf_counter() - t0
 steps_s["banded20 cheby dd"] = rate(prop, psi, 20)
 del prop
-steps_s["banded20 newton dd"] = rate(qt.init_prop(
-    psi, op, tlist[:6], method="newton", precision="dd",
-    dd_operator_terms=(banded,)), psi, 5)
-print(json.dumps({"steps_s": steps_s, "init_s": init_s}))
+for method in ("newton", "expv"):
+    steps_s[f"banded20 {method} dd"] = rate(qt.init_prop(
+        psi, op, tlist[:6], method=method, precision="dd",
+        dd_operator_terms=(banded,)), psi, 5)
+del op, banded, psi
+
+from quantumpropagators_torch.ops.arnoldi import ArnoldiSites, arnoldi_sites
+from quantumpropagators_torch.ops.cheby import cheby_coeffs
+from quantumpropagators_torch.ops.df64 import cheby_apply_dd
+from quantumpropagators_torch.ops.df64_sparse import (bsr_dd_from_scipy,
+                                                      cheby_apply_dd_bsr)
+
+
+def apply_ms(call):
+    with arnoldi_sites(ArnoldiSites()):
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / 20
+
+
+apply_ms_s = {}
+H_diag, _ = cs.tfim_generator(20, device)
+diag = H_diag.diag.real.to(torch.float64).contiguous()
+bound = float(diag.abs().max()) + 20 * cs.G_FIELD
+psi = cs.random_state(20, torch.complex128, device, cs.SEED + 260)
+c = cheby_coeffs(2 * bound, cs.DT)
+apply_ms_s["cheby_apply_dd L=20"] = apply_ms(lambda: cheby_apply_dd(
+    psi, diag, [cs.G_FIELD] * 20, c, 2 * bound, -bound, cs.DT, L=20))
+rng = np.random.default_rng(1)
+R, b = 16, 64
+blocks, rows, cols = [], [], []
+for r in range(R):
+    for k in (r - 1, r, r + 1):
+        if 0 <= k < R:
+            rows.append(r)
+            cols.append(k)
+            blocks.append(rng.standard_normal((b, b)))
+indptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=R))])
+H2 = sp.bsr_matrix((np.stack(blocks), np.asarray(cols), indptr),
+                   shape=(R * b, R * b)).tocsr()
+H2 = (0.5 * (H2 + H2.T)).tocsr()
+op2 = bsr_dd_from_scipy(H2, block_size=b, device=device)
+bound2 = float(np.abs(H2).sum(axis=1).max())
+psi2 = cs.random_state(10, torch.complex128, device, cs.SEED + 261)
+c2 = cheby_coeffs(2 * bound2, 0.02)
+apply_ms_s["cheby_apply_dd_bsr R=16"] = apply_ms(lambda: cheby_apply_dd_bsr(
+    op2, psi2, c2, 2 * bound2, -bound2, 0.02))
+print(json.dumps({"steps_s": steps_s, "init_s": init_s,
+                  "apply_ms": apply_ms_s}))
 """
 
 
